@@ -1,0 +1,57 @@
+"""Carry the JAX package's state into the port.
+
+Blocks travel as ``(lo, hi, owner, block_id)`` tuples — how the JAX
+package's ``Block`` fields and ``index.json`` store them — and arrays as
+numpy.  bfloat16 crosses through a 16-bit integer view, so it stays
+bit-exact without ``ml_dtypes``.  Datasets on disk need nothing: either
+package opens a directory the other wrote.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Mapping
+
+import numpy as np
+import torch
+
+from .core.blocks import Block
+from .device import resolve_device
+
+__all__ = ["blocks_from_records", "tensors_from_numpy", "to_tensor",
+           "to_numpy"]
+
+
+def blocks_from_records(records: Iterable) -> list:
+    """Port :class:`~repro_torch.core.blocks.Block`s from
+    ``(lo, hi, owner, block_id)`` tuples."""
+    return [Block(tuple(int(v) for v in lo), tuple(int(v) for v in hi),
+                  owner=int(owner), block_id=int(bid))
+            for lo, hi, owner, bid in records]
+
+
+def to_tensor(arr: np.ndarray, device="cuda") -> torch.Tensor:
+    """One ndarray as a tensor on ``device`` (bfloat16 bit-exact)."""
+    dev = resolve_device(device)
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(dev)
+
+
+def tensors_from_numpy(data: Mapping[int, np.ndarray],
+                       device="cuda") -> dict:
+    """block_id -> ndarray  to  block_id -> tensor on ``device``."""
+    return {bid: to_tensor(arr, device) for bid, arr in data.items()}
+
+
+def to_numpy(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """The inverse: a host ndarray with the tensor's bytes.  A bfloat16
+    tensor comes back as its int16 bit pattern unless ``dtype`` (e.g.
+    ``ml_dtypes.bfloat16``) names the type to view it as."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    arr = t.numpy()
+    return arr if dtype is None else arr.view(dtype)

@@ -1,0 +1,25 @@
+"""The port's kernels: hand-written CUDA for Hopper, with plain PyTorch
+versions beside them (:mod:`.ref`) and a launch count on every wrapper."""
+
+from .ops import merge_blocks_device, split_merged
+from .pack_blocks import pack_rows
+from .relayout import chunked_to_rowmajor, rowmajor_to_chunked
+
+__all__ = ["merge_blocks_device", "split_merged", "pack_rows",
+           "chunked_to_rowmajor", "rowmajor_to_chunked", "WRAPPERS",
+           "launch_counts", "reset_launch_counts"]
+
+#: every kernel wrapper, by kernel name
+WRAPPERS = {"pack_rows": pack_rows,
+            "chunked_to_rowmajor": chunked_to_rowmajor,
+            "rowmajor_to_chunked": rowmajor_to_chunked}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,148 @@
+"""Plain PyTorch versions of the three copy kernels, and the lowering of a
+:class:`~repro_torch.core.merge.MergePlan` to the row tables they take.
+
+The plain versions are the oracles: the CPU tests run them against the JAX
+package's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds each
+CUDA kernel to them on the card.  The kernel wrappers run them only for
+tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core.merge import MergePlan
+
+__all__ = ["pack_rows_ref", "chunked_to_rowmajor_ref",
+           "rowmajor_to_chunked_ref", "plan_row_tables"]
+
+
+def pack_rows_ref(src: torch.Tensor, src_rows: torch.Tensor,
+                  dst_rows: torch.Tensor, *, n_dst_rows: int,
+                  width: int) -> torch.Tensor:
+    """``dst[dst_rows[i]] = src.view(-1, width)[src_rows[i]]`` into a fresh
+    zeroed ``(n_dst_rows, width)`` tensor (``dst_rows`` are distinct)."""
+    src2 = src.reshape(-1, width)
+    out = torch.zeros((n_dst_rows, width), dtype=src.dtype,
+                      device=src.device)
+    out[dst_rows.long()] = src2[src_rows.long()]
+    return out
+
+
+def chunked_to_rowmajor_ref(chunks: torch.Tensor) -> torch.Tensor:
+    """``(n_i, n_j, ch, cw)`` stored chunks -> ``(n_i*ch, n_j*cw)``, one
+    ``(ch, cw)`` tile copy per chunk as the Pallas grid walks them."""
+    n_i, n_j, ch, cw = chunks.shape
+    out = torch.empty((n_i * ch, n_j * cw), dtype=chunks.dtype,
+                      device=chunks.device)
+    for i in range(n_i):
+        for j in range(n_j):
+            out[i * ch:(i + 1) * ch, j * cw:(j + 1) * cw] = chunks[i, j]
+    return out
+
+
+def rowmajor_to_chunked_ref(arr: torch.Tensor, chunk) -> torch.Tensor:
+    """Inverse: ``(H, W)`` -> ``(H/ch, W/cw, ch, cw)``, one tile per chunk."""
+    H, W = arr.shape
+    ch, cw = chunk
+    n_i, n_j = H // ch, W // cw
+    out = torch.empty((n_i, n_j, ch, cw), dtype=arr.dtype,
+                      device=arr.device)
+    for i in range(n_i):
+        for j in range(n_j):
+            out[i, j] = arr[i * ch:(i + 1) * ch, j * cw:(j + 1) * cw]
+    return out
+
+
+# -- plan lowering -------------------------------------------------------------
+
+def _row_major_strides(shape) -> list:
+    strides = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * shape[d + 1]
+    return strides
+
+
+def plan_row_tables(plan: MergePlan, block_order=None,
+                    max_width: int = 4096) -> tuple:
+    """Lower a MergePlan to ``(width, src_rows, dst_rows, dst_elems,
+    src_layout)`` for :func:`repro_torch.kernels.pack_blocks.pack_rows`.
+
+    Source layout: the blocks' data concatenated flat in ``block_order``
+    (default: ascending block_id).  Destination: the merged buffers
+    concatenated in cluster order.  Every contiguous run on both sides —
+    one per leading index of each block — is decomposed into
+    ``width``-wide rows with width = gcd of all run offsets/lengths (capped
+    at ``max_width``).  The runs of one block are generated with numpy, so
+    the cost is one vectorized pass per block, not a Python step per run;
+    the output equals the JAX package's reference lowering exactly.
+    """
+    blocks = {}
+    for op in plan.copies:
+        blocks[op.block_id] = op.src_block
+    order = block_order or sorted(blocks)
+    src_off = {}
+    pos = 0
+    for bid in order:
+        src_off[bid] = pos
+        pos += blocks[bid].volume
+    total_src = pos
+
+    dst_off = []
+    pos = 0
+    for cl in plan.clusters:
+        dst_off.append(pos)
+        pos += cl.cuboid.volume
+    total_dst = pos
+
+    # contiguous runs in copy order; within a copy, leading indices in
+    # row-major order: src start, dst start, length (the block's last axis)
+    starts_s, starts_d, lengths = [], [], []
+    for op in plan.copies:
+        b = op.src_block
+        cu = plan.clusters[op.dst_index].cuboid
+        inner = b.shape[-1]
+        dstr = _row_major_strides(cu.shape)
+        base = dst_off[op.dst_index] + sum(
+            (bl - cl) * s for bl, cl, s in zip(b.lo, cu.lo, dstr))
+        lead_off = np.zeros(1, dtype=np.int64)
+        for n, s in zip(b.shape[:-1], dstr[:-1]):
+            lead_off = (lead_off[:, None]
+                        + np.arange(n, dtype=np.int64)[None, :] * s
+                        ).reshape(-1)
+        n_lead = lead_off.size
+        starts_s.append(src_off[op.block_id]
+                        + np.arange(n_lead, dtype=np.int64) * inner)
+        starts_d.append(base + lead_off)
+        lengths.append(np.full(n_lead, inner, dtype=np.int64))
+    s = np.concatenate(starts_s) if starts_s else np.empty(0, np.int64)
+    d = np.concatenate(starts_d) if starts_d else np.empty(0, np.int64)
+    ln = np.concatenate(lengths) if lengths else np.empty(0, np.int64)
+
+    g = math.gcd(total_src, total_dst)
+    for arr in (s, d, ln):
+        if arr.size:
+            g = math.gcd(g, int(np.gcd.reduce(arr)))
+    g = max(g, 1)
+    # width: the largest divisor of g not exceeding max_width
+    width = g
+    while width > max_width:
+        # halve while possible, else fall back to the largest divisor
+        width = width // 2 if width % 2 == 0 else 1
+    if width == 1 and g > 1:
+        width = min(g, max_width)
+        while g % width:
+            width -= 1
+    if max(total_src, total_dst) // width > np.iinfo(np.int32).max:
+        raise OverflowError(f"{max(total_src, total_dst) // width} rows of "
+                            f"width {width} overflow the int32 row tables")
+    per_run = ln // width
+    first = np.cumsum(per_run) - per_run
+    k = np.arange(int(per_run.sum()), dtype=np.int64) \
+        - np.repeat(first, per_run)
+    src_rows = (np.repeat(s // width, per_run) + k).astype(np.int32)
+    dst_rows = (np.repeat(d // width, per_run) + k).astype(np.int32)
+    return width, src_rows, dst_rows, total_dst, src_off

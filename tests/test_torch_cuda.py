@@ -1,0 +1,78 @@
+"""The CUDA kernels on the card: each against its plain version,
+bit-exact, and the slice end to end through them.  Marked ``cuda``; they
+skip where there is no GPU (run them on one with
+``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as tc
+import repro_torch.kernels as K
+from repro_torch.core.blocks import Block
+from repro_torch.io import Dataset
+from repro_torch.kernels.ref import (chunked_to_rowmajor_ref, pack_rows_ref,
+                                     rowmajor_to_chunked_ref)
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int8)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n,width", [(32, 128), (64, 256), (16, 512),
+                                     (40, 3), (40, 7)])
+def test_pack_rows_kernel_matches_plain(cuda, dtype, n, width):
+    rng = np.random.default_rng([n, width])
+    src = torch.from_numpy(rng.integers(-100, 100, (n, width))
+                           .astype(np.float32)).to(dtype).to(cuda)
+    m = n + 8
+    sr = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+    dr = torch.from_numpy(rng.choice(m, n, replace=False)
+                          .astype(np.int32)).to(cuda)
+    before = K.pack_rows.launches
+    got = K.pack_rows(src, sr, dr, n_dst_rows=m, width=width)
+    assert K.pack_rows.launches == before + 1
+    assert torch.equal(got, pack_rows_ref(src, sr, dr, n_dst_rows=m,
+                                          width=width))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("grid,chunk", [((4, 2), (8, 128)),
+                                        ((2, 4), (16, 128)),
+                                        ((3, 3), (8, 256)), ((2, 3), (5, 3))])
+def test_relayout_kernels_match_plain(cuda, dtype, grid, chunk):
+    x = torch.randn((*grid, *chunk), device=cuda).to(dtype)
+    rm = K.chunked_to_rowmajor(x, chunk=chunk)
+    assert torch.equal(rm, chunked_to_rowmajor_ref(x))
+    back = K.rowmajor_to_chunked(rm, chunk=chunk)
+    assert torch.equal(back, rowmajor_to_chunked_ref(rm, chunk))
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("strategy", ["merged_process", "reorganized"])
+def test_slice_through_the_kernels(cuda, tmp_path, strategy):
+    shape = (256, 256)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (32, 32)), num_procs=8, seed=0)
+    field = torch.randn(shape, device=cuda)
+    data = {b.block_id: field[b.slices()].contiguous() for b in blocks}
+    layout = tc.plan_layout(strategy, blocks, num_procs=8)
+    K.reset_launch_counts()
+    ds = Dataset.create(str(tmp_path))
+    ds.write("E", layout, np.float32, data)
+    got, _ = ds.read("E", Block((0, 0), shape))
+    assert got.device == field.device and torch.equal(got, field)
+    counts = K.launch_counts()
+    assert counts["pack_rows"] >= 1
+    if strategy == "reorganized":
+        assert counts["rowmajor_to_chunked"] == 1
+        assert counts["chunked_to_rowmajor"] == 1
+    ds.close()

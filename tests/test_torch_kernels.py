@@ -1,0 +1,191 @@
+"""The port's kernel modules against the JAX package's, on the CPU: the
+vectorized row-table lowering equals the reference lowering, and the plain
+versions of the three copy kernels equal the Pallas kernels run in
+interpret mode.  All comparisons are bit-exact: these are copies."""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+import repro.core as jc
+from repro.core.merge import execute_merge_numpy
+from repro.kernels import (chunked_to_rowmajor as jax_c2r,
+                           merge_blocks_device as jax_merge,
+                           pack_rows as jax_pack_rows,
+                           rowmajor_to_chunked as jax_r2c)
+from repro.kernels.ref import plan_row_tables as jax_plan_row_tables
+
+import repro_torch.core as tc
+import repro_torch.kernels as K
+from repro_torch.interop import blocks_from_records, to_numpy, to_tensor
+from repro_torch.kernels.ref import plan_row_tables
+
+DTYPES = [np.float32, ml_dtypes.bfloat16, np.int32, np.int8]
+
+
+def _recs(blocks):
+    return [(b.lo, b.hi, b.owner, b.block_id) for b in blocks]
+
+
+def _assert_tables_equal(a, b):
+    assert a[0] == b[0] and a[3] == b[3] and a[4] == b[4]
+    assert a[1].dtype == b[1].dtype == np.int32
+    np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_array_equal(a[2], b[2])
+
+
+def _owned_plans(shape, block, procs, seed):
+    jb = jc.simulate_load_balance(jc.uniform_grid_blocks(shape, block),
+                                  num_procs=procs, seed=seed)
+    tb = blocks_from_records(_recs(jb))
+    for p in range(procs):
+        jm = [b for b in jb if b.owner == p]
+        if jm:
+            yield (jc.build_merge_plan(jm),
+                   tc.build_merge_plan([b for b in tb if b.owner == p]))
+
+
+# -- plan lowering -------------------------------------------------------------
+
+@pytest.mark.parametrize("world", [((32, 32, 32), (8, 8, 8), 4, s)
+                                   for s in range(4)]
+                         + [((64, 32, 48), (16, 16, 16), 3, 1)],
+                         ids=lambda w: f"{w[0]}-seed{w[3]}")
+def test_plan_row_tables_reference_cases(world):
+    for jp, tp in _owned_plans(*world):
+        _assert_tables_equal(plan_row_tables(tp), jax_plan_row_tables(jp))
+
+
+@st.composite
+def lowering_cases(draw):
+    ndim = draw(st.sampled_from([1, 2, 3]))
+    block = [draw(st.sampled_from([1, 2, 3, 4, 6, 8])) for _ in range(ndim)]
+    counts = [draw(st.integers(1, 4)) for _ in range(ndim)]
+    shape = tuple(c * b for c, b in zip(counts, block))
+    procs = draw(st.integers(1, 4))
+    seed = draw(st.integers(0, 2 ** 16))
+    max_width = draw(st.sampled_from([4096, 16, 5, 3, 1]))
+    reverse = draw(st.booleans())
+    return shape, tuple(block), procs, seed, max_width, reverse
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(lowering_cases())
+def test_plan_row_tables_sweep(case):
+    shape, block, procs, seed, max_width, reverse = case
+    for jp, tp in _owned_plans(shape, block, procs, seed):
+        order = sorted({op.block_id for op in jp.copies}, reverse=reverse)
+        _assert_tables_equal(
+            plan_row_tables(tp, block_order=order, max_width=max_width),
+            jax_plan_row_tables(jp, block_order=order, max_width=max_width))
+
+
+# -- the three kernels ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape", [(32, 128), (64, 256), (16, 512)])
+def test_pack_rows_matches_pallas(dtype, shape):
+    rng = np.random.default_rng([*shape, np.dtype(dtype).num])
+    n, w = shape
+    src = rng.standard_normal((n, w)).astype(dtype)
+    perm = rng.permutation(n).astype(np.int32)
+    m = n + 8                     # 8 destination rows are named by no one
+    dst_rows = rng.choice(m, size=n, replace=False).astype(np.int32)
+    ref = jax_pack_rows(jnp.asarray(src), jnp.asarray(perm),
+                        jnp.asarray(dst_rows), n_dst_rows=m, width=w,
+                        interpret=True)
+    got = K.pack_rows(to_tensor(src, "cpu"), torch.from_numpy(perm),
+                      torch.from_numpy(dst_rows), n_dst_rows=m, width=w)
+    np.testing.assert_array_equal(to_numpy(got, dtype), np.asarray(ref))
+    unnamed = np.setdiff1d(np.arange(m), dst_rows)
+    assert not to_numpy(got)[unnamed].any()
+
+
+def test_pack_rows_2d_weight_shards():
+    """The checkpoint-merge case: row-slab shards of a 2-D weight."""
+    rng = np.random.default_rng(0)
+    W = np.asarray(rng.standard_normal((64, 256)), np.float32)
+    shard_rows = [(32, 48), (0, 16), (48, 64), (16, 32)]
+    src = np.concatenate([W[a:b] for a, b in shard_rows])
+    dst_rows = np.concatenate([np.arange(a, b) for a, b in shard_rows]) \
+        .astype(np.int32)
+    src_rows = np.arange(64, dtype=np.int32)
+    ref = jax_pack_rows(jnp.asarray(src), jnp.asarray(src_rows),
+                        jnp.asarray(dst_rows), n_dst_rows=64, width=256,
+                        interpret=True)
+    got = K.pack_rows(torch.from_numpy(src), torch.from_numpy(src_rows),
+                      torch.from_numpy(dst_rows), n_dst_rows=64, width=256)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(), W)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("grid,chunk", [((4, 2), (8, 128)),
+                                        ((2, 4), (16, 128)),
+                                        ((3, 3), (8, 256))])
+def test_relayout_matches_pallas(dtype, grid, chunk):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((*grid, *chunk)).astype(dtype)
+    ref = jax_c2r(jnp.asarray(x), chunk=chunk, interpret=True)
+    got = K.chunked_to_rowmajor(to_tensor(x, "cpu"), chunk=chunk)
+    np.testing.assert_array_equal(to_numpy(got, dtype), np.asarray(ref))
+    back_ref = jax_r2c(ref, chunk=chunk, interpret=True)
+    back = K.rowmajor_to_chunked(got, chunk=chunk)
+    np.testing.assert_array_equal(to_numpy(back, dtype),
+                                  np.asarray(back_ref))
+    np.testing.assert_array_equal(to_numpy(back, dtype), x)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_merge_blocks_device_matches_pallas_and_numpy(seed):
+    rng = np.random.default_rng(seed)
+    for jp, tp in _owned_plans((32, 32, 32), (8, 8, 8), 4, seed):
+        data = {op.block_id: rng.standard_normal(op.src_block.shape)
+                .astype(np.float32) for op in jp.copies}
+        host = execute_merge_numpy(jp, data)
+        pallas = jax_merge(jp, data, interpret=True)
+        got = K.merge_blocks_device(
+            tp, {k: torch.from_numpy(v) for k, v in data.items()})
+        assert len(got) == len(host) == len(pallas)
+        for g, h, p in zip(got, host, pallas):
+            np.testing.assert_array_equal(g.numpy(), h)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+
+
+def test_cpu_tensors_never_launch():
+    K.reset_launch_counts()
+    x = torch.arange(2 * 3 * 4 * 8, dtype=torch.float32).view(2, 3, 4, 8)
+    rm = K.chunked_to_rowmajor(x, chunk=(4, 8))
+    K.rowmajor_to_chunked(rm, chunk=(4, 8))
+    K.pack_rows(rm, torch.arange(8, dtype=torch.int32),
+                torch.arange(8, dtype=torch.int32), n_dst_rows=8, width=24)
+    assert K.launch_counts() == {"pack_rows": 0, "chunked_to_rowmajor": 0,
+                                 "rowmajor_to_chunked": 0}
+
+
+def test_wrappers_check_their_inputs():
+    src = torch.zeros(64)
+    rows = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(IndexError):
+        K.pack_rows(src, rows + 13, rows, n_dst_rows=4, width=4)
+    with pytest.raises(IndexError):
+        K.pack_rows(src, rows, rows, n_dst_rows=3, width=4)
+    with pytest.raises(TypeError):
+        K.pack_rows(src, rows.long(), rows, n_dst_rows=4, width=4)
+    with pytest.raises(ValueError):
+        K.pack_rows(src, rows, rows[:3], n_dst_rows=4, width=4)
+    with pytest.raises(ValueError):
+        K.pack_rows(src, rows, rows, n_dst_rows=4, width=5)
+    with pytest.raises(ValueError):
+        K.pack_rows(src.view(8, 8).t(), rows, rows, n_dst_rows=4, width=4)
+    with pytest.raises(ValueError):
+        K.rowmajor_to_chunked(torch.zeros(8, 12), chunk=(4, 8))
+    with pytest.raises(ValueError):
+        K.chunked_to_rowmajor(torch.zeros(2, 2, 4, 8), chunk=(8, 4))
+    with pytest.raises(ValueError):
+        K.chunked_to_rowmajor(torch.zeros(2, 2, 4, 8, device="meta"),
+                              chunk=(4, 8))
