@@ -19,7 +19,22 @@ Phases, each printing one JSON line:
 4. kernel times at the main path's shapes (CUDA events, median of 20),
    beside the memory-bandwidth bound, the plain version and one PyTorch
    call computing the same function;
-5. launch counts of the main-path run; every kernel must have run.
+5. launch counts of the main-path run; every kernel must have run;
+6. the flash-attention kernel against its plain version on the card,
+   within tolerance: masks, GQA groups, head dims 16-256, ragged
+   lengths, f32 and bf16, and the serving path's two shapes;
+7. the serving path at full width: ``ServeEngine.generate`` on
+   qwen2.5-3b (36 layers, random weights from a seed, attention
+   projections at true fan-in: see ``serving_params``) with the flash
+   route on, 4 prompts of 2048 tokens and 32 greedy new tokens, launch
+   counts reset just before it and read just after; then its prefill
+   logits against the q-chunked route's on the same weights (bf16 and
+   f32 compute), and a profile of prefill and decode;
+8. flash-attention times at the serving shape (CUDA events, median of
+   20) beside its bound, the plain version and
+   ``scaled_dot_product_attention``;
+9. launch counts of the serving run; flash attention must have run once
+   per layer at least.
 
 The last lines are the kernel summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -28,7 +43,9 @@ non-zero; without a CUDA device the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -43,6 +60,8 @@ ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), flop/s
+BF16_FLOPS = 989e12
 
 FIELD = (8192, 8192)
 BLOCK = (256, 256)
@@ -51,6 +70,21 @@ COMPONENTS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 SEED = 0
 REPS = 20
 
+#: the serving path: qwen2.5-3b, 4 prompts of 2048 tokens, 32 new tokens
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
+#: flash attention at the serving path's shape, and at gemma2-2b's
+FLASH_MAIN = dict(B=4, Hq=16, Hkv=2, L=2048, D=128, causal=True,
+                  window=None, softcap=None)
+FLASH_GEMMA2 = dict(B=4, Hq=8, Hkv=4, L=2048, D=256, causal=True,
+                    window=4096, softcap=50.0)
+#: O tolerance per input dtype (f32: the reference's own; bf16: one bf16
+#: step at |O| < 4), and the LSE's
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.0, 2e-2)}
+LSE_TOL = (1e-4, 1e-4)
+#: flash vs q-chunked prefill logits: max |d| / max |q-chunked|
+LOGIT_GAP = 2e-2
+
 KERNELS = {
     "pack_rows": ("src/repro_torch/kernels/csrc/pack_rows.cu",
                   "src/repro/kernels/pack_blocks.py:29"),
@@ -58,6 +92,8 @@ KERNELS = {
                             "src/repro/kernels/relayout.py:22"),
     "rowmajor_to_chunked": ("src/repro_torch/kernels/csrc/relayout.cu",
                             "src/repro/kernels/relayout.py:26"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+                        "src/repro/kernels/flash_attention.py:39"),
 }
 
 
@@ -74,6 +110,21 @@ def max_abs_err(a, b) -> float:
         raise AssertionError("kernel and plain version differ: "
                              f"{(a.double() - b.double()).abs().max()}")
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def close_err(a, b, rtol: float, atol: float) -> float:
+    """The largest |a - b|; raises where |a - b| > atol + rtol * |b|."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{a.dtype}{tuple(a.shape)} vs "
+                             f"{b.dtype}{tuple(b.shape)}")
+    d = (a.double() - b.double()).abs()
+    bad = d > atol + rtol * b.double().abs()
+    if bad.any() or not torch.isfinite(a).all():
+        raise AssertionError(f"kernel and plain version differ beyond rtol "
+                             f"{rtol} / atol {atol}: {int(bad.sum())} of "
+                             f"{a.numel()}, max {float(d.max())}")
+    return float(d.max()) if a.numel() else 0.0
 
 
 def time_ms(fn, reps: int = REPS) -> dict:
@@ -372,6 +423,265 @@ def timings(torch, dev, layout) -> dict:
     return res
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+def _qkv(torch, gen, dev, dtype, B, Hq, Hkv, L, D, Lk=None, **_):
+    """Seeded q, k, v on the card, N(0, 1/4) as in the reference's sweep."""
+    Lk = Lk or L
+    return tuple((0.5 * torch.randn(shape, generator=gen, device=dev)
+                  ).to(dtype)
+                 for shape in ((B, Hq, L, D), (B, Hkv, Lk, D),
+                               (B, Hkv, Lk, D)))
+
+
+def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
+    """Kernel vs plain version: (max |dO|, max |dLSE|), raising beyond the
+    tolerances."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    o, lse = flash_attention(q, k, v, None, causal, window, softcap,
+                             return_lse=True)
+    ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
+    torch.cuda.synchronize()
+    rtol, atol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    return (close_err(o.float(), ro.float(), rtol, atol),
+            close_err(lse, rlse, *LSE_TOL))
+
+
+def check_flash(torch, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    masks = {"causal": (True, None, None), "non_causal": (False, None, None),
+             "window": (True, 48, None), "softcap": (True, None, 30.0),
+             "window_softcap": (False, 48, 30.0)}
+    groups: dict = {}
+    cases = 0
+    # lengths that are no multiple of the kernel's 64-row tiles, and one
+    # case with Lq != Lk
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (causal, window, softcap) in masks.items():
+            worst = [0.0, 0.0]
+            for g in (1, 2, 4, 8):
+                for D in (16, 32, 80, 128, 256):
+                    q, k, v = _qkv(torch, gen, dev, dtype, B=2, Hq=2 * g,
+                                   Hkv=2, L=200, D=D,
+                                   Lk=136 if g == 2 else None)
+                    e = _flash_case(torch, q, k, v, causal, window, softcap)
+                    worst = [max(a, b) for a, b in zip(worst, e)]
+                    cases += 1
+            groups[f"{name}/{str(dtype).split('.')[-1]}"] = {
+                "o": worst[0], "lse": worst[1]}
+    shapes = {}
+    for name, shp in (("serving", FLASH_MAIN), ("gemma2", FLASH_GEMMA2)):
+        # as attention hands them over: (B, H, L, D) views of (B, L, H, D)
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in _qkv(torch, gen, dev, torch.bfloat16, **shp))
+        e = _flash_case(torch, q, k, v, shp["causal"], shp["window"],
+                        shp["softcap"])
+        shapes[name] = {"shape": shp, "o": e[0], "lse": e[1]}
+        cases += 1
+        del q, k, v
+    torch.cuda.empty_cache()
+    return {"cases": cases,
+            "tolerance": {"o": FLASH_TOL, "lse": LSE_TOL,
+                          "rule": "|kernel - plain| <= atol + rtol*|plain|"},
+            "max_abs_err_by_group": groups, "main_shapes": shapes,
+            "max_abs_err": shapes["serving"]["o"]}
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def serve(torch, dev, K) -> dict:
+    """``ServeEngine.generate`` on the full qwen2.5-3b with the flash
+    route on; the launch counts of that one call; then the flash route's
+    prefill logits against the q-chunked route's on the same weights and
+    prompts, in the model's bf16 compute and in f32, each held to
+    LOGIT_GAP."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine, cache_bytes
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash=True)
+    if PROMPT_LEN % cfg.flash_block:
+        raise ValueError("the prompts must take the flash route")
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = serving_params(model, torch.Generator(device=dev)
+                            .manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_len = PROMPT_LEN + NEW_TOKENS
+    engine = ServeEngine(model, params, max_len=max_len)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out, stats = engine.generate(prompts, NEW_TOKENS)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (SERVE_BATCH, NEW_TOKENS) or out.min() < 0 or \
+            out.max() >= cfg.vocab:
+        raise AssertionError(f"generated tokens out of range: {out.shape}, "
+                             f"[{out.min()}, {out.max()}]")
+    _, again = engine.generate(prompts, NEW_TOKENS)
+
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    routes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        with compute_dtype(dtype), torch.inference_mode():
+            flash_logits, _ = model.prefill(params, batch)
+            base_logits, _ = LM(dataclasses.replace(cfg, flash=False)
+                                ).prefill(params, batch)
+        for lg in (flash_logits, base_logits):
+            if not torch.isfinite(lg).all():
+                raise AssertionError("non-finite prefill logits")
+        routes[str(dtype).split(".")[-1]] = {
+            "logit_gap": float((flash_logits - base_logits).abs().max()
+                               / base_logits.abs().max()),
+            "same_greedy_first_token_share": float(
+                (flash_logits.argmax(-1) == base_logits.argmax(-1))
+                .float().mean())}
+    for name, r in routes.items():
+        if r["logit_gap"] >= LOGIT_GAP:
+            raise AssertionError(
+                f"{name}: flash route's prefill logits differ from the "
+                f"q-chunked route's by {r['logit_gap']} of their max")
+    profile = profile_serving(torch, model, params, batch)
+    del params, engine, flash_logits, base_logits
+    torch.cuda.empty_cache()
+    return {"arch": SERVE_ARCH, "layers": cfg.n_layers, "flash": True,
+            "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
+            "new_tokens": NEW_TOKENS, "init_seconds": init_s,
+            "prefill_seconds": stats.prefill_seconds,
+            "decode_seconds": stats.decode_seconds,
+            "decode_tok_per_s": stats.decode_tps,
+            "second_call": {"prefill_seconds": again.prefill_seconds,
+                            "decode_tok_per_s": again.decode_tps},
+            "cache_bytes": cache_bytes(model, SERVE_BATCH, max_len),
+            "peak_memory_bytes": peak,
+            "flash_vs_q_chunked": routes, "profile": profile,
+            "first_tokens": out[:, :4].tolist(), "launches": launches}
+
+
+def serving_params(model, generator) -> dict:
+    """Random weights for the serving run: the reference's init laws
+    (``LM.init``), then q, k, v and the output projection rescaled to
+    fan-in over the axes their products contract (1/sqrt(d_model) and
+    1/sqrt(Hq*D)).  The reference's ``materialize`` takes fan-in from a
+    tensor's second-last axis, which for these (d_model, heads, head_dim)
+    tensors is the head count: qwen2.5-3b's scores then have a std of
+    about 360, every attention row is an argmax, and a rounding
+    difference anywhere flips rows, so the flash and q-chunked routes
+    disagree by O(1) at the logits even in f32.  Rescaled, the scores
+    have a std of about 1, as a trained model's are of order 1-10."""
+    cfg = model.cfg
+    params = model.init(generator)
+    for seg in params["segments"]:
+        a = seg["attn"]
+        a["wq"].mul_(math.sqrt(cfg.n_heads / cfg.d_model))
+        a["wk"].mul_(math.sqrt(cfg.n_kv / cfg.d_model))
+        a["wv"].mul_(math.sqrt(cfg.n_kv / cfg.d_model))
+        a["wo"].mul_(1.0 / math.sqrt(cfg.n_heads))
+    return params
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The model stack's compute dtype (bf16 in the reference) for the
+    duration of the block."""
+    from repro_torch.models import layers
+    saved, layers._COMPUTE = layers._COMPUTE, dtype
+    try:
+        yield
+    finally:
+        layers._COMPUTE = saved
+
+
+def profile_serving(torch, model, params, batch) -> dict:
+    """Device time by kernel of one prefill and of 4 decode steps
+    (``torch.profiler``), beside their host-clock time under the profiler:
+    the device's busy share, the kernel count, and the kernels that take
+    the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device entries only: a CPU op's device time repeats its kernels'
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        device_us = sum(r[1] for r in rows)
+        top = sorted(rows, key=lambda r: -r[1])[:8]
+        out[name] = {"wall_ms": wall * 1e3,
+                     "device_ms": device_us / 1e3 if rows else None,
+                     "busy_share": device_us / 1e3 / (wall * 1e3)
+                     if rows else None,
+                     "kernels": sum(r[2] for r in rows),
+                     "top": [{"name": k[:60], "ms": t / 1e3, "calls": c}
+                             for k, t, c in top]}
+
+    with torch.inference_mode():
+        _, cache = model.prefill(params, batch)      # warm
+        run("prefill", lambda: model.prefill(params, batch,
+                                             cache_len=PROMPT_LEN + 4))
+        _, cache = model.prefill(params, batch, cache_len=PROMPT_LEN + 4)
+        tok = batch["tokens"][:, -1:]
+
+        def decode4():
+            for i in range(4):
+                model.decode_step(params, cache, tok, PROMPT_LEN + i)
+
+        run("decode_4_steps", decode4)
+    return out
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
+    """(q, k) pairs the masks keep: the work the data needs."""
+    qp = np.arange(Lq)
+    lo = np.zeros(Lq, np.int64) if window is None else \
+        np.maximum(qp - window + 1, 0)
+    hi = np.minimum(qp + 1, Lk) if causal else np.full(Lq, Lk)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_timings(torch, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    shp = FLASH_MAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q, k, v = _qkv(torch, gen, dev, torch.bfloat16, **shp)
+    B, Hq, L, D = q.shape
+    scale = 1.0 / D ** 0.5
+    flops = 4 * B * Hq * D * live_pairs(L, L, shp["causal"], shp["window"])
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
+        + B * Hq * L * 4                    # O like q, and the f32 LSE
+    res = {"shape": {**shp, "dtype": "bfloat16"}, "flops": flops,
+           "bytes": nbytes,
+           "ms": time_ms(lambda: flash_attention(q, k, v)),
+           "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+           "bound_ms": max(flops / BF16_FLOPS,
+                           nbytes / HBM_BYTES_PER_S) * 1e3}
+    res["bound_by"] = "operations" if flops / BF16_FLOPS > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    for key in ("ms", "plain_ms", "library_ms"):
+        res[f"{key}_quartiles"] = [res[key]["p25"], res[key]["p75"]]
+        res[key] = res[key]["median"]
+    res["tflops"] = flops / res["ms"] / 1e9
+    return res
+
+
 # -- driver --------------------------------------------------------------------
 
 def main() -> int:
@@ -388,6 +698,9 @@ def main() -> int:
     from repro_torch.core import (plan_layout, simulate_load_balance,
                                   uniform_grid_blocks)
     dev = torch.device("cuda", 0)
+    # the plain versions are f32 oracles: no TF32 in their products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     info = probe(torch)
     emit(0, **info)
@@ -420,18 +733,51 @@ def main() -> int:
          hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     emit(5, launches=launches)
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in KERNELS if k != "flash_attention"
+               and launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[name],
-         "max_abs_err": checks["max_abs_err"][name],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-         "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
-         "library_ms": times[name]["library_ms"]}
-        for name, (source, replaces) in KERNELS.items()]}), flush=True)
+    t0 = time.perf_counter()
+    flash_check = check_flash(torch, dev)
+    emit(6, seconds=time.perf_counter() - t0, **flash_check)
+
+    t0 = time.perf_counter()
+    served = serve(torch, dev, K)
+    emit(7, seconds=time.perf_counter() - t0, **served)
+
+    t0 = time.perf_counter()
+    flash_times = flash_timings(torch, dev)
+    emit(8, seconds=time.perf_counter() - t0, flash_attention=flash_times,
+         bf16_flops=BF16_FLOPS, hbm_bytes_per_s=HBM_BYTES_PER_S)
+
+    serve_launches = served["launches"]
+    emit(9, launches=serve_launches)
+    n_layers = served["layers"]
+    if serve_launches["flash_attention"] < n_layers:
+        raise AssertionError(
+            f"serving launched flash attention "
+            f"{serve_launches['flash_attention']} times, fewer than its "
+            f"{n_layers} layers")
+
+    rows = [{"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": checks["max_abs_err"][name],
+             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+             "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+             "library_ms": times[name]["library_ms"]}
+            for name, (source, replaces) in KERNELS.items()
+            if name != "flash_attention"]
+    source, replaces = KERNELS["flash_attention"]
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": serve_launches["flash_attention"],
+                 "max_abs_err": flash_check["max_abs_err"],
+                 "ms": flash_times["ms"], "plain_ms": flash_times["plain_ms"],
+                 "bound_ms": flash_times["bound_ms"],
+                 "bound_by": flash_times["bound_by"],
+                 "library_ms": flash_times["library_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

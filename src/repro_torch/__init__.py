@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the layout-reorganization data path.
+"""PyTorch + CUDA port of the layout-reorganization data path and the
+model-serving stack.
 
 A package of its own beside the JAX package ``repro``: it imports
 ``torch``, ``numpy`` and the standard library, never ``jax`` or ``repro``,
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["core", "device", "interop", "io", "kernels"]
+__all__ = ["configs", "core", "device", "interop", "io", "kernels",
+           "launch", "models", "serve"]
 
 
 def __getattr__(name):

@@ -1,0 +1,63 @@
+"""Architecture registry: ``--arch <id>`` lookup for configs, smoke configs,
+shape cells and per-cell skip reasons.
+
+Only the archs whose layer kinds the port runs are registered; the
+reference's others raise a ``KeyError`` that names the ``ROADMAP.md``
+item porting them.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "shapes_for",
+           "skip_reason", "list_archs"]
+
+#: arch id -> config module (one file per ported architecture)
+ARCHS = {
+    "gemma2-2b": "gemma2_2b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "yi-9b": "yi_9b",
+    "stablelm-3b": "stablelm_3b",
+}
+
+#: the reference's archs not ported yet -> what they wait for
+NOT_PORTED = {
+    "hymba-1.5b": "hybrid attention+SSM blocks (ROADMAP.md queue 1, "
+                  "item 10)",
+    "hubert-xlarge": "encoder blocks and the frames frontend (ROADMAP.md "
+                     "queue 1, item 10)",
+    "llama-3.2-vision-90b": "cross-attention (ROADMAP.md queue 1, item 8)",
+    "arctic-480b": "MoE blocks (ROADMAP.md queue 1, item 10)",
+    "deepseek-moe-16b": "MoE blocks (ROADMAP.md queue 1, item 10)",
+    "mamba2-780m": "Mamba-2 SSD blocks (ROADMAP.md queue 1, item 10)",
+}
+
+
+def _module(arch: str):
+    if arch in NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported yet: it needs "
+                       f"{NOT_PORTED[arch]}; ported: {sorted(ARCHS)}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    return importlib.import_module(f"{__package__}.{ARCHS[arch]}")
+
+
+def list_archs() -> list:
+    return list(ARCHS)
+
+
+def get_config(arch: str):
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()
+
+
+def shapes_for(arch: str):
+    return _module(arch).SHAPES
+
+
+def skip_reason(arch: str, shape: str) -> str | None:
+    return _module(arch).SKIPS.get(shape)

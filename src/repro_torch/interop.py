@@ -1,9 +1,11 @@
 """Carry the JAX package's state into the port.
 
 Blocks travel as ``(lo, hi, owner, block_id)`` tuples — how the JAX
-package's ``Block`` fields and ``index.json`` store them — and arrays as
-numpy.  bfloat16 crosses through a 16-bit integer view, so it stays
-bit-exact without ``ml_dtypes``.  Datasets on disk need nothing: either
+package's ``Block`` fields and ``index.json`` store them — arrays as
+numpy, and parameter trees as nested dicts and lists of numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``).  bfloat16 crosses
+through a 16-bit integer view, so it stays bit-exact without
+``ml_dtypes``.  Datasets on disk need nothing: either
 package opens a directory the other wrote.
 """
 
@@ -18,7 +20,7 @@ from .core.blocks import Block
 from .device import resolve_device
 
 __all__ = ["blocks_from_records", "tensors_from_numpy", "to_tensor",
-           "to_numpy"]
+           "to_numpy", "params_from_numpy", "params_to_numpy"]
 
 
 def blocks_from_records(records: Iterable) -> list:
@@ -55,3 +57,25 @@ def to_numpy(t: torch.Tensor, dtype=None) -> np.ndarray:
         t = t.view(torch.int16)
     arr = t.numpy()
     return arr if dtype is None else arr.view(dtype)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, t) for t in tree]
+    return None if tree is None else fn(tree)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A parameter tree of numpy arrays (nested dicts and lists, as the
+    JAX package's ``LM.init`` makes it) as the port's tree of tensors on
+    ``device``, under the same keys."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: to_tensor(np.array(a), dev), tree)
+
+
+def params_to_numpy(tree, dtype=None):
+    """The inverse: the port's parameter tree as numpy arrays (bfloat16 as
+    in :func:`to_numpy`)."""
+    return _map_tree(lambda t: to_numpy(t, dtype), tree)

@@ -1,18 +1,21 @@
 """The port's kernels: hand-written CUDA for Hopper, with plain PyTorch
 versions beside them (:mod:`.ref`) and a launch count on every wrapper."""
 
+from .flash_attention import flash_attention
 from .ops import merge_blocks_device, split_merged
 from .pack_blocks import pack_rows
 from .relayout import chunked_to_rowmajor, rowmajor_to_chunked
 
 __all__ = ["merge_blocks_device", "split_merged", "pack_rows",
-           "chunked_to_rowmajor", "rowmajor_to_chunked", "WRAPPERS",
+           "chunked_to_rowmajor", "rowmajor_to_chunked", "flash_attention",
+           "WRAPPERS",
            "launch_counts", "reset_launch_counts"]
 
 #: every kernel wrapper, by kernel name
 WRAPPERS = {"pack_rows": pack_rows,
             "chunked_to_rowmajor": chunked_to_rowmajor,
-            "rowmajor_to_chunked": rowmajor_to_chunked}
+            "rowmajor_to_chunked": rowmajor_to_chunked,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict:

@@ -32,12 +32,15 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+    ctypes.c_float
 
 #: library name -> (C entry point, its argument types)
 SOURCES = {
     "pack_rows": ("repro_pack_rows", (_P, _P, _P, _P, _LL, _LL, _P)),
     "relayout": ("repro_relayout", (_P, _P, _LL, _LL, _LL, _LL, _I, _P)),
+    "flash_fwd": ("repro_flash_fwd", (_P,) * 5 + (_LL,) * 15
+                  + (_I, _I, _I, _LL, _I, _F, _F, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the three copy kernels, and the lowering of a
-:class:`~repro_torch.core.merge.MergePlan` to the row tables they take.
+"""Plain PyTorch versions of the kernels (the three copies and the flash
+attention forward), and the lowering of a
+:class:`~repro_torch.core.merge.MergePlan` to the row tables the copies
+take.
 
 The plain versions are the oracles: the CPU tests run them against the JAX
 package's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds each
@@ -17,7 +19,8 @@ import torch
 from ..core.merge import MergePlan
 
 __all__ = ["pack_rows_ref", "chunked_to_rowmajor_ref",
-           "rowmajor_to_chunked_ref", "plan_row_tables"]
+           "rowmajor_to_chunked_ref", "flash_attention_ref",
+           "plan_row_tables"]
 
 
 def pack_rows_ref(src: torch.Tensor, src_rows: torch.Tensor,
@@ -55,6 +58,38 @@ def rowmajor_to_chunked_ref(arr: torch.Tensor, chunk) -> torch.Tensor:
         for j in range(n_j):
             out[i, j] = arr[i * ch:(i + 1) * ch, j * cw:(j + 1) * cw]
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None = None, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None) -> tuple:
+    """Attention over whole rows in f32: ``(O, LSE)`` with O in ``q``'s
+    dtype and LSE ``(B, Hq, Lq)`` f32.  ``q``: ``(B, Hq, Lq, D)``;
+    ``k``/``v``: ``(B, Hkv, Lk, D)``, q-head h reading kv-head
+    ``h // (Hq // Hkv)``.  Scale, then softcap, then the mask (``qpos >=
+    kpos`` when causal, ``qpos - kpos < window`` whenever a window is set);
+    masked scores are -1e30, as in the Pallas kernel."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    g = H // k.shape[1]
+    scale = scale or 1.0 / math.sqrt(D)
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(Lq, device=q.device)[:, None]
+    kp = torch.arange(Lk, device=q.device)[None, :]
+    m = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= qp >= kp
+    if window is not None:
+        m &= (qp - kp) < window
+    s = torch.where(m, s, -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype), lse
 
 
 # -- plan lowering -------------------------------------------------------------

@@ -1,0 +1,174 @@
+"""Self-attention: GQA/MHA/MQA, sliding windows, logit softcap.
+
+Prefill takes one of two routes, as in the reference: the flash kernel
+(``kernels/flash_attention.py``) when ``flash`` is set and the length is a
+multiple of ``flash_block``, else query-chunked (blockwise-softmax)
+attention that never materializes more than a (q_chunk, L) score tensor
+per head.  Decode is a single-token step against a full KV cache or a
+ring-buffered sliding-window cache.  Cross-attention comes with the VLM
+slice, the mesh-sharded flash call with the distributed slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from .layers import rope, softcap
+from .params import ParamDef
+
+__all__ = ["attn_defs", "attn_forward", "attn_decode", "init_kv_cache_defs"]
+
+
+def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
+              qkv_bias: bool = False) -> dict:
+    d = {
+        "wq": ParamDef((d_model, n_heads, head_dim),
+                       ("embed", "heads", "head_dim"), init="fan_in"),
+        "wk": ParamDef((d_model, n_kv, head_dim),
+                       ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wv": ParamDef((d_model, n_kv, head_dim),
+                       ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wo": ParamDef((n_heads, head_dim, d_model),
+                       ("heads", "head_dim", "embed"), init="fan_in"),
+    }
+    if qkv_bias:
+        d["bq"] = ParamDef((n_heads, head_dim), ("heads", "head_dim"),
+                           init="zeros")
+        d["bk"] = ParamDef((n_kv, head_dim), ("kv_heads", "head_dim"),
+                           init="zeros")
+        d["bv"] = ParamDef((n_kv, head_dim), ("kv_heads", "head_dim"),
+                           init="zeros")
+    return d
+
+
+def _project_q(p, x):
+    q = torch.einsum("blm,mhd->blhd", x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    return q
+
+
+def _project_kv(p, x):
+    k = torch.einsum("blm,mkd->blkd", x, p["wk"].to(x.dtype))
+    v = torch.einsum("blm,mkd->blkd", x, p["wv"].to(x.dtype))
+    if "bk" in p:
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return k, v
+
+
+def _out(p, o):
+    return torch.einsum("blhd,hdm->blm", o, p["wo"].to(o.dtype))
+
+
+def _scores_mask(qpos, kpos, causal: bool, window: int | None):
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        m &= (qpos[:, None] - kpos[None, :]) < window
+    return m
+
+
+def _rope_heads(x, positions, theta, rotary_dim):
+    """RoPE on (B, L, H, D) activations, rotated as (B, H, L, D)."""
+    return rope(x.transpose(1, 2), positions, theta,
+                rotary_dim).transpose(1, 2)
+
+
+def attn_forward(p, x, *, n_heads: int, n_kv: int, head_dim: int,
+                 causal: bool = True, window: int | None = None,
+                 positions=None, rope_theta: float = 10000.0,
+                 rotary_dim: int | None = None, use_rope: bool = True,
+                 attn_cap: float | None = None, q_chunk: int = 512,
+                 flash: bool = False, flash_block: int = 256):
+    """Self-attention over a full sequence (training / prefill)."""
+    B, L, M = x.shape
+    if positions is None:
+        positions = torch.arange(L, device=x.device)
+    q = _project_q(p, x)                     # (B, L, H, D)
+    k, v = _project_kv(p, x)                 # (B, L, K, D)
+    if use_rope:
+        q = _rope_heads(q, positions, rope_theta, rotary_dim)
+        k = _rope_heads(k, positions, rope_theta, rotary_dim)
+    g = n_heads // n_kv
+    scale = 1.0 / math.sqrt(head_dim)
+
+    if flash and L % flash_block == 0:
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), scale, causal, window,
+                            attn_cap, flash_block, flash_block)
+        return _out(p, o.transpose(1, 2))
+
+    qg = q.reshape(B, L, n_kv, g, head_dim)
+    n_chunks = max(1, L // q_chunk) if L % q_chunk == 0 else 1
+    qc = L // n_chunks
+    outs = []
+    for c in range(n_chunks):
+        qi = qg[:, c * qc:(c + 1) * qc]
+        s = torch.einsum("bqkgd,blkd->bkgql", qi, k).float()
+        s = softcap(s * scale, attn_cap)
+        mask = _scores_mask(positions[c * qc:(c + 1) * qc], positions,
+                            causal, window)
+        s = torch.where(mask, s, -1e30)
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bkgql,blkd->bqkgd", pr, v))
+    o = torch.cat(outs, dim=1).reshape(B, L, n_heads, head_dim)
+    return _out(p, o)
+
+
+# -- decode -------------------------------------------------------------------
+
+def init_kv_cache_defs(batch: int, cache_len: int, n_kv: int, head_dim: int,
+                       dtype: str = "bfloat16",
+                       seq_sharded: bool = False) -> dict:
+    seq_ax = "kv_seq" if seq_sharded else None
+    return {
+        "k": ParamDef((batch, cache_len, n_kv, head_dim),
+                      ("batch", seq_ax, "kv_heads", None), dtype=dtype,
+                      init="zeros"),
+        "v": ParamDef((batch, cache_len, n_kv, head_dim),
+                      ("batch", seq_ax, "kv_heads", None), dtype=dtype,
+                      init="zeros"),
+    }
+
+
+def attn_decode(p, x, cache, pos: int, *, n_heads: int, n_kv: int,
+                head_dim: int, window: int | None = None,
+                rope_theta: float = 10000.0, rotary_dim: int | None = None,
+                use_rope: bool = True, attn_cap: float | None = None):
+    """One decode step. ``x``: (B, 1, M); ``pos``: the current position.
+    ``cache['k']``: (B, S, K, D) where S == window for ring caches, else
+    max_len.  Writes this step's k/v into ``cache`` in place (where the
+    reference donates the buffers) and returns ``(y, cache)``."""
+    B, _, M = x.shape
+    S = cache["k"].shape[1]
+    q = _project_q(p, x)
+    k1, v1 = _project_kv(p, x)
+    if use_rope:
+        posb = torch.full((1,), pos, device=x.device)
+        q = _rope_heads(q, posb, rope_theta, rotary_dim)
+        k1 = _rope_heads(k1, posb, rope_theta, rotary_dim)
+    slot = pos % S
+    cache["k"][:, slot] = k1[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v1[:, 0].to(cache["v"].dtype)
+    # position held by each ring slot j: latest value p <= pos with p%S == j
+    slots = torch.arange(S, device=x.device)
+    kpos = pos - ((pos - slots) % S)
+    valid = kpos >= 0
+    if window is not None:
+        valid &= (pos - kpos) < window
+    g = n_heads // n_kv
+    scale = 1.0 / math.sqrt(head_dim)
+    qg = q.reshape(B, 1, n_kv, g, head_dim)
+    s = torch.einsum("bqkgd,blkd->bkgql", qg,
+                     cache["k"].to(x.dtype)).float()
+    s = softcap(s * scale, attn_cap)
+    s = torch.where(valid, s, -1e30)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgql,blkd->bqkgd", pr, cache["v"].to(x.dtype))
+    return _out(p, o.reshape(B, 1, n_heads, head_dim)), cache

@@ -1,0 +1,179 @@
+"""The Model API: skeleton / forward / prefill / decode.
+
+Everything is a function of (params, inputs); ``LM`` holds the config and
+the device.  Parameters are a tree of nested dicts and lists under the
+reference's path names (``embed``, ``segments/0/attn/wq``, ...); a
+segment's parameters are stacked on a leading layer dimension, and the
+model walks it one layer at a time (the reference scans it).  The loss
+comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from . import transformer as tfm
+from .layers import embed_def, embed_lookup, layer_norm, rms_norm, \
+    unembed_chunked
+from .params import ParamDef, count_params, materialize, stack, tree_map
+from .transformer import ModelConfig
+
+__all__ = ["LM"]
+
+
+def _stack_tree(defs, n: int):
+    return tree_map(lambda d: stack(d, n), defs)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _unstack_def(d: ParamDef) -> ParamDef:
+    """One layer's ``ParamDef`` of a layer-stacked one."""
+    return ParamDef(d.shape[1:], d.axes[1:], d.dtype, d.init, d.scale)
+
+
+class LM:
+    """``device``: where :meth:`init` puts the weights (the card unless
+    the caller asks for ``"cpu"``); the forward functions run wherever
+    their inputs lie."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        if cfg.total_layers() != cfg.n_layers:
+            raise ValueError(
+                f"{cfg.name}: program covers {cfg.total_layers()} layers, "
+                f"config says {cfg.n_layers}")
+        if cfg.frontend != "tokens":
+            raise NotImplementedError(
+                f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet: "
+                f"ROADMAP.md queue 1, item 10")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- parameters ----------------------------------------------------------
+    def skeleton(self) -> dict:
+        cfg = self.cfg
+        sk: dict = {"embed": embed_def(cfg.vocab, cfg.d_model),
+                    "segments": []}
+        for kind, count in cfg.program:
+            defs = tfm.block_defs(cfg, kind)
+            sk["segments"].append(_stack_tree(defs, count) if count > 1
+                                  else defs)
+        sk["final_norm"] = tfm._norm_def(cfg)
+        if not cfg.tie_embed:
+            sk["lm_head"] = ParamDef((cfg.vocab, cfg.d_model),
+                                     ("vocab", "embed"), init="fan_in")
+        return sk
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random weights from ``generator``, which must live on
+        ``self.device``."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        return materialize(self.skeleton(), generator)
+
+    def num_params(self) -> int:
+        return count_params(self.skeleton())
+
+    # -- embedding / head -----------------------------------------------------
+    def _embed_in(self, params, tokens):
+        return embed_lookup(params["embed"], tokens,
+                            scale=self.cfg.embed_scale)
+
+    def _head_table(self, params):
+        return params.get("lm_head", params["embed"])
+
+    def _final_norm(self, params, x):
+        return (rms_norm(x, params["final_norm"]) if self.cfg.norm == "rms"
+                else layer_norm(x, params["final_norm"]))
+
+    # -- forward --------------------------------------------------------------
+    def hidden(self, params, batch, collect_kv: bool = False):
+        """Runs the stack. Returns (hidden, aux, kv_per_segment); a stacked
+        segment's kv is the list of its layers' kvs."""
+        cfg = self.cfg
+        x = self._embed_in(params, batch["tokens"])
+        B, L, _ = x.shape
+        positions = torch.arange(L, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kvs = []
+        for (kind, count), seg in zip(cfg.program, params["segments"]):
+            if count == 1:
+                x, a, kv = tfm.block_forward(cfg, kind, seg, x, positions,
+                                             collect_kv)
+                aux = aux + a
+                kvs.append(kv)
+                continue
+            seg_kv = []
+            for i in range(count):
+                x, a, kv = tfm.block_forward(cfg, kind, _layer(seg, i), x,
+                                             positions, collect_kv)
+                aux = aux + a
+                seg_kv.append(kv)
+            kvs.append(seg_kv)
+        x = self._final_norm(params, x)
+        return x, aux, (kvs if collect_kv else None)
+
+    # -- serving --------------------------------------------------------------
+    def cache_skeleton(self, batch: int, cache_len: int):
+        out = []
+        for kind, count in self.cfg.program:
+            cd = tfm.block_cache_defs(self.cfg, kind, batch, cache_len)
+            out.append(_stack_tree(cd, count) if count > 1 else cd)
+        return out
+
+    def prefill(self, params, batch, cache_len: int | None = None):
+        """Full-sequence pass producing (last_token_logits, cache)."""
+        cfg = self.cfg
+        B, L = batch["tokens"].shape[:2]
+        cache_len = cache_len or L
+        h, _, kvs = self.hidden(params, batch, collect_kv=True)
+        caches = []
+        for (kind, count), kv, cd in zip(cfg.program, kvs,
+                                         self.cache_skeleton(B, cache_len)):
+            if count == 1:
+                caches.append(tfm.block_prefill(cfg, kind, kv, cd, B, L))
+                continue
+            cd_inner = tree_map(_unstack_def, cd)
+            layers = [tfm.block_prefill(cfg, kind, kv_i, cd_inner, B, L)
+                      for kv_i in kv]
+            caches.append(_stack_layers(layers))
+        logits = unembed_chunked(h[:, -1:], self._head_table(params),
+                                 final_cap=cfg.final_cap)
+        return logits, caches
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One token for the whole batch. ``tokens``: (B, 1). ``pos``: the
+        current position. Updates ``cache`` in place (the reference donates
+        it) and returns (logits, cache)."""
+        cfg = self.cfg
+        x = self._embed_in(params, tokens)
+        new_caches = []
+        for (kind, count), seg, c in zip(cfg.program, params["segments"],
+                                         cache):
+            if count == 1:
+                x, nc = tfm.block_decode(cfg, kind, seg, x, c, pos)
+            else:
+                for i in range(count):
+                    x, _ = tfm.block_decode(cfg, kind, _layer(seg, i), x,
+                                            _layer(c, i), pos)
+                nc = c
+            new_caches.append(nc)
+        x = self._final_norm(params, x)
+        logits = unembed_chunked(x, self._head_table(params),
+                                 final_cap=cfg.final_cap)
+        return logits, new_caches
+
+
+def _stack_layers(layers: list):
+    """Per-layer cache trees -> one tree with a leading layer dimension."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([t[k] for t in layers]) for k in first}
+    return torch.stack(layers)

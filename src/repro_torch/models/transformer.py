@@ -1,0 +1,270 @@
+"""Composable layer stacks.
+
+A model is a *layer program*: a tuple of segments ``(kind, count)``.  Each
+segment's parameters are stacked along a leading "layers" dim and the
+model walks the segment one layer at a time (the reference scans it).
+Composite kinds nest simple blocks inside one layer step.
+
+Kinds ported so far (the dense decoders):
+  attn      pre-norm self-attention (full, causal) + MLP
+  swa       sliding-window self-attention + MLP
+  pair_lg   composite: swa block then attn block              [gemma2]
+
+The reference's other kinds raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import attention as attn
+from .layers import (layer_norm, layer_norm_defs, mlp_defs, mlp_forward,
+                     rms_norm, rms_norm_def)
+
+__all__ = ["ModelConfig", "block_defs", "block_forward", "block_decode",
+           "block_cache_defs", "block_prefill"]
+
+COMPOSITE = {"pair_lg": ("local:swa", "global:attn"),
+             "group_sx": ("self_0:attn", "self_1:attn", "self_2:attn",
+                          "self_3:attn", "cross:xattn")}
+_PORTED = ("attn", "swa", "pair_lg")
+#: kinds not ported yet -> the ROADMAP.md item that ports them
+_NOT_PORTED = {"enc": "queue 1, item 10 (encoder blocks)",
+               "moe": "queue 1, item 10 (MoE)",
+               "ssd": "queue 1, item 10 (Mamba-2 SSD)",
+               "hyb_full": "queue 1, item 10 (hybrid attention+SSM)",
+               "hyb_swa": "queue 1, item 10 (hybrid attention+SSM)",
+               "xattn": "queue 1, item 8 (cross-attention)",
+               "group_sx": "queue 1, item 8 (cross-attention)"}
+
+
+def _require_ported(kind: str) -> None:
+    if kind in _PORTED:
+        return
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
+                                  f"ROADMAP.md {_NOT_PORTED[kind]}")
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense|moe|ssm|hybrid|vlm|audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    program: tuple                  # ((kind, count), ...)
+    # attention
+    causal: bool = True
+    window: int | None = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    use_rope: bool = True
+    attn_cap: float | None = None
+    final_cap: float | None = None
+    q_chunk: int = 512
+    norm: str = "rms"               # rms | ln
+    act: str = "silu"               # silu | gelu
+    gated_mlp: bool = True
+    post_norm: bool = False         # gemma2 post-attn/post-ffn norms
+    embed_scale: bool = False
+    tie_embed: bool = True
+    # moe / ssm / vlm (their dims come with their slices)
+    moe: object | None = None
+    dense_residual: bool = False
+    ssm: object | None = None
+    ssd_chunk: int = 256
+    n_memory_tokens: int = 0        # vision/audio memory length (vlm)
+    frontend: str = "tokens"        # tokens | frames
+    # runtime
+    remat: str = "dots"             # none | dots | full
+    fsdp: bool = False
+    loss_chunk: int = 512
+    aux_weight: float = 0.01
+    grad_accum: int = 8             # microbatches per train step
+    flash: bool = False             # flash-attention kernel on prefill
+    flash_block: int = 256
+
+    @property
+    def rotary_dim(self) -> int | None:
+        if self.rotary_pct >= 1.0:
+            return None
+        return int(self.head_dim * self.rotary_pct)
+
+    def layers_per_step(self, kind: str) -> int:
+        return len(COMPOSITE[kind]) if kind in COMPOSITE else 1
+
+    def total_layers(self) -> int:
+        return sum(self.layers_per_step(k) * c for k, c in self.program)
+
+
+def _norm_def(cfg):
+    return rms_norm_def(cfg.d_model) if cfg.norm == "rms" \
+        else layer_norm_defs(cfg.d_model)
+
+
+def _norm(cfg, p, x):
+    return rms_norm(x, p) if cfg.norm == "rms" else layer_norm(x, p)
+
+
+def _subs(kind: str):
+    """(name, simple kind) of each block of a composite kind."""
+    return [tuple(spec.split(":")) for spec in COMPOSITE[kind]]
+
+
+# ---------------------------------------------------------------------------
+# defs
+# ---------------------------------------------------------------------------
+
+def block_defs(cfg: ModelConfig, kind: str) -> dict:
+    _require_ported(kind)
+    if kind in COMPOSITE:
+        return {nm: block_defs(cfg, sub) for nm, sub in _subs(kind)}
+    d = {"ln1": _norm_def(cfg), "ln2": _norm_def(cfg)}
+    d["attn"] = attn.attn_defs(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                               cfg.head_dim, qkv_bias=cfg.qkv_bias)
+    if cfg.post_norm:
+        d["post1"] = _norm_def(cfg)
+        d["post2"] = _norm_def(cfg)
+    d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _attn_kwargs(cfg: ModelConfig, kind: str) -> dict:
+    window = cfg.window if kind == "swa" else None
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+                causal=cfg.causal, window=window, rope_theta=cfg.rope_theta,
+                rotary_dim=cfg.rotary_dim, use_rope=cfg.use_rope,
+                attn_cap=cfg.attn_cap, flash=cfg.flash,
+                flash_block=cfg.flash_block)
+
+
+def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
+                  collect_kv: bool = False):
+    """Returns (x, aux, kv) — ``kv`` is the (k, v) bundle when
+    ``collect_kv`` (prefill), else None.  (The reference's ``memory``
+    argument comes with the cross-attention kinds.)"""
+    _require_ported(kind)
+    if kind in COMPOSITE:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kvs = {}
+        for nm, sub in _subs(kind):
+            x, a, kv = block_forward(cfg, sub, p[nm], x, positions,
+                                     collect_kv)
+            aux = aux + a
+            if collect_kv:
+                kvs[nm] = kv
+        return x, aux, (kvs if collect_kv else None)
+
+    h = _norm(cfg, p["ln1"], x)
+    y, kv = _attn_with_kv(cfg, p["attn"], h, positions,
+                          _attn_kwargs(cfg, kind), collect_kv)
+    if cfg.post_norm:
+        y = _norm(cfg, p["post1"], y)
+    x = x + y
+    h2 = _norm(cfg, p["ln2"], x)
+    y2 = mlp_forward(p["mlp"], h2, act=cfg.act)
+    if cfg.post_norm:
+        y2 = _norm(cfg, p["post2"], y2)
+    return x + y2, torch.zeros((), dtype=torch.float32, device=x.device), kv
+
+
+def _attn_with_kv(cfg, p, h, positions, kwargs, collect_kv):
+    y = attn.attn_forward(p, h, q_chunk=cfg.q_chunk, positions=positions,
+                          **kwargs)
+    if not collect_kv:
+        return y, None
+    # recompute k/v projections (cheap relative to attention) for the cache
+    k, v = attn._project_kv(p, h)
+    if kwargs["use_rope"]:
+        k = attn._rope_heads(k, positions, kwargs["rope_theta"],
+                             kwargs["rotary_dim"])
+    return y, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# caches + decode
+# ---------------------------------------------------------------------------
+
+def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int) -> dict | None:
+    _require_ported(kind)
+    if kind in COMPOSITE:
+        return {nm: block_cache_defs(cfg, sub, batch, cache_len)
+                for nm, sub in _subs(kind)}
+    seq_sharded = batch == 1           # long-context: shard cache over seq
+    win = cfg.window if kind == "swa" else None
+    S = min(win, cache_len) if win else cache_len
+    return attn.init_kv_cache_defs(batch, S, cfg.n_kv, cfg.head_dim,
+                                   seq_sharded=seq_sharded and win is None)
+
+
+def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
+    """One-token step; updates ``cache`` in place. Returns (x, cache)."""
+    _require_ported(kind)
+    if kind in COMPOSITE:
+        new = {}
+        for nm, sub in _subs(kind):
+            x, new[nm] = block_decode(cfg, sub, p[nm], x, cache[nm], pos)
+        return x, new
+
+    h = _norm(cfg, p["ln1"], x)
+    kw = _attn_kwargs(cfg, kind)
+    for drop in ("causal", "flash", "flash_block"):
+        kw.pop(drop)
+    y, new_cache = attn.attn_decode(p["attn"], h, cache, pos, **kw)
+    if cfg.post_norm:
+        y = _norm(cfg, p["post1"], y)
+    x = x + y
+    h2 = _norm(cfg, p["ln2"], x)
+    y2 = mlp_forward(p["mlp"], h2, act=cfg.act)
+    if cfg.post_norm:
+        y2 = _norm(cfg, p["post2"], y2)
+    return x + y2, new_cache
+
+
+# ---------------------------------------------------------------------------
+# prefill cache construction
+# ---------------------------------------------------------------------------
+
+def block_prefill(cfg: ModelConfig, kind: str, kv, cache_defs_tree,
+                  batch: int, L: int):
+    """Convert collected prefill k/v into the cache layout of
+    ``block_cache_defs``.  ``kv`` comes from block_forward with
+    collect_kv=True; returns a tree of tensors."""
+    _require_ported(kind)
+    if kind in COMPOSITE:
+        return {nm: block_prefill(cfg, sub, kv[nm], cache_defs_tree[nm],
+                                  batch, L)
+                for nm, sub in _subs(kind)}
+    return _kv_to_cache(kv, cache_defs_tree, L)
+
+
+def _kv_to_cache(kv, cdefs, L):
+    S = cdefs["k"].shape[1]
+    out = {}
+    for nm in ("k", "v"):
+        src = kv[nm].to(torch.bfloat16)            # (B, L, K, D)
+        buf = torch.zeros(cdefs[nm].shape, dtype=torch.bfloat16,
+                          device=src.device)
+        if S >= L:
+            buf[:, :L] = src
+        else:       # ring: keep last S, placed at slot p % S
+            slots = torch.arange(L - S, L, device=src.device) % S
+            buf[:, slots] = src[:, L - S:]
+        out[nm] = buf
+    return out
+

@@ -1,0 +1,109 @@
+"""Batched serving: prefill + decode with a persistent KV cache.
+
+``make_prefill_step`` / ``make_decode_step`` produce the step functions;
+:class:`ServeEngine` drives them for batched generation, updating the
+cache in place (where the reference donates its buffers).  Timings are
+host-clock spans that end in ``torch.cuda.synchronize`` on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.model import LM
+
+__all__ = ["make_prefill_step", "make_decode_step", "GenStats",
+           "ServeEngine"]
+
+
+def make_prefill_step(model: LM, cache_len: int | None = None) -> Callable:
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, cache_len=cache_len)
+    return prefill_step
+
+
+def make_decode_step(model: LM) -> Callable:
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+    return serve_step
+
+
+@dataclasses.dataclass
+class GenStats:
+    prefill_seconds: float = 0.0
+    decode_seconds: float = 0.0
+    tokens_generated: int = 0
+
+    @property
+    def decode_tps(self) -> float:
+        return self.tokens_generated / max(self.decode_seconds, 1e-9)
+
+
+class ServeEngine:
+    """Static-batch generation engine (greedy / temperature sampling) on
+    ``device`` (the card unless the caller asks for ``"cpu"``); ``params``
+    must lie there."""
+
+    def __init__(self, model: LM, params, max_len: int = 512,
+                 device="cuda"):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        where = params["embed"].device
+        if where.type != self.device.type:
+            raise ValueError(f"params on {where}, engine on {self.device}")
+        self._prefill = make_prefill_step(model, cache_len=max_len)
+        self._decode = make_decode_step(model)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate(self, tokens, num_new: int, temperature: float = 0.0,
+                 generator: torch.Generator | None = None) -> tuple:
+        """``tokens``: (B, L) prompt. Returns (generated (B, num_new) int32
+        ndarray, stats).  Temperature sampling draws from ``generator``
+        (on the engine's device; a fresh one seeded 0 if none)."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                 device=self.device)
+        B, L = tokens.shape
+        if L + num_new > self.max_len:
+            raise ValueError("exceeds engine max_len")
+        if temperature > 0.0 and generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        stats = GenStats()
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        self._sync()
+        stats.prefill_seconds = time.perf_counter() - t0
+
+        out = []
+        t0 = time.perf_counter()
+        pos = L
+        cur = self._sample(logits[:, -1], temperature, generator)
+        for _ in range(num_new):
+            out.append(cur)
+            logits, cache = self._decode(self.params, cache, cur, pos)
+            cur = self._sample(logits[:, -1], temperature, generator)
+            pos += 1
+        self._sync()
+        stats.decode_seconds = time.perf_counter() - t0
+        stats.tokens_generated = num_new * B
+        gen = torch.cat(out, dim=1) if out else tokens[:, :0]
+        return gen.to(torch.int32).cpu().numpy(), stats
+
+    @staticmethod
+    def _sample(logits, temperature, generator):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)[:, None]
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)

@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card: each against its plain version,
-bit-exact, and the slice end to end through them.  Marked ``cuda``; they
+"""The CUDA kernels on the card: each against its plain version (the
+copies bit-exact, flash attention within the reference's own f32
+tolerance), and the slice end to end through them.  Marked ``cuda``; they
 skip where there is no GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
@@ -11,7 +12,8 @@ import repro_torch.core as tc
 import repro_torch.kernels as K
 from repro_torch.core.blocks import Block
 from repro_torch.io import Dataset
-from repro_torch.kernels.ref import (chunked_to_rowmajor_ref, pack_rows_ref,
+from repro_torch.kernels.ref import (chunked_to_rowmajor_ref,
+                                     flash_attention_ref, pack_rows_ref,
                                      rowmajor_to_chunked_ref)
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +78,45 @@ def test_slice_through_the_kernels(cuda, tmp_path, strategy):
         assert counts["rowmajor_to_chunked"] == 1
         assert counts["chunked_to_rowmajor"] == 1
     ds.close()
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("D", [16, 80, 128, 256])
+@pytest.mark.parametrize("causal,window,softcap",
+                         [(True, None, None), (False, None, None),
+                          (True, 48, None), (False, 48, 30.0)])
+def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
+    """O within the reference's f32 tolerance (rtol 1e-4, atol 1e-5; bf16
+    O within one bf16 step, atol 2e-2), LSE within 1e-4, at lengths that
+    are not multiples of the kernel's 64-row tiles and GQA groups of 4."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, Hq, Hkv, L = 2, 8, 2, 150
+    q, k, v = (0.5 * torch.randn((B, h, L, D), generator=gen, device=cuda)
+               for h in (Hq, Hkv, Hkv))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = K.flash_attention.launches
+    o, lse = K.flash_attention(q, k, v, None, causal, window, softcap,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 1
+    ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=0.0, atol=2e-2)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """Attention hands the kernel (B, H, L, D) views of (B, L, H, D)
+    projections: read in place, the same result as contiguous inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((2, 100, h, 64), generator=gen, device=cuda)
+               .bfloat16().transpose(1, 2) for h in (8, 2, 2))
+    got = K.flash_attention(q, k, v)
+    want = K.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v)[0].float(),
+                               rtol=0.0, atol=2e-2)

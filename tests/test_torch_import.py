@@ -67,8 +67,9 @@ def test_no_forbidden_import_statement(path):
 
 
 def test_package_is_lazy():
-    assert set(repro_torch.__all__) == {"core", "device", "interop", "io",
-                                        "kernels"}
+    assert set(repro_torch.__all__) == {"configs", "core", "device",
+                                        "interop", "io", "kernels", "launch",
+                                        "models", "serve"}
     with pytest.raises(AttributeError):
         repro_torch.no_such_module
 
