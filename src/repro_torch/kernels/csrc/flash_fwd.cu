@@ -19,8 +19,8 @@
 // running max/sum/accumulator in VMEM scratch.  Here one CTA of 256 threads
 // owns one (batch*head, 64-row q tile) and walks the k tiles in a loop.
 // Q (64 x DP) stays in shared memory; each 64-row K and V tile is loaded
-// once into shared memory, converted to f32 (DP = head_dim rounded up to a
-// multiple of 16, zero-padded).  Thread (ty, tx), ty, tx in [0, 16), owns
+// once into shared memory, converted to f32 (DP = head_dim rounded up to
+// the next of 16, 32, 64, 80, 128, 256, zero-padded).  Thread (ty, tx), ty, tx in [0, 16), owns
 // q rows ty + 16i (i < 4), score columns tx + 16j (j < 4) and output
 // columns tx + 16j (j < DP/16): a 4 x 4 register tile of S from float4
 // reads, row max/sum reduced over the 16 lanes of a half-warp with
@@ -273,27 +273,19 @@ cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Head dims pad up to 16, 32, 64, 80, 128 or 256: the configs' own widths
+// (16 smoke, 32, 80 stablelm, 128 qwen/yi, 256 gemma2) run unpadded, any
+// other multiple of 8 runs on zero columns, and the build makes 6 instances
+// per dtype instead of 16.
 template <typename T>
 cudaError_t dispatch(const Params& p, long long bh, cudaStream_t st) {
-  switch ((p.D + 15) / 16) {
-    case 1: return launch<1, T>(p, bh, st);
-    case 2: return launch<2, T>(p, bh, st);
-    case 3: return launch<3, T>(p, bh, st);
-    case 4: return launch<4, T>(p, bh, st);
-    case 5: return launch<5, T>(p, bh, st);
-    case 6: return launch<6, T>(p, bh, st);
-    case 7: return launch<7, T>(p, bh, st);
-    case 8: return launch<8, T>(p, bh, st);
-    case 9: return launch<9, T>(p, bh, st);
-    case 10: return launch<10, T>(p, bh, st);
-    case 11: return launch<11, T>(p, bh, st);
-    case 12: return launch<12, T>(p, bh, st);
-    case 13: return launch<13, T>(p, bh, st);
-    case 14: return launch<14, T>(p, bh, st);
-    case 15: return launch<15, T>(p, bh, st);
-    case 16: return launch<16, T>(p, bh, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (p.D <= 16) return launch<1, T>(p, bh, st);
+  if (p.D <= 32) return launch<2, T>(p, bh, st);
+  if (p.D <= 64) return launch<4, T>(p, bh, st);
+  if (p.D <= 80) return launch<5, T>(p, bh, st);
+  if (p.D <= 128) return launch<8, T>(p, bh, st);
+  if (p.D <= 256) return launch<16, T>(p, bh, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -224,11 +224,10 @@ def _leaves(tree):
 def f32_compute(monkeypatch):
     """Both packages compute in f32 instead of bf16.  In bf16 the two
     frameworks round at different places (XLA may keep excess precision
-    inside a fusion; PyTorch rounds every op), one bf16 step on 6-10% of
-    a block's outputs, and the smoke models amplify that: on the 4-layer
-    qwen2.5-3b smoke the final hidden state differs by up to 20% of its
-    largest value.  In f32 the same stack agrees to ~1e-4, so the
-    comparison sees the algorithm, not the rounding."""
+    inside a fusion; PyTorch rounds every op), one bf16 step on a share of
+    a block's outputs, and the random-weight smoke models amplify that
+    layer by layer into the final hidden state.  In f32 the comparison
+    sees the algorithm, not the rounding."""
     monkeypatch.setattr(jlayers, "_COMPUTE", jnp.float32)
     monkeypatch.setattr(tlayers, "_COMPUTE", torch.float32)
 
