@@ -35,7 +35,24 @@ Phases, each printing one JSON line:
    20) beside its bound, the plain version and
    ``scaled_dot_product_attention``;
 9. launch counts of the serving run; flash attention must have run once
-   per layer at least.
+   per layer at least;
+10. the two flash-attention backward kernels (dQ, and per-q-head dK, dV)
+    against their plain versions on the card, within tolerance, over the
+    forward's sweep and the training shape given as strided views, and
+    ``flash_attention``'s gradients against autograd through the plain
+    forward;
+11. the training path at full width: qwen2.5-3b (36 layers, random
+    weights from a seed: see ``training_params``; ``remat="dots"``) with
+    the flash route on, at
+    global batch 2 x 2048 tokens from the synthetic pipeline: first the
+    flash route's loss and gradients against the q-chunked route's (f32
+    and bf16 compute), then ``Trainer.run`` for 6 AdamW steps on one
+    batch (``TRAIN_OPT``), launch counts reset just before it and read
+    just after, the step times, peak memory, and a profile of one more
+    step;
+12. the backward kernels' times at the training shape (CUDA events,
+    median of 20) beside their bound, the plain versions and the
+    backward of ``scaled_dot_product_attention``.
 
 The last lines are the kernel summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -89,6 +106,27 @@ FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 LSE_TOL = (1e-4, 1e-4)
 #: flash vs q-chunked prefill logits: max |d| / max |q-chunked|
 LOGIT_GAP = 2e-2
+#: (rtol, atol) on the backward kernels' outputs per input dtype.  f32: the
+#: reference's gradient tolerance.  bf16: dQ is rounded once to bf16 from
+#: an f32 sum in both versions, so one bf16 step (2^-7 of |dQ|); the
+#: per-q-head dK, dV are f32 in both and are held to the f32 tolerance
+BWD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+
+#: the training path: qwen2.5-3b, global batch 2 x 2048 tokens, 6 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+#: AdamW for the training run.  Its first steps move each of the 3.1e9
+#: weights by about lr whatever its gradient's size; with a 2-step warmup
+#: to 3e-4 the loss went 12.25, 8.91, 16.65, 16.39, 17.93, 13.68 on the
+#: flash route and 12.25, 8.91, 16.70, 16.43, 17.89, 14.10 on the
+#: q-chunked route (an H100 80GB HBM3 at 700 W, tools/train_lr_probe.py):
+#: AdamW's overshoot, not the kernels'.  A 100-step warmup to the same
+#: peak went 12.25 -> 7.63.
+TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=100, total_steps=1000)
+FLASH_TRAIN = dict(B=TRAIN_BATCH, Hq=16, Hkv=2, L=TRAIN_SEQ, D=128,
+                   causal=True, window=None, softcap=None)
+#: flash vs q-chunked training gradients in f32: max |d| / max |q-chunked|
+#: per leaf; the loss in bf16 compute: |d| / |q-chunked|
+GRAD_GAP_F32, LOSS_GAP_BF16 = 1e-3, 1e-2
 
 KERNELS = {
     "pack_rows": ("src/repro_torch/kernels/csrc/pack_rows.cu",
@@ -99,6 +137,10 @@ KERNELS = {
                             "src/repro/kernels/relayout.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                         "src/repro/kernels/flash_attention.py:39"),
+    "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                           "src/repro/kernels/flash_attention.py:146"),
+    "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:166"),
 }
 
 
@@ -692,6 +734,360 @@ def flash_timings(torch, dev) -> dict:
     return res
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+def _bwd_case(torch, q, k, v, causal, window, softcap, gen) -> tuple:
+    """The dQ and dK/dV kernels against their plain versions on the same
+    q, k, v, dO and the plain forward's O and LSE: (max |d dQ|,
+    max |d dK|, max |d dV|), raising beyond the tolerances."""
+    from repro_torch.kernels import flash_attention_dkv, flash_attention_dq
+    from repro_torch.kernels.ref import (flash_attention_dkv_ref,
+                                         flash_attention_dq_ref,
+                                         flash_attention_ref)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
+    do = (0.5 * torch.randn(q.shape, generator=gen, device=q.device)
+          ).to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+    dq, (dk, dv) = flash_attention_dq(*args), flash_attention_dkv(*args)
+    rdq, (rdk, rdv) = flash_attention_dq_ref(*args), \
+        flash_attention_dkv_ref(*args)
+    torch.cuda.synchronize()
+    rtol, atol = BWD_TOL[str(q.dtype).split(".")[-1]]
+    return (close_err(dq.float(), rdq.float(), rtol, atol),
+            close_err(dk, rdk, *BWD_TOL["float32"]),
+            close_err(dv, rdv, *BWD_TOL["float32"]))
+
+
+def check_flash_bwd(torch, dev) -> dict:
+    """The backward kernels against their plain versions (several cases
+    agree bit for bit: both sum the same f32 products in the same order),
+    each case counted as one launch of each kernel."""
+    from repro_torch.kernels import (flash_attention, flash_attention_dkv,
+                                     flash_attention_dq)
+    from repro_torch.kernels.ref import flash_attention_ref
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    masks = {"causal": (True, None, None), "non_causal": (False, None, None),
+             "window": (True, 48, None), "softcap": (True, None, 30.0),
+             "window_softcap": (False, 48, 30.0)}
+    groups: dict = {}
+    cases = 0
+    # the forward's sweep: ragged lengths, Lq != Lk, zero-padded head dims
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (causal, window, softcap) in masks.items():
+            worst = [0.0, 0.0, 0.0]
+            for g in (1, 2, 4, 8):
+                for D in (16, 24, 32, 48, 80, 128, 200, 256):
+                    q, k, v = _qkv(torch, gen, dev, dtype, B=2, Hq=2 * g,
+                                   Hkv=2, L=200, D=D,
+                                   Lk=136 if g == 2 else None,
+                                   qk_std=math.sqrt(2.0))
+                    e = _bwd_case(torch, q, k, v, causal, window, softcap,
+                                  gen)
+                    worst = [max(a, b) for a, b in zip(worst, e)]
+                    cases += 1
+            groups[f"{name}/{str(dtype).split('.')[-1]}"] = dict(
+                zip(("dq", "dk", "dv"), worst))
+    # the training shape, as attention hands it over: (B, H, L, D) views
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _qkv(torch, gen, dev, torch.bfloat16,
+                             qk_std=math.sqrt(2.0), **FLASH_TRAIN))
+    e = _bwd_case(torch, q, k, v, True, None, None, gen)
+    train = {"shape": FLASH_TRAIN, **dict(zip(("dq", "dk", "dv"), e))}
+    cases += 1
+    del q, k, v
+    launched = (flash_attention_dq.launches - before[0],
+                flash_attention_dkv.launches - before[1])
+    if launched != (cases, cases):
+        raise AssertionError(f"{cases} cases launched the kernels "
+                             f"{launched} times")
+    # the autograd.Function (kernels) against autograd through the plain
+    # forward, f32, every mask
+    fn_err = {}
+    for name, (causal, window, softcap) in masks.items():
+        q, k, v = (x.requires_grad_() for x in _qkv(
+            torch, gen, dev, torch.float32, B=2, Hq=8, Hkv=2, L=200, D=64,
+            qk_std=math.sqrt(2.0)))
+        do = torch.randn(q.shape, generator=gen, device=dev)
+        got = torch.autograd.grad(flash_attention(q, k, v, None, causal,
+                                                  window, softcap), (q, k, v),
+                                  do)
+        want = torch.autograd.grad(flash_attention_ref(
+            q, k, v, None, causal, window, softcap)[0], (q, k, v), do)
+        fn_err[name] = max(close_err(a, b, *BWD_TOL["float32"])
+                           for a, b in zip(got, want))
+        cases += 1
+    torch.cuda.empty_cache()
+    return {"cases": cases,
+            "tolerance": {"dq": BWD_TOL, "dk_dv": BWD_TOL["float32"],
+                          "rule": "|kernel - plain| <= atol + rtol*|plain|"},
+            "max_abs_err_by_group": groups, "training_shape": train,
+            "autograd_vs_plain_forward_f32": fn_err,
+            "max_abs_err": {"flash_attention_dq": train["dq"],
+                            "flash_attention_dkv": max(train["dk"],
+                                                       train["dv"])}}
+
+
+# -- phase 11 ------------------------------------------------------------------
+
+def train(torch, dev, K) -> dict:
+    """The training path at full width: the flash route's gradients
+    against the q-chunked route's, then ``Trainer.run`` with the launch
+    counts of that one call, then a profile of one more step."""
+    import dataclasses
+    import itertools
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.models import LM
+    from repro_torch.train import OptimizerConfig, Trainer, adamw_init
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash=True)
+    if TRAIN_SEQ % cfg.flash_block or cfg.remat != "dots":
+        raise ValueError("the training run must take the flash route under "
+                         "remat='dots'")
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = training_params(model, torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host_batch = next(SyntheticTokens(PipelineConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+        seed=SEED)))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+
+    routes = compare_train_routes(torch, model, params, batch)
+
+    trainer = Trainer(model, OptimizerConfig(**TRAIN_OPT),
+                      itertools.repeat(host_batch))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    params, opt, hist = trainer.run(params, opt, TRAIN_STEPS, log_every=0)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for _, m in hist]
+    norms = [m["grad_norm"] for _, m in hist]
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    steps = [m["step_seconds"] for _, m in hist]
+    steady = statistics.median(steps[1:])
+    profile = profile_train_step(torch, trainer, params, opt, K)
+    del params, opt, trainer
+    torch.cuda.empty_cache()
+    return {"arch": SERVE_ARCH, "layers": cfg.n_layers, "flash": True,
+            "remat": cfg.remat, "global_batch": TRAIN_BATCH,
+            "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "optimizer": TRAIN_OPT,
+            "params": model.num_params(), "init_seconds": init_s,
+            "flash_vs_q_chunked": routes, "losses": losses,
+            "grad_norms": norms, "lrs": [m["lr"] for _, m in hist],
+            "step_seconds": steps, "steady_step_seconds": steady,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+            "peak_memory_bytes": peak, "launches": launches,
+            "launches_per_step": per_step, "profile": profile}
+
+
+def check_training(trained: dict) -> None:
+    """The training run's gates: f32 gradients of the flash route within
+    GRAD_GAP_F32 of the q-chunked route's per leaf and bf16 losses within
+    LOSS_GAP_BF16; every loss and grad norm finite and positive; the last
+    loss below the first; one dq and one dkv launch per layer and step,
+    and at least one forward."""
+    routes = trained["flash_vs_q_chunked"]
+    if routes["float32"]["over_limit"]:
+        raise AssertionError(f"f32 gradients of the flash route differ from "
+                             f"the q-chunked route's: "
+                             f"{routes['float32']['over_limit']}")
+    if not routes["bfloat16"]["loss_gap"] < LOSS_GAP_BF16:
+        raise AssertionError(f"bf16 losses differ: {routes['bfloat16']}")
+    losses, norms = trained["losses"], trained["grad_norms"]
+    if not all(math.isfinite(x) and x > 0 for x in losses + norms):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    per_step, n = trained["launches_per_step"], trained["layers"]
+    if not (per_step["flash_attention_dq"] == per_step["flash_attention_dkv"]
+            == n and per_step["flash_attention"] >= n):
+        raise AssertionError(f"launches per step {per_step}, not one dq "
+                             f"and one dkv per layer")
+
+
+def training_params(model, generator) -> dict:
+    """Random weights for the training run: ``serving_params``, then the
+    tied embedding rescaled from the reference's std 1 to
+    1/sqrt(d_model).  At std 1 the logits h.E have a std of sqrt(d_model)
+    = 45, the first loss is 331 against ln(vocab) = 11.9, and AdamW's
+    steps of about lr per weight overshoot: the loss went 331, 184, 259,
+    575, 518, 438 over 6 steps at lr 3e-4 (an H100, PERF.md).  At
+    1/sqrt(d_model) the logits have a std of about 1, as at a real
+    model's initialization (std 0.02)."""
+    params = serving_params(model, generator)
+    params["embed"].mul_(1.0 / math.sqrt(model.cfg.d_model))
+    return params
+
+
+def compare_train_routes(torch, model, params, batch) -> dict:
+    """Loss and gradients of the flash and q-chunked routes on the same
+    weights and batch, in f32 and in bf16 compute.  The flash route's
+    gradients wait on the host while the q-chunked route runs.  A gap is
+    max |d| / max |q-chunked| over one leaf, or over one layer's slice of
+    a layer-stacked leaf (``.../wq[35]``), so a layer whose gradients are
+    small is held to its own scale; ``check_training`` gates every gap.
+    Reported: the largest gaps, and those of the embedding, the final
+    norm and the first and last layers."""
+    import dataclasses
+    from repro_torch.models import LM
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.trainer import value_and_grad
+    base = LM(dataclasses.replace(model.cfg, flash=False))
+    counts = [c for _, c in model.cfg.program]
+    names = _leaf_names(params)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with compute_dtype(dtype):
+            fl, _, fg = value_and_grad(model, params, batch)
+            fg = [g.cpu() for g in tree_leaves(fg)]
+            bl, _, bg = value_and_grad(base, params, batch)
+        gaps = {}
+        for name, a, b in zip(names, fg, tree_leaves(bg)):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"non-finite gradient of {name}")
+            parts = name.split("/")
+            pieces = ([(f"{name}[{i}]", a[i], b[i]) for i in range(len(b))]
+                      if parts[0] == "segments" and counts[int(parts[1])] > 1
+                      else [(name, a, b)])
+            for key, x, y in pieces:
+                d = (x.to(y.device) - y).abs().max()
+                gaps[key] = float(d / y.abs().max().clamp_min(1e-30))
+        del fg, bg
+        torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            gaps_f32 = gaps
+        last = counts[0] - 1
+        shown = {k: v for k, v in gaps.items()
+                 if "[" not in k or k.endswith(("[0]", f"[{last}]"))}
+        out[str(dtype).split(".")[-1]] = {
+            "loss_flash": float(fl), "loss_q_chunked": float(bl),
+            "loss_gap": abs(float(fl) - float(bl)) / abs(float(bl)),
+            "grad_gap_max": max(gaps.values()), "compared": len(gaps),
+            "largest": dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:5]),
+            "first_last_layers": shown}
+    out["float32"]["over_limit"] = {
+        k: v for k, v in gaps_f32.items() if not v < GRAD_GAP_F32}
+    return out
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """Path names of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{prefix}/{i}")]
+    return [prefix.lstrip("/")]
+
+
+def profile_train_step(torch, trainer, params, opt, K) -> dict:
+    """Device time by kernel of one training step (``torch.profiler``),
+    beside its host-clock time under the profiler: the busy share, the
+    top kernels, the flash kernels' shares, and that step's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(params, opt, 1, log_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(r[1] for r in rows)
+
+    def share(tag):
+        return sum(r[1] for r in rows if tag in r[0]) / device_us \
+            if device_us else None
+
+    top = sorted(rows, key=lambda r: -r[1])[:10]
+    return {"wall_ms": wall * 1e3,
+            "device_ms": device_us / 1e3 if rows else None,
+            "busy_share": device_us / 1e3 / (wall * 1e3) if rows else None,
+            "kernels": sum(r[2] for r in rows),
+            "flash_fwd_share": share("flash_fwd_kernel"),
+            "flash_dq_share": share("flash_dq_kernel"),
+            "flash_dkv_share": share("flash_dkv_kernel"),
+            "launches": launches,
+            "top": [{"name": k[:60], "ms": t / 1e3, "calls": c}
+                    for k, t, c in top]}
+
+
+# -- phase 12 ------------------------------------------------------------------
+
+def bwd_timings(torch, dev) -> dict:
+    """The dQ and dK/dV kernels at the training shape, beside their bound,
+    their plain versions and the backward of one
+    ``scaled_dot_product_attention`` (forward + backward minus forward,
+    computing dQ, dK and dV together)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import (flash_attention, flash_attention_dkv,
+                                     flash_attention_dq)
+    from repro_torch.kernels.ref import (flash_attention_dkv_ref,
+                                         flash_attention_dq_ref)
+    shp = FLASH_TRAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q, k, v = _qkv(torch, gen, dev, torch.bfloat16, **shp)
+    B, Hq, L, D = q.shape
+    scale = 1.0 / D ** 0.5
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    do = (0.5 * torch.randn(q.shape, generator=gen, device=dev)).bfloat16()
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale)
+    pairs = B * Hq * live_pairs(L, L, shp["causal"], shp["window"])
+    ins = sum(x.numel() * x.element_size() for x in (q, k, v, do, lse, delta))
+    work = {"flash_attention_dq": (6 * D * pairs, ins + q.numel() * 2),
+            "flash_attention_dkv": (8 * D * pairs, ins + 2 * q.numel() * 4)}
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        sdpa().backward(do)
+
+    with torch.no_grad():
+        fwd = time_ms(sdpa)
+    library = time_ms(sdpa_fwd_bwd)["median"] - fwd["median"]
+    res = {"shape": {**shp, "dtype": "bfloat16"},
+           "library_fwd_ms": fwd["median"]}
+    for name, kernel, plain in (
+            ("flash_attention_dq", flash_attention_dq,
+             flash_attention_dq_ref),
+            ("flash_attention_dkv", flash_attention_dkv,
+             flash_attention_dkv_ref)):
+        flops, nbytes = work[name]
+        r = {"flops": flops, "bytes": nbytes,
+             "ms": time_ms(lambda: kernel(*args)),
+             "plain_ms": time_ms(lambda: plain(*args)),
+             "library_ms": library,
+             "bound_ms": max(flops / BF16_FLOPS,
+                             nbytes / HBM_BYTES_PER_S) * 1e3,
+             "bound_by": "operations" if flops / BF16_FLOPS >
+             nbytes / HBM_BYTES_PER_S else "bytes"}
+        for key in ("ms", "plain_ms"):
+            r[f"{key}_quartiles"] = [r[key]["p25"], r[key]["p75"]]
+            r[key] = r[key]["median"]
+        r["tflops"] = flops / r["ms"] / 1e9
+        res[name] = r
+    torch.cuda.empty_cache()
+    return res
+
+
 # -- driver --------------------------------------------------------------------
 
 def main() -> int:
@@ -743,7 +1139,7 @@ def main() -> int:
          hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     emit(5, launches=launches)
-    missing = [k for k in KERNELS if k != "flash_attention"
+    missing = [k for k in KERNELS if not k.startswith("flash_attention")
                and launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
@@ -770,6 +1166,20 @@ def main() -> int:
             f"{serve_launches['flash_attention']} times, fewer than its "
             f"{n_layers} layers")
 
+    t0 = time.perf_counter()
+    bwd_check = check_flash_bwd(torch, dev)
+    emit(10, seconds=time.perf_counter() - t0, **bwd_check)
+
+    t0 = time.perf_counter()
+    trained = train(torch, dev, K)
+    emit(11, seconds=time.perf_counter() - t0, **trained)
+    check_training(trained)
+
+    t0 = time.perf_counter()
+    bwd_times = bwd_timings(torch, dev)
+    emit(12, seconds=time.perf_counter() - t0, **bwd_times,
+         bf16_flops=BF16_FLOPS, hbm_bytes_per_s=HBM_BYTES_PER_S)
+
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": checks["max_abs_err"][name],
@@ -777,7 +1187,7 @@ def main() -> int:
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
              "library_ms": times[name]["library_ms"]}
             for name, (source, replaces) in KERNELS.items()
-            if name != "flash_attention"]
+            if not name.startswith("flash_attention")]
     source, replaces = KERNELS["flash_attention"]
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": source, "replaces": replaces,
@@ -787,6 +1197,16 @@ def main() -> int:
                  "bound_ms": flash_times["bound_ms"],
                  "bound_by": flash_times["bound_by"],
                  "library_ms": flash_times["library_ms"]})
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        source, replaces = KERNELS[name]
+        t = bwd_times[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": trained["launches"][name],
+                     "max_abs_err": bwd_check["max_abs_err"][name],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

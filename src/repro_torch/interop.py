@@ -20,7 +20,8 @@ from .core.blocks import Block
 from .device import resolve_device
 
 __all__ = ["blocks_from_records", "tensors_from_numpy", "to_tensor",
-           "to_numpy", "params_from_numpy", "params_to_numpy"]
+           "to_numpy", "params_from_numpy", "params_to_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy"]
 
 
 def blocks_from_records(records: Iterable) -> list:
@@ -34,7 +35,8 @@ def blocks_from_records(records: Iterable) -> list:
 def to_tensor(arr: np.ndarray, device="cuda") -> torch.Tensor:
     """One ndarray as a tensor on ``device`` (bfloat16 bit-exact)."""
     dev = resolve_device(device)
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)   # keeps 0-d 0-d
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
@@ -79,3 +81,19 @@ def params_to_numpy(tree, dtype=None):
     """The inverse: the port's parameter tree as numpy arrays (bfloat16 as
     in :func:`to_numpy`)."""
     return _map_tree(lambda t: to_numpy(t, dtype), tree)
+
+
+def opt_state_from_numpy(state, device="cuda") -> dict:
+    """An AdamW state of numpy arrays (``{"m", "v", "count"}``, as the JAX
+    package's ``adamw_init``/``adamw_update`` make it) as the port's, on
+    ``device``: a JAX step's state can be continued by the port."""
+    return {"m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device),
+            "count": to_tensor(np.asarray(state["count"], np.int32), device)}
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The inverse: the port's AdamW state as numpy arrays."""
+    return {"m": params_to_numpy(state["m"]),
+            "v": params_to_numpy(state["v"]),
+            "count": to_numpy(state["count"])}

@@ -1,13 +1,15 @@
 """The port's kernels: hand-written CUDA for Hopper, with plain PyTorch
 versions beside them (:mod:`.ref`) and a launch count on every wrapper."""
 
-from .flash_attention import flash_attention
+from .flash_attention import (flash_attention, flash_attention_dkv,
+                              flash_attention_dq)
 from .ops import merge_blocks_device, split_merged
 from .pack_blocks import pack_rows
 from .relayout import chunked_to_rowmajor, rowmajor_to_chunked
 
 __all__ = ["merge_blocks_device", "split_merged", "pack_rows",
            "chunked_to_rowmajor", "rowmajor_to_chunked", "flash_attention",
+           "flash_attention_dq", "flash_attention_dkv",
            "WRAPPERS",
            "launch_counts", "reset_launch_counts"]
 
@@ -15,7 +17,9 @@ __all__ = ["merge_blocks_device", "split_merged", "pack_rows",
 WRAPPERS = {"pack_rows": pack_rows,
             "chunked_to_rowmajor": chunked_to_rowmajor,
             "rowmajor_to_chunked": rowmajor_to_chunked,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_dq": flash_attention_dq,
+            "flash_attention_dkv": flash_attention_dkv}
 
 
 def launch_counts() -> dict:

@@ -35,12 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 
-#: library name -> (C entry point, its argument types)
+_FLASH_BWD = (_LL,) * 18 + (_I, _I, _I, _LL, _I, _F, _F, _P)
+
+#: library name -> {C entry point: its argument types}
 SOURCES = {
-    "pack_rows": ("repro_pack_rows", (_P, _P, _P, _P, _LL, _LL, _P)),
-    "relayout": ("repro_relayout", (_P, _P, _LL, _LL, _LL, _LL, _I, _P)),
-    "flash_fwd": ("repro_flash_fwd", (_P,) * 5 + (_LL,) * 15
-                  + (_I, _I, _I, _LL, _I, _F, _F, _P)),
+    "pack_rows": {"repro_pack_rows": (_P, _P, _P, _P, _LL, _LL, _P)},
+    "relayout": {"repro_relayout": (_P, _P, _LL, _LL, _LL, _LL, _I, _P)},
+    "flash_fwd": {"repro_flash_fwd": (_P,) * 5 + (_LL,) * 15
+                  + (_I, _I, _I, _LL, _I, _F, _F, _P)},
+    "flash_bwd": {"repro_flash_dq": (_P,) * 7 + _FLASH_BWD,
+                  "repro_flash_dkv": (_P,) * 8 + _FLASH_BWD},
 }
 
 _lock = threading.Lock()
@@ -107,15 +111,15 @@ def build_all() -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed), with its entry
-    point's argument and return types declared."""
+    points' argument and return types declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build_all()[name]["path"])
-            entry, argtypes = SOURCES[name]
-            fn = getattr(lib, entry)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            for entry, argtypes in SOURCES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -38,7 +38,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_tile.cuh"
+
 namespace {
+
+using flash::load_tile;
+using flash::store;
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -67,46 +72,6 @@ struct Params {
   int causal, has_window, has_softcap;
 };
 
-__device__ __forceinline__ void load8(const float* src, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float2 f = __bfloat1622float2(h[t]);
-    v[2 * t] = f.x;
-    v[2 * t + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
-// Rows [row0, row0 + 64) of one (batch, head) slice, `D` columns in groups
-// of 8 (16-byte loads), into shared memory as f32 with row stride `ld`;
-// rows past `n_rows` and columns past D are zero.
-template <int DP, typename T>
-__device__ void load_tile(float* dst, int ld, const T* base, long long sl,
-                          long long row0, long long n_rows, int D) {
-  constexpr int kVecs = DP / 8;
-  for (int idx = threadIdx.x; idx < kBK * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 8;
-    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < n_rows && c < D) load8(base + (row0 + r) * sl + c, v);
-    float4* d = reinterpret_cast<float4*>(dst + r * ld + c);
-    d[0] = make_float4(v[0], v[1], v[2], v[3]);
-    d[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-}
-
 template <int NJ, typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Params p) {
@@ -132,7 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
-  load_tile<DP>(Qs, LDQ, qb, p.q_sl, q0, p.Lq, D);
+  load_tile<kBK, DP, kThreads>(Qs, LDQ, qb, p.q_sl, q0, p.Lq, D);
 
   float acc[4][NJ];
   float m[4], l[4];
@@ -152,8 +117,8 @@ __global__ void __launch_bounds__(kThreads)
   for (long long kt = 0; kt < n_kt; ++kt) {
     const long long k0 = kt * kBK;
     __syncthreads();  // the last tile's P.V reads are done
-    load_tile<DP>(Ks, LDK, kb, p.k_sl, k0, p.Lk, D);
-    load_tile<DP>(Vs, LDV, vb, p.v_sl, k0, p.Lk, D);
+    load_tile<kBK, DP, kThreads>(Ks, LDK, kb, p.k_sl, k0, p.Lk, D);
+    load_tile<kBK, DP, kThreads>(Vs, LDV, vb, p.v_sl, k0, p.Lk, D);
     __syncthreads();
 
     float s[4][4];

@@ -1,13 +1,18 @@
-"""Flash attention forward on the card: online-softmax tiled attention.
+"""Flash attention on the card: the online-softmax forward and its
+backward, each a hand-written CUDA kernel.
 
-The CUDA kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas
-``_fwd_kernel``: it keeps each score tile on chip with a running row max
-and sum, so attention's device-memory traffic is Q, K, V and O only.
-Causal and one-sided sliding-window masks, a logit softcap and GQA, as the
+The forward kernel (``csrc/flash_fwd.cu``) replaces the JAX package's
+Pallas ``_fwd_kernel``: it keeps each score tile on chip with a running row
+max and sum, so attention's device-memory traffic is Q, K, V and O only.
+The backward kernels (``csrc/flash_bwd.cu``) replace ``_dq_kernel`` and
+``_dkv_kernel``: they recompute P from the forward's LSE, dQ over k tiles
+and per-q-head dK, dV over q tiles; the GQA group sum follows in f32, as
+the reference's custom vjp does.  ``flash_attention`` is differentiable
+through a ``torch.autograd.Function`` over the three.  Causal and
+one-sided sliding-window masks, a logit softcap and GQA, as the
 reference; any Lq and Lk (ragged edge tiles are masked) and head_dim a
-multiple of 8 up to 256.  The backward kernels come with the training
-slice.  A tensor on the CPU takes the plain version in :mod:`.ref`; a CUDA
-tensor launches the kernel or raises.
+multiple of 8 up to 256.  A tensor on the CPU takes the plain versions in
+:mod:`.ref`; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -17,9 +22,11 @@ import math
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import (flash_attention_dkv_ref, flash_attention_dq_ref,
+                  flash_attention_ref)
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_dq",
+           "flash_attention_dkv"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
@@ -65,14 +72,105 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"block sizes must be positive: {block_q}, "
                          f"{block_k}")
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
-    elif q.device.type == "cuda":
-        o, lse = _launch(q, k, v, scale, causal, window, softcap)
-    else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    _device(q, "flash_attention")
+    o, lse = _FlashAttention.apply(q, k, v, scale, causal, window, softcap)
     return (o, lse) if return_lse else o
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's custom vjp: the forward kernel, then the two
+    backward kernels on the saved q, k, v, O (in its own dtype) and the
+    f32 LSE.  The LSE is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_ref(q, k, v, scale, causal, window,
+                                         softcap)
+        else:
+            o, lse = _launch(q, k, v, scale, causal, window, softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, causal, window, softcap)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do, *ctx.args),
+                None, None, None, None)
+
+
+def _device(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None) -> tuple:
+    """The reference's ``_bwd``: ``(dq, dk, dv)`` in the dtypes of ``q``,
+    ``k``, ``v`` from the forward's O and LSE and the output gradient
+    ``do``.  delta = rowsum(dO * O) in f32 from the stored O; dK and dV
+    come per q-head in f32 and are summed over each GQA group, then cast
+    once."""
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+    dq = flash_attention_dq(*args)
+    dkh, dvh = flash_attention_dkv(*args)
+    B, Hkv, Lk, D = k.shape
+    g = q.shape[1] // Hkv
+    return (dq, dkh.view(B, Hkv, g, Lk, D).sum(2).to(k.dtype),
+            dvh.view(B, Hkv, g, Lk, D).sum(2).to(v.dtype))
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do {do.dtype}{tuple(do.shape)} on {do.device} "
+                         f"does not match q {q.dtype}{tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != q.shape[:3] or x.dtype != torch.float32 or \
+                x.device != q.device:
+            raise ValueError(f"{name} must be f32 {tuple(q.shape[:3])} on "
+                             f"{q.device}; got {x.dtype}{tuple(x.shape)}")
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, scale: float,
+                       causal: bool = True, window: int | None = None,
+                       softcap: float | None = None) -> torch.Tensor:
+    """dQ (B, Hq, Lq, D) in ``q``'s dtype: the ``_dq_kernel`` kernel on a
+    CUDA tensor (counted), the plain version on a CPU one."""
+    _check_bwd(q, k, v, do, lse, delta)
+    _device(q, "flash_attention_dq")
+    if q.device.type == "cpu":
+        return flash_attention_dq_ref(q, k, v, do, lse, delta, scale,
+                                      causal, window, softcap)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("repro_flash_dq", (dq,), q, k, v, do, lse, delta, scale,
+                causal, window, softcap)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, scale: float,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None) -> tuple:
+    """Per-q-head dK and dV, each (B, Hq, Lk, D) f32 (the caller sums each
+    GQA group): the ``_dkv_kernel`` kernel on a CUDA tensor (counted), the
+    plain version on a CPU one."""
+    _check_bwd(q, k, v, do, lse, delta)
+    _device(q, "flash_attention_dkv")
+    if q.device.type == "cpu":
+        return flash_attention_dkv_ref(q, k, v, do, lse, delta, scale,
+                                       causal, window, softcap)
+    shape = (q.shape[0], q.shape[1], k.shape[2], q.shape[3])
+    dk, dv = (torch.empty(shape, dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    _launch_bwd("repro_flash_dkv", (dk, dv), q, k, v, do, lse, delta, scale,
+                causal, window, softcap)
+    flash_attention_dkv.launches += 1
+    return dk, dv
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
@@ -85,13 +183,24 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _check_grid(q) -> None:
+    if q.shape[0] * q.shape[1] >= 65536:
+        raise ValueError(f"B*Hq = {q.shape[0] * q.shape[1]}: the grid's y "
+                         f"extent is 65535")
+
+
+def _mask_args(causal, window, softcap) -> tuple:
+    return (int(causal), int(window is not None),
+            0 if window is None else int(window), int(softcap is not None),
+            0.0 if softcap is None else float(softcap))
+
+
 def _launch(q, k, v, scale, causal, window, softcap) -> tuple:
-    """Launch the kernel on checked CUDA tensors, on the current stream.
-    Counts the launch."""
+    """Launch the forward kernel on checked CUDA tensors, on the current
+    stream.  Counts the launch."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    if B * Hq >= 65536:
-        raise ValueError(f"B*Hq = {B * Hq}: the grid's y extent is 65535")
+    _check_grid(q)
     q, k, v = (_kernel_view(x) for x in (q, k, v))
     o = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
@@ -104,13 +213,35 @@ def _launch(q, k, v, scale, causal, window, softcap) -> tuple:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, Hq, Hkv, Lq, Lk, D, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], int(q.dtype == torch.bfloat16),
-            int(causal), int(window is not None),
-            0 if window is None else int(window), int(softcap is not None),
-            0.0 if softcap is None else float(softcap), float(scale), stream)
+            *_mask_args(causal, window, softcap), float(scale), stream)
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return o, lse
 
 
+def _launch_bwd(entry, outs, q, k, v, do, lse, delta, scale, causal, window,
+                softcap) -> None:
+    """Launch one backward kernel into ``outs`` on the current stream."""
+    _check_grid(q)
+    if outs[0].numel() == 0:
+        return
+    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    B, Hq, Lq, D = q.shape
+    lib = _build.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            B, Hq, k.shape[1], Lq, k.shape[2], D, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            int(q.dtype == torch.bfloat16),
+            *_mask_args(causal, window, softcap), float(scale), stream)
+    _build.check(lib, code, entry)
+
+
 #: kernel launches since the last reset (CPU calls never count)
 flash_attention.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the kernels (the three copies and the flash
-attention forward), and the lowering of a
+"""Plain PyTorch versions of the kernels (the three copies, the flash
+attention forward and its two backward kernels), and the lowering of a
 :class:`~repro_torch.core.merge.MergePlan` to the row tables the copies
 take.
 
@@ -20,6 +20,8 @@ from ..core.merge import MergePlan
 
 __all__ = ["pack_rows_ref", "chunked_to_rowmajor_ref",
            "rowmajor_to_chunked_ref", "flash_attention_ref",
+           "flash_attention_dq_ref", "flash_attention_dkv_ref",
+           "flash_attention_bwd_ref",
            "plan_row_tables"]
 
 
@@ -79,17 +81,83 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qp = torch.arange(Lq, device=q.device)[:, None]
-    kp = torch.arange(Lk, device=q.device)[None, :]
-    m = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    s = torch.where(_mask(Lq, Lk, causal, window, q.device), s, -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype), lse
+
+
+def _mask(Lq: int, Lk: int, causal: bool, window, device) -> torch.Tensor:
+    qp = torch.arange(Lq, device=device)[:, None]
+    kp = torch.arange(Lk, device=device)[None, :]
+    m = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
     if causal:
         m &= qp >= kp
     if window is not None:
         m &= (qp - kp) < window
+    return m
+
+
+def _p_ds(q, k, v, do, lse, delta, scale, causal, window, softcap) -> tuple:
+    """The reference's ``_p_ds`` on whole (Lq, Lk) matrices in f32: P
+    recomputed from the forward's LSE, and dS = P * (dP - delta) * the
+    softcap's derivative * scale, zero where masked.  Returns ``(p, ds,
+    kk)`` with ``kk`` the f32 keys repeated per q-head."""
+    g = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    sraw = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if softcap is not None:
+        t = torch.tanh(sraw / softcap)
+        s = softcap * t
+        dcap = 1.0 - t * t
+    else:
+        s, dcap = sraw, 1.0
+    m = _mask(q.shape[2], k.shape[2], causal, window, q.device)
     s = torch.where(m, s, -1e30)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype), lse
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vv)
+    ds = p * (dp - delta[..., None]) * dcap * scale
+    return p, torch.where(m, ds, 0.0), kk
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, scale: float,
+                           causal: bool = True, window: int | None = None,
+                           softcap: float | None = None) -> torch.Tensor:
+    """What ``_dq_kernel`` computes: dQ = dS.K in ``q``'s dtype.  ``do``
+    like ``q``; ``lse``, ``delta``: (B, Hq, Lq) f32."""
+    _, ds, kk = _p_ds(q, k, v, do, lse, delta, scale, causal, window,
+                      softcap)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, kk).to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, scale: float,
+                            causal: bool = True, window: int | None = None,
+                            softcap: float | None = None) -> tuple:
+    """What ``_dkv_kernel`` computes: per-q-head dK = dS^T.Q and dV =
+    P^T.dO, each (B, Hq, Lk, D) f32, before the GQA group sum."""
+    p, ds, _ = _p_ds(q, k, v, do, lse, delta, scale, causal, window,
+                     softcap)
+    return (torch.einsum("bhqk,bhqd->bhkd", ds, q.float()),
+            torch.einsum("bhqk,bhqd->bhkd", p, do.float()))
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float | None = None,
+                            causal: bool = True, window: int | None = None,
+                            softcap: float | None = None) -> tuple:
+    """The reference's ``_bwd`` in f32 on whole matrices: ``(dq, dk, dv)``
+    in the dtypes of ``q``, ``k``, ``v``, from the forward's stored O (in
+    its own dtype) and f32 LSE.  delta = rowsum(dO * O) in f32; dK and dV
+    are summed over each GQA group in f32 and cast once."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+    dq = flash_attention_dq_ref(*args)
+    dkh, dvh = flash_attention_dkv_ref(*args)
+    B, Hkv, Lk, D = k.shape
+    g = q.shape[1] // Hkv
+    return (dq, dkh.view(B, Hkv, g, Lk, D).sum(2).to(k.dtype),
+            dvh.view(B, Hkv, g, Lk, D).sum(2).to(v.dtype))
 
 
 # -- plan lowering -------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Shared layer primitives: norms, rotary embeddings, MLPs, embeddings.
+"""Shared layer primitives: norms, rotary embeddings, MLPs, embeddings,
+and the training loss (chunked cross-entropy).
 
-Compute is bf16 from the embedding on (``_COMPUTE``), with norms and
-softmax in f32, as in the reference.  The chunked cross-entropy comes with
-the training slice.
+Compute is bf16 from the embedding on (``_COMPUTE``), with norms, softmax
+and the loss's logits in f32, as in the reference.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from .params import ParamDef
 
 __all__ = ["rms_norm", "rms_norm_def", "layer_norm", "layer_norm_defs",
            "rope", "softcap", "mlp_defs", "mlp_forward", "embed_def",
-           "embed_lookup", "unembed_chunked"]
+           "embed_lookup", "unembed_chunked", "cross_entropy_chunked"]
 
 _COMPUTE = torch.bfloat16
 
@@ -114,3 +114,24 @@ def unembed_chunked(x, table, final_cap: float | None = None):
     outputs (decode / last position)."""
     logits = x @ table.to(x.dtype).T
     return softcap(logits.float(), final_cap)
+
+
+def cross_entropy_chunked(x, table, labels, chunk: int = 512,
+                          final_cap: float | None = None):
+    """Mean next-token cross-entropy without materializing the (B, L, V)
+    logits: a loop over ``max(1, L // chunk)`` sequence chunks (the
+    reference scans them), each chunk's logits in f32 after the product,
+    ``final_cap`` applied, logsumexp minus the gold logit."""
+    B, L, M = x.shape
+    n_chunks = max(1, L // chunk)
+    if L % n_chunks:
+        raise ValueError(f"sequence length {L} is not {n_chunks} chunks")
+    c = L // n_chunks
+    w = table.to(x.dtype)                 # cast once, shared by the chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        logits = softcap((x[:, i * c:(i + 1) * c] @ w.T).float(), final_cap)
+        gold = torch.gather(logits, -1, labels[:, i * c:(i + 1) * c, None]
+                            .long())[..., 0]
+        total = total + torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+    return total / (B * L)

@@ -1,25 +1,56 @@
-"""The Model API: skeleton / forward / prefill / decode.
+"""The Model API: skeleton / forward / loss / prefill / decode.
 
 Everything is a function of (params, inputs); ``LM`` holds the config and
 the device.  Parameters are a tree of nested dicts and lists under the
 reference's path names (``embed``, ``segments/0/attn/wq``, ...); a
 segment's parameters are stacked on a leading layer dimension, and the
-model walks it one layer at a time (the reference scans it).  The loss
-comes with the training slice.
+model walks it one layer at a time (the reference scans it), each layer
+under the config's remat policy when gradients are taken.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from . import transformer as tfm
-from .layers import embed_def, embed_lookup, layer_norm, rms_norm, \
-    unembed_chunked
-from .params import ParamDef, count_params, materialize, stack, tree_map
+from .layers import (cross_entropy_chunked, embed_def, embed_lookup,
+                     layer_norm, rms_norm, unembed_chunked)
+from .params import (ParamDef, count_params, grad_leaf, materialize, stack,
+                     tree_map)
 from .transformer import ModelConfig
 
 __all__ = ["LM"]
+
+_aten = torch.ops.aten
+
+
+def _dots_saveable(ctx, func, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matrix products without batch dimensions (the projections,
+    which einsum and ``@`` lower to ``mm`` or to ``bmm`` over a batch of
+    one) and recompute everything else, attention scores included."""
+    if func in (_aten.mm.default, _aten.addmm.default) or (
+            func is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` (one layer) under the config's remat policy: ``none``,
+    ``dots`` (save the projections' outputs), anything else recomputes
+    the whole layer in the backward pass."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _stack_tree(defs, n: int):
@@ -110,15 +141,48 @@ class LM:
                 aux = aux + a
                 kvs.append(kv)
                 continue
+
+            def body(xx, p, _kind=kind):
+                return tfm.block_forward(cfg, _kind, p, xx, positions,
+                                         collect_kv)
+            if torch.is_grad_enabled():
+                body = _remat(cfg, body)
             seg_kv = []
             for i in range(count):
-                x, a, kv = tfm.block_forward(cfg, kind, _layer(seg, i), x,
-                                             positions, collect_kv)
+                x, a, kv = body(x, _layer(seg, i))
                 aux = aux + a
                 seg_kv.append(kv)
             kvs.append(seg_kv)
         x = self._final_norm(params, x)
         return x, aux, (kvs if collect_kv else None)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy plus ``aux_weight`` times the
+        blocks' auxiliary loss: ``(loss, {"ce", "aux"})``."""
+        cfg = self.cfg
+        h, aux, _ = self.hidden(params, batch)
+        ce = cross_entropy_chunked(h, self._head_table(params),
+                                   batch["labels"], chunk=cfg.loss_chunk,
+                                   final_cap=cfg.final_cap)
+        return ce + cfg.aux_weight * aux, {"ce": ce, "aux": aux}
+
+    def trainable(self, params, grads) -> dict:
+        """``params`` as autograd leaves whose gradients accumulate in
+        place into ``grads`` (a zeroed tree like ``params``).  Each layer
+        of a stacked segment is a leaf of its own, a view of its slice of
+        the stacked tensor, so a layer's backward adds into its slice of
+        the stacked gradient with no stacked-size temporary per layer."""
+        out = tree_map(grad_leaf, {k: v for k, v in params.items()
+                                   if k != "segments"},
+                       {k: v for k, v in grads.items() if k != "segments"})
+        out["segments"] = [
+            tree_map(grad_leaf, seg, gseg) if count == 1 else
+            tree_map(lambda p, g, n=count: [grad_leaf(p[i], g[i])
+                                            for i in range(n)], seg, gseg)
+            for (_, count), seg, gseg in zip(self.cfg.program,
+                                             params["segments"],
+                                             grads["segments"])]
+        return out
 
     # -- serving --------------------------------------------------------------
     def cache_skeleton(self, batch: int, cache_len: int):

@@ -16,7 +16,7 @@ import math
 import torch
 
 __all__ = ["ParamDef", "stack", "count_params", "materialize",
-           "tree_leaves", "tree_map", "torch_dtype"]
+           "tree_leaves", "tree_map", "grad_leaf", "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,15 +53,27 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``tree`` with ``fn`` applied to every leaf (``None`` stays)."""
+def tree_map(fn, tree, *rest):
+    """``tree`` with ``fn`` applied to every leaf (``None`` stays); with
+    ``rest``, ``fn`` takes the leaves at the same path of every tree."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def grad_leaf(p: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """An autograd leaf sharing ``p``'s storage whose gradient accumulates
+    in place into ``grad`` (zeroed, ``p``'s shape and dtype): the leaf's
+    ``.grad`` is ``grad`` itself, so a backward pass adds into it."""
+    t = p.detach().requires_grad_()
+    t.grad = grad
+    return t
 
 
 def stack(d: ParamDef, n: int) -> ParamDef:

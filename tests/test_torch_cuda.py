@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each against its plain version (the
-copies bit-exact, flash attention within the reference's own f32
-tolerance), and the slice end to end through them.  Marked ``cuda``; they
+copies bit-exact, flash attention and its backward within the reference's
+own f32 tolerances), and the slices end to end through them.  Marked ``cuda``; they
 skip where there is no GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
@@ -13,6 +13,8 @@ import repro_torch.kernels as K
 from repro_torch.core.blocks import Block
 from repro_torch.io import Dataset
 from repro_torch.kernels.ref import (chunked_to_rowmajor_ref,
+                                     flash_attention_dkv_ref,
+                                     flash_attention_dq_ref,
                                      flash_attention_ref, pack_rows_ref,
                                      rowmajor_to_chunked_ref)
 
@@ -123,3 +125,85 @@ def test_flash_kernel_reads_strided_views(cuda):
     torch.testing.assert_close(got.float(),
                                flash_attention_ref(q, k, v)[0].float(),
                                rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
+@pytest.mark.parametrize("D", [16, 48, 128, 256])
+@pytest.mark.parametrize("causal,window,softcap",
+                         [(True, None, None), (False, None, None),
+                          (True, 48, None), (False, 48, 30.0)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
+                                       softcap):
+    """dQ and the per-q-head dK, dV against their plain versions on the
+    same inputs: f32 at the reference's gradient tolerance (rtol 1e-3,
+    atol 1e-4); bf16 dQ within one bf16 step (both round one f32 sum:
+    rtol 2^-7, atol 1e-4), dK and dV f32 in both.  Ragged lengths (150,
+    Lk 100), GQA 4, a padded head dim (48), q and k of std sqrt(2)."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 1)
+    B, Hq, Hkv, L, Lk = 2, 8, 2, 150, 100
+    q, k, v, do = (std * torch.randn((B, h, n, D), generator=gen,
+                                     device=cuda)
+                   for std, h, n in ((2 ** 0.5, Hq, L), (2 ** 0.5, Hkv, Lk),
+                                     (0.5, Hkv, Lk), (0.5, Hq, L)))
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    scale = D ** -0.5
+    o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+    before = (K.flash_attention_dq.launches, K.flash_attention_dkv.launches)
+    dq, (dk, dv) = K.flash_attention_dq(*args), K.flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert (K.flash_attention_dq.launches, K.flash_attention_dkv.launches) \
+        == (before[0] + 1, before[1] + 1)
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    f32 = dict(rtol=1e-3, atol=1e-4)
+    assert dq.dtype == dtype and dk.dtype == dv.dtype == torch.float32
+    torch.testing.assert_close(
+        dq.float(), flash_attention_dq_ref(*args).float(),
+        **(f32 if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-4)))
+    torch.testing.assert_close(dk, rdk, **f32)
+    torch.testing.assert_close(dv, rdv, **f32)
+
+
+def test_flash_attention_grads_on_the_card(cuda):
+    """``flash_attention``'s gradients (the forward and both backward
+    kernels) against autograd through the plain forward, f32, on strided
+    (B, H, L, D) views of (B, L, H, D) tensors and a strided output
+    gradient."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 130, h, 64), generator=gen, device=cuda)
+               .transpose(1, 2).requires_grad_() for h in (8, 2, 2))
+    do = torch.randn((2, 130, 8, 64), generator=gen,
+                     device=cuda).transpose(1, 2)
+    got = torch.autograd.grad(K.flash_attention(q, k, v, None, True, 40),
+                              (q, k, v), do)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, None, True, 40
+                                                   )[0], (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_training_step_through_the_kernels(cuda):
+    """One AdamW step of the qwen2.5-3b smoke config on the card with the
+    flash route on under ``remat="dots"``: one dQ and one dK/dV launch
+    per layer, the forward twice per layer (again in the recompute), and
+    finite metrics."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+    from repro_torch.train import OptimizerConfig, adamw_init, \
+        make_train_step
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), flash=True,
+                              flash_block=16, remat="dots")
+    model = LM(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 33), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    K.reset_launch_counts()
+    _, _, met = make_train_step(model, OptimizerConfig())(
+        params, adamw_init(params), batch)
+    assert np.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    counts = K.launch_counts()
+    assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] \
+        == cfg.n_layers
+    assert counts["flash_attention"] == 2 * cfg.n_layers

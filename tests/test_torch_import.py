@@ -67,9 +67,9 @@ def test_no_forbidden_import_statement(path):
 
 
 def test_package_is_lazy():
-    assert set(repro_torch.__all__) == {"configs", "core", "device",
+    assert set(repro_torch.__all__) == {"configs", "core", "data", "device",
                                         "interop", "io", "kernels", "launch",
-                                        "models", "serve"}
+                                        "models", "serve", "train"}
     with pytest.raises(AttributeError):
         repro_torch.no_such_module
 

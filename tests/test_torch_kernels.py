@@ -163,11 +163,13 @@ def test_cpu_tensors_never_launch():
     K.rowmajor_to_chunked(rm, chunk=(4, 8))
     K.pack_rows(rm, torch.arange(8, dtype=torch.int32),
                 torch.arange(8, dtype=torch.int32), n_dst_rows=8, width=24)
-    q = torch.zeros(1, 2, 4, 8)
-    K.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 4, 8, requires_grad=True)
+    K.flash_attention(q, q, q).sum().backward()
     assert K.launch_counts() == {"pack_rows": 0, "chunked_to_rowmajor": 0,
                                  "rowmajor_to_chunked": 0,
-                                 "flash_attention": 0}
+                                 "flash_attention": 0,
+                                 "flash_attention_dq": 0,
+                                 "flash_attention_dkv": 0}
 
 
 def test_wrappers_check_their_inputs():
