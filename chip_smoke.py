@@ -16,26 +16,35 @@ Phases, each printing one JSON line:
    processes) written through ``Dataset.write`` and read back through
    ``Dataset.read`` under ``merged_process`` and ``reorganized``, each
    component compared with its source, plus one partial-region read;
-4. kernel times at the main path's shapes (CUDA events, median of 20),
+4. kernel times at the main path's shapes (CUDA events around runs of
+   20 back-to-back calls, median of 5 runs),
    beside the memory-bandwidth bound, the plain version and one PyTorch
    call computing the same function;
 5. launch counts of the main-path run; every kernel must have run;
-6. the flash-attention kernel against its plain version on the card,
-   within tolerance: masks, GQA groups, head dims 16-256 (padded ones
-   too), ragged lengths, f32 and bf16, and the serving path's two shapes
-   with scores of std 2;
+6. the flash-attention forward's two kernels against their plain version
+   on the card, within tolerance: masks, GQA groups, head dims 16-256
+   (padded ones too), ragged lengths, f32 and bf16, the serving path's two
+   shapes with scores of std 2, and two more bf16 cases (D 80 at L 200;
+   D 128 at L 2048 with a window of 512 and a softcap); the launch counts
+   show that each bf16 case with head_dim up to 128 ran the sm90 kernel
+   (``csrc/flash_fwd_sm90.cu``) and every other case the f32 CUDA-core
+   one (``csrc/flash_fwd.cu``);
 7. the serving path at full width: ``ServeEngine.generate`` on
    qwen2.5-3b (36 layers, random weights from a seed, attention
    projections at true fan-in: see ``serving_params``) with the flash
    route on, 4 prompts of 2048 tokens and 32 greedy new tokens, launch
    counts reset just before it and read just after; then its prefill
    logits against the q-chunked route's on the same weights (bf16 and
-   f32 compute), and a profile of prefill and decode;
-8. flash-attention times at the serving shape (CUDA events, median of
-   20) beside its bound, the plain version and
-   ``scaled_dot_product_attention``;
-9. launch counts of the serving run; flash attention must have run once
-   per layer at least;
+   f32 compute, each flash prefill's launch counts read on their own: the
+   bf16 one runs the sm90 kernel, the f32 one the CUDA-core kernel), and
+   a profile of prefill and decode;
+8. flash-attention forward times at the serving and training shapes
+   (as phase 4's): the sm90 kernel beside its bound, the
+   CUDA-core kernel on the same bf16 inputs, the plain version and
+   ``scaled_dot_product_attention``; and the CUDA-core kernel on the f32
+   inputs of the f32 serving path, beside its bound and SDPA's;
+9. launch counts of the serving run; the sm90 kernel must have run once
+   per layer at least, the CUDA-core kernel never;
 10. the two flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
     forward's sweep and the training shape given as strided views, and
@@ -50,9 +59,10 @@ Phases, each printing one JSON line:
     batch (``TRAIN_OPT``), launch counts reset just before it and read
     just after, the step times, peak memory, and a profile of one more
     step;
-12. the backward kernels' times at the training shape (CUDA events,
-    median of 20) beside their bound, the plain versions and the
-    backward of ``scaled_dot_product_attention``.
+12. the backward kernels' times at the training shape (as phase 4's)
+    beside their bound, the plain versions and the backward of
+    ``scaled_dot_product_attention`` (its kernels' device time from the
+    profiler: autograd's host work outlasts them).
 
 The last lines are the kernel summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -80,6 +90,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), flop/s
 BF16_FLOPS = 989e12
+#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS = 67e12
 
 FIELD = (8192, 8192)
 BLOCK = (256, 256)
@@ -103,6 +115,15 @@ FLASH_GEMMA2 = dict(B=4, Hq=8, Hkv=4, L=2048, D=256, causal=True,
 #: to bf16, so they may differ by one bf16 step, at most 2^-7 of |O|; the
 #: atol covers f32 rounding where O cancels to near zero
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+#: two more bf16 checks on the sm90 route: a padded head dim (80 -> 128) at
+#: ragged L 200, and the serving length under a one-sided window and a
+#: softcap (the masks' tile-by-tile path at full length)
+FLASH_D80 = dict(B=2, Hq=8, Hkv=2, L=200, D=80, causal=True, window=None,
+                 softcap=None)
+FLASH_LONG_WINDOW = dict(B=1, Hq=16, Hkv=2, L=2048, D=128, causal=True,
+                         window=512, softcap=30.0)
+#: the forward's routes, by the name of their launch counter
+FLASH_ROUTES = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
 LSE_TOL = (1e-4, 1e-4)
 #: flash vs q-chunked prefill logits: max |d| / max |q-chunked|
 LOGIT_GAP = 2e-2
@@ -135,8 +156,10 @@ KERNELS = {
                             "src/repro/kernels/relayout.py:22"),
     "rowmajor_to_chunked": ("src/repro_torch/kernels/csrc/relayout.cu",
                             "src/repro/kernels/relayout.py:26"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
                         "src/repro/kernels/flash_attention.py:39"),
+    "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
+                             "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                            "src/repro/kernels/flash_attention.py:146"),
     "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
@@ -174,24 +197,48 @@ def close_err(a, b, rtol: float, atol: float) -> float:
     return float(d.max()) if a.numel() else 0.0
 
 
-def time_ms(fn, reps: int = REPS) -> dict:
-    """Device time of one call, CUDA events around each of ``reps`` calls
-    after a warm-up: the median and the quartiles, in milliseconds."""
+def time_ms(fn, reps: int = REPS, rounds: int = 5) -> dict:
+    """Device time of one call: CUDA events around ``rounds`` runs of
+    ``reps`` back-to-back calls after a warm-up, each run divided by
+    ``reps``, so the host's work between launches (the wrapper's checks,
+    allocation, tensor maps) overlaps the device's and is not counted as
+    the kernel's: the median and the quartiles, in milliseconds."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     q1, med, q3 = statistics.quantiles(times, n=4)
     return {"median": med, "p25": q1, "p75": q3}
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call: the summed device time of its kernels
+    under ``torch.profiler`` over ``reps`` calls after a warm-up, per call.
+    For a call whose host work outlasts its kernels (autograd's backward),
+    where events would time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def smi_line() -> str:
@@ -485,17 +532,27 @@ def _qkv(torch, gen, dev, dtype, B, Hq, Hkv, L, D, Lk=None, qk_std=0.5,
 
 
 def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
-    """Kernel vs plain version: (max |dO|, max |dLSE|), raising beyond the
-    tolerances."""
+    """Kernel vs plain version: (max |dO|, max |dLSE|, the route that
+    ran), raising beyond the tolerances and unless exactly one launch of
+    the route ``_forward_route`` picks for these inputs was counted."""
+    import repro_torch.kernels as K
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
+    FA = sys.modules["repro_torch.kernels.flash_attention"]
+    before = K.launch_counts()
     o, lse = flash_attention(q, k, v, None, causal, window, softcap,
                              return_lse=True)
+    after = K.launch_counts()
+    route = FA._forward_route(q.dtype, q.shape[-1])
+    ran = {r: after[n] - before[n] for r, n in FLASH_ROUTES.items()}
+    if ran != {r: int(r == route) for r in FLASH_ROUTES}:
+        raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected one "
+                             f"launch on the {route} route, counted {ran}")
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     torch.cuda.synchronize()
     rtol, atol = FLASH_TOL[str(q.dtype).split(".")[-1]]
     return (close_err(o.float(), ro.float(), rtol, atol),
-            close_err(lse, rlse, *LSE_TOL))
+            close_err(lse, rlse, *LSE_TOL), route)
 
 
 def check_flash(torch, dev) -> dict:
@@ -504,6 +561,7 @@ def check_flash(torch, dev) -> dict:
              "window": (True, 48, None), "softcap": (True, None, 30.0),
              "window_softcap": (False, 48, 30.0)}
     groups: dict = {}
+    routes = dict.fromkeys(FLASH_ROUTES, 0)
     cases = 0
     # lengths that are no multiple of the kernel's 64-row tiles, one case
     # with Lq != Lk, and head dims 24, 48, 200 that run on zero-padded
@@ -516,28 +574,36 @@ def check_flash(torch, dev) -> dict:
                     q, k, v = _qkv(torch, gen, dev, dtype, B=2, Hq=2 * g,
                                    Hkv=2, L=200, D=D,
                                    Lk=136 if g == 2 else None)
-                    e = _flash_case(torch, q, k, v, causal, window, softcap)
+                    *e, route = _flash_case(torch, q, k, v, causal, window,
+                                            softcap)
                     worst = [max(a, b) for a, b in zip(worst, e)]
+                    routes[route] += 1
                     cases += 1
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = {
                 "o": worst[0], "lse": worst[1]}
     shapes = {}
-    for name, shp in (("serving", FLASH_MAIN), ("gemma2", FLASH_GEMMA2)):
+    for name, shp in (("serving", FLASH_MAIN), ("gemma2", FLASH_GEMMA2),
+                      ("d80", FLASH_D80), ("long_window", FLASH_LONG_WINDOW)):
         # as attention hands them over: (B, H, L, D) views of (B, L, H, D)
         q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                    for x in _qkv(torch, gen, dev, torch.bfloat16,
                                  qk_std=math.sqrt(2.0), **shp))
-        e = _flash_case(torch, q, k, v, shp["causal"], shp["window"],
-                        shp["softcap"])
-        shapes[name] = {"shape": shp, "o": e[0], "lse": e[1]}
+        *e, route = _flash_case(torch, q, k, v, shp["causal"], shp["window"],
+                                shp["softcap"])
+        if name != "gemma2" and route != "sm90":
+            raise AssertionError(f"the {name} shape ran the {route} route")
+        shapes[name] = {"shape": shp, "o": e[0], "lse": e[1],
+                        "route": route}
+        routes[route] += 1
         cases += 1
         del q, k, v
     torch.cuda.empty_cache()
-    return {"cases": cases,
+    return {"cases": cases, "cases_by_route": routes,
             "tolerance": {"o": FLASH_TOL, "lse": LSE_TOL,
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "main_shapes": shapes,
-            "max_abs_err": shapes["serving"]["o"]}
+            "max_abs_err": {"flash_attention": shapes["serving"]["o"],
+                            "flash_attention_simt": shapes["gemma2"]["o"]}}
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -580,18 +646,27 @@ def serve(torch, dev, K) -> dict:
     routes = {}
     for dtype in (torch.bfloat16, torch.float32):
         with compute_dtype(dtype), torch.inference_mode():
+            K.reset_launch_counts()
             flash_logits, _ = model.prefill(params, batch)
+            flash_launches = K.launch_counts()
             base_logits, _ = LM(dataclasses.replace(cfg, flash=False)
                                 ).prefill(params, batch)
         for lg in (flash_logits, base_logits):
             if not torch.isfinite(lg).all():
                 raise AssertionError("non-finite prefill logits")
+        # bf16 compute runs the sm90 kernel, f32 the CUDA-core one
+        route = "sm90" if dtype == torch.bfloat16 else "simt"
+        ran = {r: flash_launches[n] for r, n in FLASH_ROUTES.items()}
+        if ran != {r: cfg.n_layers * (r == route) for r in FLASH_ROUTES}:
+            raise AssertionError(f"{dtype} flash prefill: launches {ran}, "
+                                 f"not one {route} launch per layer")
         routes[str(dtype).split(".")[-1]] = {
             "logit_gap": float((flash_logits - base_logits).abs().max()
                                / base_logits.abs().max()),
             "same_greedy_first_token_share": float(
                 (flash_logits.argmax(-1) == base_logits.argmax(-1))
-                .float().mean())}
+                .float().mean()),
+            "flash_launches": flash_launches}
     for name, r in routes.items():
         if r["logit_gap"] >= LOGIT_GAP:
             raise AssertionError(
@@ -706,32 +781,54 @@ def live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
 
 
 def flash_timings(torch, dev) -> dict:
+    """The forward's kernels at the serving and training shapes, bf16: the
+    sm90 kernel (``ms``) and the CUDA-core kernel on the same inputs
+    (``simt_ms``, through the wrapper's module-private launcher that names
+    the route), beside the bound, the plain version and SDPA.  Then the
+    CUDA-core kernel on the path it serves here, the f32 prefill's inputs
+    at the serving shape, beside its f32 bound and SDPA in f32."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    shp = FLASH_MAIN
+    FA = sys.modules["repro_torch.kernels.flash_attention"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    q, k, v = _qkv(torch, gen, dev, torch.bfloat16, **shp)
-    B, Hq, L, D = q.shape
-    scale = 1.0 / D ** 0.5
-    flops = 4 * B * Hq * D * live_pairs(L, L, shp["causal"], shp["window"])
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
-        + B * Hq * L * 4                    # O like q, and the f32 LSE
-    res = {"shape": {**shp, "dtype": "bfloat16"}, "flops": flops,
-           "bytes": nbytes,
-           "ms": time_ms(lambda: flash_attention(q, k, v)),
-           "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
-           "bound_ms": max(flops / BF16_FLOPS,
-                           nbytes / HBM_BYTES_PER_S) * 1e3}
-    res["bound_by"] = "operations" if flops / BF16_FLOPS > \
-        nbytes / HBM_BYTES_PER_S else "bytes"
-    for key in ("ms", "plain_ms", "library_ms"):
-        res[f"{key}_quartiles"] = [res[key]["p25"], res[key]["p75"]]
-        res[key] = res[key]["median"]
-    res["tflops"] = flops / res["ms"] / 1e9
-    return res
+
+    def timed(shp, dtype, peak, kernels) -> dict:
+        q, k, v = _qkv(torch, gen, dev, dtype, **shp)
+        B, Hq, L, D = q.shape
+        scale = 1.0 / D ** 0.5
+        flops = 4 * B * Hq * D * live_pairs(L, L, shp["causal"],
+                                            shp["window"])
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
+            + B * Hq * L * 4                # O like q, and the f32 LSE
+        res = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
+               "flops": flops, "bytes": nbytes,
+               **{key: time_ms(lambda: fn(q, k, v, scale))
+                  for key, fn in kernels.items()},
+               "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+               "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+               "bound_by": "operations" if flops / peak >
+               nbytes / HBM_BYTES_PER_S else "bytes"}
+        for key in (*kernels, "plain_ms", "library_ms"):
+            res[f"{key}_quartiles"] = [res[key]["p25"], res[key]["p75"]]
+            res[key] = res[key]["median"]
+        for key in kernels:
+            res[key.replace("ms", "tflops")] = flops / res[key] / 1e9
+        return res
+
+    def simt(q, k, v, scale):
+        return FA._launch(q, k, v, scale, True, None, None, route="simt")
+
+    bf16 = {"ms": lambda q, k, v, scale: flash_attention(q, k, v, scale),
+            "simt_ms": simt}
+    out = {"serving": timed(FLASH_MAIN, torch.bfloat16, BF16_FLOPS, bf16),
+           "training": timed(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, bf16),
+           "simt_f32": timed(FLASH_MAIN, torch.float32, F32_FLOPS,
+                             {"ms": simt})}
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -894,7 +991,7 @@ def check_training(trained: dict) -> None:
     GRAD_GAP_F32 of the q-chunked route's per leaf and bf16 losses within
     LOSS_GAP_BF16; every loss and grad norm finite and positive; the last
     loss below the first; one dq and one dkv launch per layer and step,
-    and at least one forward."""
+    and two of the sm90 forward."""
     routes = trained["flash_vs_q_chunked"]
     if routes["float32"]["over_limit"]:
         raise AssertionError(f"f32 gradients of the flash route differ from "
@@ -909,9 +1006,11 @@ def check_training(trained: dict) -> None:
         raise AssertionError(f"the loss did not fall: {losses}")
     per_step, n = trained["launches_per_step"], trained["layers"]
     if not (per_step["flash_attention_dq"] == per_step["flash_attention_dkv"]
-            == n and per_step["flash_attention"] >= n):
+            == n and per_step["flash_attention"] == 2 * n
+            and per_step["flash_attention_simt"] == 0):
         raise AssertionError(f"launches per step {per_step}, not one dq "
-                             f"and one dkv per layer")
+                             f"and one dkv per layer and two sm90 "
+                             f"forwards (the dots recompute runs it again)")
 
 
 def training_params(model, generator) -> dict:
@@ -1018,6 +1117,7 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
             "device_ms": device_us / 1e3 if rows else None,
             "busy_share": device_us / 1e3 / (wall * 1e3) if rows else None,
             "kernels": sum(r[2] for r in rows),
+            "flash_fwd_sm90_share": share("flash_fwd_sm90_kernel"),
             "flash_fwd_share": share("flash_fwd_kernel"),
             "flash_dq_share": share("flash_dq_kernel"),
             "flash_dkv_share": share("flash_dkv_kernel"),
@@ -1032,7 +1132,8 @@ def bwd_timings(torch, dev) -> dict:
     """The dQ and dK/dV kernels at the training shape, beside their bound,
     their plain versions and the backward of one
     ``scaled_dot_product_attention`` (forward + backward minus forward,
-    computing dQ, dK and dV together)."""
+    computing dQ, dK and dV together; device time from the profiler, as
+    the backward's host work outlasts its kernels)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
@@ -1058,13 +1159,12 @@ def bwd_timings(torch, dev) -> dict:
                                               scale=scale, enable_gqa=True)
 
     def sdpa_fwd_bwd():
-        sdpa().backward(do)
+        torch.autograd.grad(sdpa(), (qg, kg, vg), do)
 
     with torch.no_grad():
-        fwd = time_ms(sdpa)
-    library = time_ms(sdpa_fwd_bwd)["median"] - fwd["median"]
-    res = {"shape": {**shp, "dtype": "bfloat16"},
-           "library_fwd_ms": fwd["median"]}
+        fwd = device_ms(sdpa)
+    library = device_ms(sdpa_fwd_bwd) - fwd
+    res = {"shape": {**shp, "dtype": "bfloat16"}, "library_fwd_ms": fwd}
     for name, kernel, plain in (
             ("flash_attention_dq", flash_attention_dq,
              flash_attention_dq_ref),
@@ -1155,16 +1255,19 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_times = flash_timings(torch, dev)
     emit(8, seconds=time.perf_counter() - t0, flash_attention=flash_times,
-         bf16_flops=BF16_FLOPS, hbm_bytes_per_s=HBM_BYTES_PER_S)
+         bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS,
+         hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     serve_launches = served["launches"]
     emit(9, launches=serve_launches)
     n_layers = served["layers"]
-    if serve_launches["flash_attention"] < n_layers:
+    if serve_launches["flash_attention"] < n_layers or \
+            serve_launches["flash_attention_simt"]:
         raise AssertionError(
-            f"serving launched flash attention "
-            f"{serve_launches['flash_attention']} times, fewer than its "
-            f"{n_layers} layers")
+            f"serving launched the sm90 flash kernel "
+            f"{serve_launches['flash_attention']} times for {n_layers} "
+            f"layers, the CUDA-core one "
+            f"{serve_launches['flash_attention_simt']} times")
 
     t0 = time.perf_counter()
     bwd_check = check_flash_bwd(torch, dev)
@@ -1188,15 +1291,21 @@ def main() -> int:
              "library_ms": times[name]["library_ms"]}
             for name, (source, replaces) in KERNELS.items()
             if not name.startswith("flash_attention")]
-    source, replaces = KERNELS["flash_attention"]
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": source, "replaces": replaces,
-                 "launches": serve_launches["flash_attention"],
-                 "max_abs_err": flash_check["max_abs_err"],
-                 "ms": flash_times["ms"], "plain_ms": flash_times["plain_ms"],
-                 "bound_ms": flash_times["bound_ms"],
-                 "bound_by": flash_times["bound_by"],
-                 "library_ms": flash_times["library_ms"]})
+    # the sm90 forward on the serving run; the CUDA-core forward on the
+    # f32 serving prefill, the path that runs it here
+    for name, launched, t in (
+            ("flash_attention", serve_launches["flash_attention"],
+             flash_times["serving"]),
+            ("flash_attention_simt", served["flash_vs_q_chunked"]["float32"]
+             ["flash_launches"]["flash_attention_simt"],
+             flash_times["simt_f32"])):
+        source, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launched,
+                     "max_abs_err": flash_check["max_abs_err"][name],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     for name in ("flash_attention_dq", "flash_attention_dkv"):
         source, replaces = KERNELS[name]
         t = bwd_times[name]

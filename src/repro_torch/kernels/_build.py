@@ -43,6 +43,8 @@ SOURCES = {
     "relayout": {"repro_relayout": (_P, _P, _LL, _LL, _LL, _LL, _I, _P)},
     "flash_fwd": {"repro_flash_fwd": (_P,) * 5 + (_LL,) * 15
                   + (_I, _I, _I, _LL, _I, _F, _F, _P)},
+    "flash_fwd_sm90": {"repro_flash_fwd_sm90": (_P,) * 5 + (_LL,) * 15
+                       + (_I, _I, _LL, _I, _F, _F, _P)},
     "flash_bwd": {"repro_flash_dq": (_P,) * 7 + _FLASH_BWD,
                   "repro_flash_dkv": (_P,) * 8 + _FLASH_BWD},
 }

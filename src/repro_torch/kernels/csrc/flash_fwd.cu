@@ -2,7 +2,11 @@
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // src/repro/kernels/flash_attention.py (launched by `_fwd`), the prefill
-// attention of every layer on the flash route.  Same function: f32
+// attention of every layer on the flash route, for the cases that
+// flash_fwd_sm90.cu (bf16 with head_dim up to 128, on the tensor cores)
+// does not take: f32 inputs, whose tolerance bf16 tensor cores cannot
+// meet, and head dims above 128 (gemma2-2b's 256), in either dtype.  The
+// wrapper picks the route by dtype and head dim.  Same function: f32
 // accumulation; scale, then softcap c*tanh(s/c); mask qpos >= kpos when
 // causal and (qpos - kpos) < window whenever a window is set (one-sided,
 // even when non-causal); masked scores are the finite -1e30 of the

@@ -1,9 +1,12 @@
 """Flash attention on the card: the online-softmax forward and its
 backward, each a hand-written CUDA kernel.
 
-The forward kernel (``csrc/flash_fwd.cu``) replaces the JAX package's
-Pallas ``_fwd_kernel``: it keeps each score tile on chip with a running row
-max and sum, so attention's device-memory traffic is Q, K, V and O only.
+The forward replaces the JAX package's Pallas ``_fwd_kernel``: it keeps
+each score tile on chip with a running row max and sum, so attention's
+device-memory traffic is Q, K, V and O only.  It has two routes, picked by
+dtype and head dim (``_forward_route``): bf16 with head_dim up to 128 runs
+``csrc/flash_fwd_sm90.cu`` (wgmma and TMA on Hopper's tensor cores); f32,
+and head dims above 128, run ``csrc/flash_fwd.cu`` (f32 on the CUDA cores).
 The backward kernels (``csrc/flash_bwd.cu``) replace ``_dq_kernel`` and
 ``_dkv_kernel``: they recompute P from the forward's LSE, dQ over k tiles
 and per-q-head dK, dV over q tiles; the GQA group sum follows in f32, as
@@ -18,6 +21,7 @@ multiple of 8 up to 256.  A tensor on the CPU takes the plain versions in
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -30,6 +34,21 @@ __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_dq",
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
+#: the widest head the sm90 forward takes (its O accumulator's registers)
+_SM90_MAX_HEAD_DIM = 128
+#: forward route -> (library, C entry point)
+_FORWARD = {"sm90": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
+            "simt": ("flash_fwd", "repro_flash_fwd")}
+
+
+def _forward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel for inputs of ``dtype`` and ``head_dim``:
+    ``"sm90"`` (``csrc/flash_fwd_sm90.cu``) for bf16 with head_dim padded
+    to 16, 32, 64, 80 or 128; ``"simt"`` (``csrc/flash_fwd.cu``) for f32,
+    whose tolerance bf16 tensor cores cannot meet, and for wider heads."""
+    if dtype == torch.bfloat16 and head_dim <= _SM90_MAX_HEAD_DIM:
+        return "sm90"
+    return "simt"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -64,8 +83,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the row log-sum-exp (B, Hq, Lq) in f32.
 
     ``block_q``/``block_k`` are the reference's tile sizes, kept so calls
-    read the same in both packages; the CUDA kernel tiles by 64 x 64 and
-    takes any Lq, Lk.
+    read the same in both packages; the CUDA kernels pick their own tiles
+    and take any Lq, Lk.  The forward's kernel follows ``_forward_route``.
     """
     _check(q, k, v)
     if block_q <= 0 or block_k <= 0:
@@ -195,27 +214,35 @@ def _mask_args(causal, window, softcap) -> tuple:
             0.0 if softcap is None else float(softcap))
 
 
-def _launch(q, k, v, scale, causal, window, softcap) -> tuple:
-    """Launch the forward kernel on checked CUDA tensors, on the current
-    stream.  Counts the launch."""
+def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
+    """Launch a forward kernel on checked CUDA tensors, on the current
+    stream: ``route`` names it (``"sm90"`` or ``"simt"``), by default
+    ``_forward_route``'s.  Counts the launch on that route's counter."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
+    route = route or _forward_route(q.dtype, D)
+    if route == "sm90" and _forward_route(q.dtype, D) != "sm90":
+        raise ValueError(f"the sm90 forward takes bf16 with head_dim up to "
+                         f"{_SM90_MAX_HEAD_DIM}; got {q.dtype}, {D}")
     _check_grid(q)
     q, k, v = (_kernel_view(x) for x in (q, k, v))
     o = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    lib = _build.load("flash_fwd")
+    name, entry = _FORWARD[route]
+    lib = _build.load(name)
+    # the sm90 kernel takes bf16 only; the CUDA-core one is told the dtype
+    dtype_flag = () if route == "sm90" else (int(q.dtype == torch.bfloat16),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.repro_flash_fwd(
+        code = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, Hq, Hkv, Lq, Lk, D, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], int(q.dtype == torch.bfloat16),
+            *k.stride()[:3], *v.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
-    _build.check(lib, code, "flash_attention")
-    flash_attention.launches += 1
+    _build.check(lib, code, f"flash_attention ({route})")
+    _ROUTE_COUNTERS[route].launches += 1
     return o, lse
 
 
@@ -241,7 +268,11 @@ def _launch_bwd(entry, outs, q, k, v, do, lse, delta, scale, causal, window,
     _build.check(lib, code, entry)
 
 
-#: kernel launches since the last reset (CPU calls never count)
+#: kernel launches since the last reset (CPU calls never count);
+#: ``flash_attention``'s are its ``"sm90"`` route's, and
+#: ``simt_forward``'s its ``"simt"`` route's
 flash_attention.launches = 0
+simt_forward = SimpleNamespace(launches=0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+_ROUTE_COUNTERS = {"sm90": flash_attention, "simt": simt_forward}

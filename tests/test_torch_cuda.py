@@ -4,6 +4,8 @@ own f32 tolerances), and the slices end to end through them.  Marked ``cuda``; t
 skip where there is no GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,20 @@ from repro_torch.kernels.ref import (chunked_to_rowmajor_ref,
 pytestmark = pytest.mark.cuda
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int8)
+# the package's ``flash_attention`` attribute is the function, not the module
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
+#: the forward's routes, by the name of their launch counter
+ROUTES = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
+MASKS = [(True, None, None), (False, None, None), (True, 48, None),
+         (True, None, 30.0), (False, 48, 30.0)]
+
+
+def _route_launches(fn):
+    """``fn()`` and the forward's launches on each route during it."""
+    before = K.launch_counts()
+    out = fn()
+    after = K.launch_counts()
+    return out, {r: after[n] - before[n] for r, n in ROUTES.items()}
 
 
 @pytest.fixture
@@ -99,17 +115,60 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
     q, k, v = (std * torch.randn((B, h, L, D), generator=gen, device=cuda)
                for std, h in ((2 ** 0.5, Hq), (2 ** 0.5, Hkv), (0.5, Hkv)))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = K.flash_attention.launches
-    o, lse = K.flash_attention(q, k, v, None, causal, window, softcap,
-                               return_lse=True)
+    (o, lse), ran = _route_launches(lambda: K.flash_attention(
+        q, k, v, None, causal, window, softcap, return_lse=True))
     torch.cuda.synchronize()
-    assert K.flash_attention.launches == before + 1
+    route = "sm90" if dtype == torch.bfloat16 and D <= 128 else "simt"
+    assert ran == {r: int(r == route) for r in ROUTES}
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == dtype and lse.dtype == torch.float32
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=2 ** -7, atol=1e-5)
     torch.testing.assert_close(o.float(), ro.float(), **tol)
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+def test_flash_sm90_kernel_matches_plain(cuda, D, causal, window, softcap):
+    """The sm90 forward (bf16, every width it is built for, the five
+    masks) against the plain version: O within one bf16 step (rtol 2^-7,
+    atol 1e-5), LSE within 1e-4.  Ragged Lq 150 and Lk 100 (neither a
+    multiple of its 128-row q or 64-row k tiles), GQA groups of 4, q, k
+    as (B, H, L, D) views of (B, L, H, D) tensors, read in place; each
+    call counted once on the sm90 route."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 2)
+    B, Hq, Hkv, L, Lk = 2, 8, 2, 150, 100
+    q, k, v = ((std * torch.randn((B, n, h, D), generator=gen, device=cuda))
+               .bfloat16().transpose(1, 2)
+               for std, h, n in ((2 ** 0.5, Hq, L), (2 ** 0.5, Hkv, Lk),
+                                 (0.5, Hkv, Lk)))
+    (o, lse), ran = _route_launches(lambda: K.flash_attention(
+        q, k, v, None, causal, window, softcap, return_lse=True))
+    torch.cuda.synchronize()
+    assert ran == {"sm90": 1, "simt": 0}
+    ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
+    assert o.dtype == torch.bfloat16 and o.shape == (B, Hq, L, D)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_simt_route_takes_bf16_when_named(cuda):
+    """The wrapper's module-private launcher runs the f32 CUDA-core
+    forward on bf16 inputs when the route is named, counted on that
+    route; it agrees with the sm90 kernel to one bf16 step."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, h, 130, 128), generator=gen, device=cuda)
+               .bfloat16() for h in (8, 2, 2))
+    (simt, _), ran = _route_launches(lambda: FA._launch(
+        q, k, v, 128 ** -0.5, True, None, None, route="simt"))
+    assert ran == {"sm90": 0, "simt": 1}
+    sm90 = K.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v)[0].float()
+    for got in (simt, sm90):
+        torch.testing.assert_close(got.float(), ref, rtol=2 ** -7, atol=1e-5)
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -186,7 +245,7 @@ def test_flash_attention_grads_on_the_card(cuda):
 def test_training_step_through_the_kernels(cuda):
     """One AdamW step of the qwen2.5-3b smoke config on the card with the
     flash route on under ``remat="dots"``: one dQ and one dK/dV launch
-    per layer, the forward twice per layer (again in the recompute), and
+    per layer, the sm90 forward twice per layer (again in the recompute), and
     finite metrics."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
@@ -207,3 +266,4 @@ def test_training_step_through_the_kernels(cuda):
     assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] \
         == cfg.n_layers
     assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_simt"] == 0

@@ -168,6 +168,7 @@ def test_cpu_tensors_never_launch():
     assert K.launch_counts() == {"pack_rows": 0, "chunked_to_rowmajor": 0,
                                  "rowmajor_to_chunked": 0,
                                  "flash_attention": 0,
+                                 "flash_attention_simt": 0,
                                  "flash_attention_dq": 0,
                                  "flash_attention_dkv": 0}
 
