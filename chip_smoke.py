@@ -45,28 +45,38 @@ Phases, each printing one JSON line:
    inputs of the f32 serving path, beside its bound and SDPA's;
 9. launch counts of the serving run; the sm90 kernel must have run once
    per layer at least, the CUDA-core kernel never;
-10. the two flash-attention backward kernels (dQ, and per-q-head dK, dV)
+10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
-    forward's sweep and the training shape given as strided views, and
-    ``flash_attention``'s gradients against autograd through the plain
-    forward;
+    forward's sweep and the training shape given as strided views (on both
+    routes), and ``flash_attention``'s gradients against autograd through
+    the plain forward; the launch counts show that each bf16 case with
+    head_dim up to 128 ran the sm90 kernels (``csrc/flash_bwd_sm90.cu``)
+    and every other case the CUDA-core ones (``csrc/flash_bwd.cu``), and
+    each route's count equals the cases the sweep sends it;
 11. the training path at full width: qwen2.5-3b (36 layers, random
     weights from a seed: see ``training_params``; ``remat="dots"``) with
     the flash route on, at
     global batch 2 x 2048 tokens from the synthetic pipeline: first the
     flash route's loss and gradients against the q-chunked route's (f32
-    and bf16 compute), then ``Trainer.run`` for 6 AdamW steps on one
-    batch (``TRAIN_OPT``), launch counts reset just before it and read
-    just after, the step times, peak memory, and a profile of one more
-    step;
-12. the backward kernels' times at the training shape (as phase 4's)
-    beside their bound, the plain versions and the backward of
+    and bf16 compute; the bf16 route's backward runs the sm90 kernels, the
+    f32 one the CUDA-core kernels), then ``Trainer.run`` for 6 AdamW steps
+    on one batch (``TRAIN_OPT``), launch counts reset just before it and
+    read just after (36 sm90 dq and 36 sm90 dkv launches a step, none on
+    the CUDA-core route), the step times, peak memory, and a profile of
+    one more step;
+12. the backward kernels' times (as phase 4's): at the training shape the
+    sm90 kernels beside the CUDA-core kernels on the same bf16 inputs,
+    their bound, the plain versions and the backward of
     ``scaled_dot_product_attention`` (its kernels' device time from the
-    profiler: autograd's host work outlasts them).
+    profiler: autograd's host work outlasts them); the CUDA-core kernels on
+    the f32 inputs of the f32 route comparison; and gemma2-2b's bf16
+    head_dim-256 shape, which the CUDA-core forward and backward take,
+    beside their bound, the plain versions and SDPA.
 
-The last lines are the kernel summary, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero; without a CUDA device the script exits non-zero at once.
+The last lines are the script's total seconds, the kernel summary, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero; without a CUDA device the script exits
+non-zero at once.
 """
 
 from __future__ import annotations
@@ -103,7 +113,8 @@ REPS = 20
 #: the serving path: qwen2.5-3b, 4 prompts of 2048 tokens, 32 new tokens
 SERVE_ARCH = "qwen2.5-3b"
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
-#: flash attention at the serving path's shape, and at gemma2-2b's; their
+#: flash attention at the serving path's shape, and at gemma2-2b's (its
+#: config's window of 4096 and softcap of 50; head_dim 256); their
 #: check draws q and k with std sqrt(2), so the scores have std 2 and the
 #: online softmax's rescaling across k tiles carries real weight
 FLASH_MAIN = dict(B=4, Hq=16, Hkv=2, L=2048, D=128, causal=True,
@@ -160,11 +171,18 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                              "src/repro/kernels/flash_attention.py:39"),
-    "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+    "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
                            "src/repro/kernels/flash_attention.py:146"),
-    "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+    "flash_attention_dq_simt": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:146"),
+    "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
                             "src/repro/kernels/flash_attention.py:166"),
+    "flash_attention_dkv_simt": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
+                                 "src/repro/kernels/flash_attention.py:166"),
 }
+#: the backward's routes, by the names of their (dq, dkv) launch counters
+BWD_ROUTES = {"sm90": ("flash_attention_dq", "flash_attention_dkv"),
+              "simt": ("flash_attention_dq_simt", "flash_attention_dkv_simt")}
 
 
 def emit(phase, **fields) -> None:
@@ -833,43 +851,78 @@ def flash_timings(torch, dev) -> dict:
 
 # -- phase 10 ------------------------------------------------------------------
 
-def _bwd_case(torch, q, k, v, causal, window, softcap, gen) -> tuple:
+def _bwd_kernel(torch, kind, args, route=None) -> tuple:
+    """One backward kernel's outputs, ``(dq,)`` for ``kind`` "dq" or
+    ``(dk, dv)`` for "dkv": through its wrapper, which takes
+    ``_backward_route``'s route, or on ``route`` named through the
+    module-private launcher (a comparison of the two routes)."""
+    from repro_torch.kernels import flash_attention_dkv, flash_attention_dq
+    if route is None:
+        return (flash_attention_dq(*args),) if kind == "dq" else \
+            flash_attention_dkv(*args)
+    FA = sys.modules["repro_torch.kernels.flash_attention"]
+    q, k = args[0], args[1]
+    if kind == "dq":
+        outs = (torch.empty(q.shape, dtype=q.dtype, device=q.device),)
+    else:
+        outs = tuple(torch.empty((q.shape[0], q.shape[1], k.shape[2],
+                                  q.shape[3]), dtype=torch.float32,
+                                 device=q.device) for _ in range(2))
+    FA._launch_bwd(kind, outs, *args, route=route)
+    return outs
+
+
+def _bwd_case(torch, q, k, v, causal, window, softcap, gen,
+              route=None) -> tuple:
     """The dQ and dK/dV kernels against their plain versions on the same
     q, k, v, dO and the plain forward's O and LSE: (max |d dQ|,
-    max |d dK|, max |d dV|), raising beyond the tolerances."""
-    from repro_torch.kernels import flash_attention_dkv, flash_attention_dq
+    max |d dK|, max |d dV|, the route that ran), raising beyond the
+    tolerances and unless exactly one dq and one dkv launch of ``route``
+    (by default the one ``_backward_route`` picks) was counted."""
+    import repro_torch.kernels as K
     from repro_torch.kernels.ref import (flash_attention_dkv_ref,
                                          flash_attention_dq_ref,
                                          flash_attention_ref)
+    FA = sys.modules["repro_torch.kernels.flash_attention"]
     scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
     do = (0.5 * torch.randn(q.shape, generator=gen, device=q.device)
           ).to(q.dtype)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
-    dq, (dk, dv) = flash_attention_dq(*args), flash_attention_dkv(*args)
+    want = route or FA._backward_route(q.dtype, q.shape[-1])
+    before = K.launch_counts()
+    dq, dk, dv = (*_bwd_kernel(torch, "dq", args, route),
+                  *_bwd_kernel(torch, "dkv", args, route))
+    after = K.launch_counts()
+    ran = {r: tuple(after[n] - before[n] for n in names)
+           for r, names in BWD_ROUTES.items()}
+    if ran != {r: (int(r == want),) * 2 for r in BWD_ROUTES}:
+        raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected one dq "
+                             f"and one dkv launch on the {want} route, "
+                             f"counted {ran}")
     rdq, (rdk, rdv) = flash_attention_dq_ref(*args), \
         flash_attention_dkv_ref(*args)
     torch.cuda.synchronize()
     rtol, atol = BWD_TOL[str(q.dtype).split(".")[-1]]
     return (close_err(dq.float(), rdq.float(), rtol, atol),
             close_err(dk, rdk, *BWD_TOL["float32"]),
-            close_err(dv, rdv, *BWD_TOL["float32"]))
+            close_err(dv, rdv, *BWD_TOL["float32"]), want)
 
 
 def check_flash_bwd(torch, dev) -> dict:
-    """The backward kernels against their plain versions (several cases
-    agree bit for bit: both sum the same f32 products in the same order),
-    each case counted as one launch of each kernel."""
-    from repro_torch.kernels import (flash_attention, flash_attention_dkv,
-                                     flash_attention_dq)
+    """The backward kernels against their plain versions, each case
+    counted as one dq and one dkv launch on the route its dtype and head
+    dim pick; each route's total against the cases the sweep sends it."""
+    from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     masks = {"causal": (True, None, None), "non_causal": (False, None, None),
              "window": (True, 48, None), "softcap": (True, None, 30.0),
              "window_softcap": (False, 48, 30.0)}
     groups: dict = {}
+    routes = dict.fromkeys(BWD_ROUTES, 0)
+    expected = dict.fromkeys(BWD_ROUTES, 0)
     cases = 0
     # the forward's sweep: ragged lengths, Lq != Lk, zero-padded head dims
     for dtype in (torch.float32, torch.bfloat16):
@@ -881,25 +934,32 @@ def check_flash_bwd(torch, dev) -> dict:
                                    Hkv=2, L=200, D=D,
                                    Lk=136 if g == 2 else None,
                                    qk_std=math.sqrt(2.0))
-                    e = _bwd_case(torch, q, k, v, causal, window, softcap,
-                                  gen)
+                    *e, route = _bwd_case(torch, q, k, v, causal, window,
+                                          softcap, gen)
                     worst = [max(a, b) for a, b in zip(worst, e)]
+                    routes[route] += 1
+                    expected["sm90" if dtype == torch.bfloat16 and D <= 128
+                             else "simt"] += 1
                     cases += 1
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = dict(
                 zip(("dq", "dk", "dv"), worst))
-    # the training shape, as attention hands it over: (B, H, L, D) views
+    # the training shape, as attention hands it over: (B, H, L, D) views,
+    # on the route the wrappers take (sm90) and on the CUDA-core route
     q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                for x in _qkv(torch, gen, dev, torch.bfloat16,
                              qk_std=math.sqrt(2.0), **FLASH_TRAIN))
-    e = _bwd_case(torch, q, k, v, True, None, None, gen)
-    train = {"shape": FLASH_TRAIN, **dict(zip(("dq", "dk", "dv"), e))}
-    cases += 1
+    train = {}
+    for route in ("sm90", "simt"):
+        *e, ran = _bwd_case(torch, q, k, v, True, None, None, gen,
+                            None if route == "sm90" else route)
+        train[route] = {"shape": FLASH_TRAIN,
+                        **dict(zip(("dq", "dk", "dv"), e))}
+        routes[ran] += 1
+        expected[route] += 1
+        cases += 1
     del q, k, v
-    launched = (flash_attention_dq.launches - before[0],
-                flash_attention_dkv.launches - before[1])
-    if launched != (cases, cases):
-        raise AssertionError(f"{cases} cases launched the kernels "
-                             f"{launched} times")
+    if routes != expected:
+        raise AssertionError(f"cases by route {routes}, expected {expected}")
     # the autograd.Function (kernels) against autograd through the plain
     # forward, f32, every mask
     fn_err = {}
@@ -917,14 +977,17 @@ def check_flash_bwd(torch, dev) -> dict:
                            for a, b in zip(got, want))
         cases += 1
     torch.cuda.empty_cache()
-    return {"cases": cases,
+    return {"cases": cases, "cases_by_route": routes,
             "tolerance": {"dq": BWD_TOL, "dk_dv": BWD_TOL["float32"],
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "training_shape": train,
             "autograd_vs_plain_forward_f32": fn_err,
-            "max_abs_err": {"flash_attention_dq": train["dq"],
-                            "flash_attention_dkv": max(train["dk"],
-                                                       train["dv"])}}
+            "max_abs_err": {
+                f"flash_attention_{kind}{suffix}": (
+                    train[route]["dq"] if kind == "dq" else
+                    max(train[route]["dk"], train[route]["dv"]))
+                for route, suffix in (("sm90", ""), ("simt", "_simt"))
+                for kind in ("dq", "dkv")}}
 
 
 # -- phase 11 ------------------------------------------------------------------
@@ -989,10 +1052,20 @@ def train(torch, dev, K) -> dict:
 def check_training(trained: dict) -> None:
     """The training run's gates: f32 gradients of the flash route within
     GRAD_GAP_F32 of the q-chunked route's per leaf and bf16 losses within
-    LOSS_GAP_BF16; every loss and grad norm finite and positive; the last
-    loss below the first; one dq and one dkv launch per layer and step,
-    and two of the sm90 forward."""
+    LOSS_GAP_BF16; the bf16 route comparison's backward on the sm90
+    kernels and the f32 one's on the CUDA-core kernels, one dq and one dkv
+    a layer; every loss and grad norm finite and positive; the last loss
+    below the first; one sm90 dq and one sm90 dkv launch per layer and
+    step, two of the sm90 forward, none on the CUDA-core routes."""
     routes = trained["flash_vs_q_chunked"]
+    n = trained["layers"]
+    for dtype, route in (("bfloat16", "sm90"), ("float32", "simt")):
+        got = routes[dtype]["flash_launches"]
+        want = {name: n * (r == route) for r, names in BWD_ROUTES.items()
+                for name in names}
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"the {dtype} route comparison's backward "
+                                 f"launched {got}, expected {want}")
     if routes["float32"]["over_limit"]:
         raise AssertionError(f"f32 gradients of the flash route differ from "
                              f"the q-chunked route's: "
@@ -1004,13 +1077,16 @@ def check_training(trained: dict) -> None:
         raise AssertionError(f"losses {losses}, grad norms {norms}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    per_step, n = trained["launches_per_step"], trained["layers"]
+    per_step = trained["launches_per_step"]
     if not (per_step["flash_attention_dq"] == per_step["flash_attention_dkv"]
             == n and per_step["flash_attention"] == 2 * n
-            and per_step["flash_attention_simt"] == 0):
-        raise AssertionError(f"launches per step {per_step}, not one dq "
-                             f"and one dkv per layer and two sm90 "
-                             f"forwards (the dots recompute runs it again)")
+            and per_step["flash_attention_simt"] == 0
+            and per_step["flash_attention_dq_simt"] == 0
+            and per_step["flash_attention_dkv_simt"] == 0):
+        raise AssertionError(f"launches per step {per_step}, not one sm90 "
+                             f"dq and one sm90 dkv per layer and two sm90 "
+                             f"forwards (the dots recompute runs it again), "
+                             f"none on the CUDA-core routes")
 
 
 def training_params(model, generator) -> dict:
@@ -1034,9 +1110,10 @@ def compare_train_routes(torch, model, params, batch) -> dict:
     max |d| / max |q-chunked| over one leaf, or over one layer's slice of
     a layer-stacked leaf (``.../wq[35]``), so a layer whose gradients are
     small is held to its own scale; ``check_training`` gates every gap.
-    Reported: the largest gaps, and those of the embedding, the final
-    norm and the first and last layers."""
+    Reported: the largest gaps, those of the embedding, the final norm and
+    the first and last layers, and the flash route's kernel launches."""
     import dataclasses
+    import repro_torch.kernels as K
     from repro_torch.models import LM
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.trainer import value_and_grad
@@ -1046,7 +1123,9 @@ def compare_train_routes(torch, model, params, batch) -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         with compute_dtype(dtype):
+            before = K.launch_counts()
             fl, _, fg = value_and_grad(model, params, batch)
+            after = K.launch_counts()
             fg = [g.cpu() for g in tree_leaves(fg)]
             bl, _, bg = value_and_grad(base, params, batch)
         gaps = {}
@@ -1071,6 +1150,8 @@ def compare_train_routes(torch, model, params, batch) -> dict:
             "loss_flash": float(fl), "loss_q_chunked": float(bl),
             "loss_gap": abs(float(fl) - float(bl)) / abs(float(bl)),
             "grad_gap_max": max(gaps.values()), "compared": len(gaps),
+            "flash_launches": {k: after[k] - before[k] for k in after
+                               if k.startswith("flash_attention")},
             "largest": dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:5]),
             "first_last_layers": shown}
     out["float32"]["over_limit"] = {
@@ -1119,8 +1200,12 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
             "kernels": sum(r[2] for r in rows),
             "flash_fwd_sm90_share": share("flash_fwd_sm90_kernel"),
             "flash_fwd_share": share("flash_fwd_kernel"),
+            "flash_dq_sm90_share": share("flash_dq_sm90_kernel"),
+            "flash_dkv_sm90_share": share("flash_dkv_sm90_kernel"),
             "flash_dq_share": share("flash_dq_kernel"),
             "flash_dkv_share": share("flash_dkv_kernel"),
+            "flash_bwd_ms": sum(r[1] for r in rows if "flash_dq" in r[0]
+                                or "flash_dkv" in r[0]) / 1e3,
             "launches": launches,
             "top": [{"name": k[:60], "ms": t / 1e3, "calls": c}
                     for k, t, c in top]}
@@ -1129,68 +1214,111 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
 # -- phase 12 ------------------------------------------------------------------
 
 def bwd_timings(torch, dev) -> dict:
-    """The dQ and dK/dV kernels at the training shape, beside their bound,
-    their plain versions and the backward of one
+    """The backward kernels' times.  ``training``: at ``FLASH_TRAIN`` in
+    bf16, each sm90 kernel (``ms``) beside the CUDA-core kernel on the same
+    inputs (``simt_ms``, through the wrapper's module-private launcher that
+    names the route), the bound, the plain version and the backward of one
     ``scaled_dot_product_attention`` (forward + backward minus forward,
     computing dQ, dK and dV together; device time from the profiler, as
-    the backward's host work outlasts its kernels)."""
+    the backward's host work outlasts its kernels), with TFLOP/s of useful
+    work.  ``training_f32``: the CUDA-core kernels on the f32 inputs of the
+    f32 route comparison, the path that runs them here, beside their f32
+    bound and SDPA in f32.  ``gemma2``: gemma2-2b's bf16 head_dim-256
+    shape (``FLASH_GEMMA2``), which the CUDA-core forward and backward
+    take, beside their bf16 bound, the plain versions and SDPA (causal
+    without the softcap, which SDPA lacks; the window of 4096 masks nothing
+    at L 2048)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
     from repro_torch.kernels.ref import (flash_attention_dkv_ref,
-                                         flash_attention_dq_ref)
-    shp = FLASH_TRAIN
+                                         flash_attention_dq_ref,
+                                         flash_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    q, k, v = _qkv(torch, gen, dev, torch.bfloat16, **shp)
-    B, Hq, L, D = q.shape
-    scale = 1.0 / D ** 0.5
-    o, lse = flash_attention(q, k, v, return_lse=True)
-    do = (0.5 * torch.randn(q.shape, generator=gen, device=dev)).bfloat16()
-    delta = (do.float() * o.float()).sum(-1)
-    args = (q, k, v, do, lse, delta, scale)
-    pairs = B * Hq * live_pairs(L, L, shp["causal"], shp["window"])
-    ins = sum(x.numel() * x.element_size() for x in (q, k, v, do, lse, delta))
-    work = {"flash_attention_dq": (6 * D * pairs, ins + q.numel() * 2),
-            "flash_attention_dkv": (8 * D * pairs, ins + 2 * q.numel() * 4)}
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                              scale=scale, enable_gqa=True)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), (qg, kg, vg), do)
-
-    with torch.no_grad():
-        fwd = device_ms(sdpa)
-    library = device_ms(sdpa_fwd_bwd) - fwd
-    res = {"shape": {**shp, "dtype": "bfloat16"}, "library_fwd_ms": fwd}
-    for name, kernel, plain in (
-            ("flash_attention_dq", flash_attention_dq,
-             flash_attention_dq_ref),
-            ("flash_attention_dkv", flash_attention_dkv,
-             flash_attention_dkv_ref)):
-        flops, nbytes = work[name]
+    def timed(res, name, flops, nbytes, peak, fns) -> None:
         r = {"flops": flops, "bytes": nbytes,
-             "ms": time_ms(lambda: kernel(*args)),
-             "plain_ms": time_ms(lambda: plain(*args)),
-             "library_ms": library,
-             "bound_ms": max(flops / BF16_FLOPS,
-                             nbytes / HBM_BYTES_PER_S) * 1e3,
-             "bound_by": "operations" if flops / BF16_FLOPS >
+             **{key: time_ms(fn) for key, fn in fns.items()},
+             "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+             "bound_by": "operations" if flops / peak >
              nbytes / HBM_BYTES_PER_S else "bytes"}
-        for key in ("ms", "plain_ms"):
+        for key in fns:
             r[f"{key}_quartiles"] = [r[key]["p25"], r[key]["p75"]]
             r[key] = r[key]["median"]
-        r["tflops"] = flops / r["ms"] / 1e9
+            if key != "plain_ms":
+                r[key.replace("ms", "tflops")] = flops / r[key] / 1e9
         res[name] = r
-    torch.cuda.empty_cache()
-    return res
+
+    def shape(shp, dtype, peak, simt_only) -> dict:
+        causal, window, softcap = shp["causal"], shp["window"], shp["softcap"]
+        q, k, v = _qkv(torch, gen, dev, dtype, **shp)
+        B, Hq, L, D = q.shape
+        scale = 1.0 / D ** 0.5
+        o, lse = flash_attention(q, k, v, scale, causal, window, softcap,
+                                 return_lse=True)
+        do = (0.5 * torch.randn(q.shape, generator=gen, device=dev)
+              ).to(dtype)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+        pairs = B * Hq * live_pairs(L, L, causal, window)
+        size = q.element_size()
+        ins = sum(x.numel() * x.element_size()
+                  for x in (q, k, v, do, lse, delta))
+        per_head = B * Hq * k.shape[2] * D * 4      # one f32 dK or dV
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True, scale=scale, enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+
+        with torch.no_grad():
+            fwd = device_ms(sdpa)
+        library = device_ms(sdpa_fwd_bwd) - fwd
+        res = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
+               "library_fwd_ms": fwd, "library_bwd_ms": library}
+        if simt_only and dtype == torch.bfloat16:
+            # the CUDA-core forward, which this shape's dtype and width take
+            timed(res, "flash_attention_simt", 4 * D * pairs,
+                  sum(x.numel() * x.element_size() for x in (q, k, v, q))
+                  + B * Hq * L * 4, peak,
+                  {"ms": lambda: flash_attention(q, k, v, scale, causal,
+                                                 window, softcap),
+                   "plain_ms": lambda: flash_attention_ref(
+                       q, k, v, scale, causal, window, softcap)})
+            res["flash_attention_simt"]["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale,
+                    enable_gqa=True))["median"]
+        for kind, kernel, plain, flops, nbytes in (
+                ("dq", flash_attention_dq, flash_attention_dq_ref,
+                 6 * D * pairs, ins + q.numel() * size),
+                ("dkv", flash_attention_dkv, flash_attention_dkv_ref,
+                 8 * D * pairs, ins + 2 * per_head)):
+            def simt(kind=kind):
+                return _bwd_kernel(torch, kind, args, "simt")
+            fns = {"simt_ms": simt} if simt_only else \
+                {"ms": lambda kernel=kernel: kernel(*args), "simt_ms": simt}
+            fns["plain_ms"] = lambda plain=plain: plain(*args)
+            name = f"flash_attention_{kind}" + ("_simt" if simt_only else "")
+            timed(res, name, flops, nbytes, peak, fns)
+            res[name]["library_ms"] = library
+        torch.cuda.empty_cache()
+        return res
+
+    return {"training": shape(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS,
+                              False),
+            "training_f32": shape(FLASH_TRAIN, torch.float32, F32_FLOPS,
+                                  True),
+            "gemma2": shape(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS, True)}
 
 
 # -- driver --------------------------------------------------------------------
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1281,7 +1409,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd_times = bwd_timings(torch, dev)
     emit(12, seconds=time.perf_counter() - t0, **bwd_times,
-         bf16_flops=BF16_FLOPS, hbm_bytes_per_s=HBM_BYTES_PER_S)
+         bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS,
+         hbm_bytes_per_s=HBM_BYTES_PER_S)
+    emit("total", seconds=time.perf_counter() - t_start)
 
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
@@ -1306,14 +1436,25 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    for name in ("flash_attention_dq", "flash_attention_dkv"):
+    # the sm90 backward on the training run; the CUDA-core backward on the
+    # f32 route comparison, the path that runs it here
+    f32_launches = trained["flash_vs_q_chunked"]["float32"]["flash_launches"]
+    for name, launched, t in (
+            ("flash_attention_dq", trained["launches"]["flash_attention_dq"],
+             bwd_times["training"]["flash_attention_dq"]),
+            ("flash_attention_dq_simt", f32_launches["flash_attention_dq_simt"],
+             bwd_times["training_f32"]["flash_attention_dq_simt"]),
+            ("flash_attention_dkv", trained["launches"]["flash_attention_dkv"],
+             bwd_times["training"]["flash_attention_dkv"]),
+            ("flash_attention_dkv_simt",
+             f32_launches["flash_attention_dkv_simt"],
+             bwd_times["training_f32"]["flash_attention_dkv_simt"])):
         source, replaces = KERNELS[name]
-        t = bwd_times[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": trained["launches"][name],
+                     "replaces": replaces, "launches": launched,
                      "max_abs_err": bwd_check["max_abs_err"][name],
-                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "ms": t["ms"] if "ms" in t else t["simt_ms"],
+                     "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)

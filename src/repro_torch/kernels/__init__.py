@@ -2,7 +2,8 @@
 versions beside them (:mod:`.ref`) and a launch count on every wrapper."""
 
 from .flash_attention import (flash_attention, flash_attention_dkv,
-                              flash_attention_dq, simt_forward)
+                              flash_attention_dq, simt_dkv, simt_dq,
+                              simt_forward)
 from .ops import merge_blocks_device, split_merged
 from .pack_blocks import pack_rows
 from .relayout import chunked_to_rowmajor, rowmajor_to_chunked
@@ -14,15 +15,18 @@ __all__ = ["merge_blocks_device", "split_merged", "pack_rows",
            "launch_counts", "reset_launch_counts"]
 
 #: every kernel's launch counter, by kernel name: its wrapper, or for the
-#: flash forward one per route (``flash_attention`` counts the sm90 kernel,
-#: ``flash_attention_simt`` the f32 CUDA-core one)
+#: flash kernels one per route (``flash_attention``, ``flash_attention_dq``
+#: and ``flash_attention_dkv`` count the sm90 kernels, the ``_simt`` names
+#: the f32 CUDA-core ones)
 WRAPPERS = {"pack_rows": pack_rows,
             "chunked_to_rowmajor": chunked_to_rowmajor,
             "rowmajor_to_chunked": rowmajor_to_chunked,
             "flash_attention": flash_attention,
             "flash_attention_simt": simt_forward,
             "flash_attention_dq": flash_attention_dq,
-            "flash_attention_dkv": flash_attention_dkv}
+            "flash_attention_dq_simt": simt_dq,
+            "flash_attention_dkv": flash_attention_dkv,
+            "flash_attention_dkv_simt": simt_dkv}
 
 
 def launch_counts() -> dict:

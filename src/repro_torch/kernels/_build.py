@@ -36,6 +36,7 @@ _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 
 _FLASH_BWD = (_LL,) * 18 + (_I, _I, _I, _LL, _I, _F, _F, _P)
+_FLASH_BWD_SM90 = (_LL,) * 18 + (_I, _I, _LL, _I, _F, _F, _P)
 
 #: library name -> {C entry point: its argument types}
 SOURCES = {
@@ -47,6 +48,8 @@ SOURCES = {
                        + (_I, _I, _LL, _I, _F, _F, _P)},
     "flash_bwd": {"repro_flash_dq": (_P,) * 7 + _FLASH_BWD,
                   "repro_flash_dkv": (_P,) * 8 + _FLASH_BWD},
+    "flash_bwd_sm90": {"repro_flash_dq_sm90": (_P,) * 7 + _FLASH_BWD_SM90,
+                       "repro_flash_dkv_sm90": (_P,) * 8 + _FLASH_BWD_SM90},
 }
 
 _lock = threading.Lock()

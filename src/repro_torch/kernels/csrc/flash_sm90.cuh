@@ -1,7 +1,7 @@
 // Hopper building blocks of the sm_90a flash-attention kernels
-// (flash_fwd_sm90.cu): mbarriers, 4-D TMA tile loads and their tensor maps,
-// wgmma shared-memory descriptors and products, and the split of an f32
-// probability tile into two bf16 halves.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, 4-D TMA tile loads and
+// their tensor maps, wgmma shared-memory descriptors and products, and the
+// split of an f32 tile (P, dS) into two bf16 halves.
 //
 // Tiles in shared memory are 64 bf16 columns (128 bytes) wide, in TMA's
 // 128-byte swizzle, one 1024-byte-aligned box per 64 columns: the canonical
@@ -53,6 +53,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// Lowers (dec) or raises (inc) this warpgroup's registers a thread to N;
+// every warp of the warpgroup executes it.  A producer warpgroup gives its
+// registers to the consumers this way.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // -- TMA ----------------------------------------------------------------------
@@ -181,6 +194,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in
 // shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
@@ -296,9 +325,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// -- the split of P -----------------------------------------------------------
+// -- the split of P and dS ----------------------------------------------------
 
-// Two f32 probabilities as two bf16 pairs: hi = bf16(p), lo = bf16(p - hi).
+// Two f32 values as two bf16 pairs: hi = bf16(p), lo = bf16(p - hi).
 // hi + lo carries 16 significant bits, so P.V = hi.V + lo.V with f32
 // accumulation is as exact as one bf16 O rounding needs, where bf16(P).V
 // alone is not (P's rounding error, 2^-9 of P, reaches O's last bit).

@@ -7,11 +7,14 @@ device-memory traffic is Q, K, V and O only.  It has two routes, picked by
 dtype and head dim (``_forward_route``): bf16 with head_dim up to 128 runs
 ``csrc/flash_fwd_sm90.cu`` (wgmma and TMA on Hopper's tensor cores); f32,
 and head dims above 128, run ``csrc/flash_fwd.cu`` (f32 on the CUDA cores).
-The backward kernels (``csrc/flash_bwd.cu``) replace ``_dq_kernel`` and
-``_dkv_kernel``: they recompute P from the forward's LSE, dQ over k tiles
-and per-q-head dK, dV over q tiles; the GQA group sum follows in f32, as
-the reference's custom vjp does.  ``flash_attention`` is differentiable
-through a ``torch.autograd.Function`` over the three.  Causal and
+The backward kernels replace ``_dq_kernel`` and ``_dkv_kernel``: they
+recompute P from the forward's LSE, dQ over k tiles and per-q-head dK, dV
+over q tiles; the GQA group sum follows in f32, as the reference's custom
+vjp does.  They take routes by the forward's rule (``_backward_route``):
+``csrc/flash_bwd_sm90.cu`` (wgmma and TMA) for bf16 with head_dim up to
+128, ``csrc/flash_bwd.cu`` (f32 on the CUDA cores) otherwise.
+``flash_attention`` is differentiable through a
+``torch.autograd.Function`` over the three.  Causal and
 one-sided sliding-window masks, a logit softcap and GQA, as the
 reference; any Lq and Lk (ragged edge tiles are masked) and head_dim a
 multiple of 8 up to 256.  A tensor on the CPU takes the plain versions in
@@ -39,6 +42,11 @@ _SM90_MAX_HEAD_DIM = 128
 #: forward route -> (library, C entry point)
 _FORWARD = {"sm90": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
             "simt": ("flash_fwd", "repro_flash_fwd")}
+#: backward route -> (library, {kernel: C entry point})
+_BACKWARD = {"sm90": ("flash_bwd_sm90", {"dq": "repro_flash_dq_sm90",
+                                         "dkv": "repro_flash_dkv_sm90"}),
+             "simt": ("flash_bwd", {"dq": "repro_flash_dq",
+                                    "dkv": "repro_flash_dkv"})}
 
 
 def _forward_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -49,6 +57,15 @@ def _forward_route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim <= _SM90_MAX_HEAD_DIM:
         return "sm90"
     return "simt"
+
+
+def _backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels for inputs of ``dtype`` and ``head_dim``, by
+    the forward's rule: ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16
+    with head_dim up to 128; ``"simt"`` (``csrc/flash_bwd.cu``) for f32,
+    whose gradient tolerance bf16 tensor cores cannot meet, and for wider
+    heads."""
+    return _forward_route(dtype, head_dim)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -158,17 +175,17 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
 def flash_attention_dq(q, k, v, do, lse, delta, scale: float,
                        causal: bool = True, window: int | None = None,
                        softcap: float | None = None) -> torch.Tensor:
-    """dQ (B, Hq, Lq, D) in ``q``'s dtype: the ``_dq_kernel`` kernel on a
-    CUDA tensor (counted), the plain version on a CPU one."""
+    """dQ (B, Hq, Lq, D) in ``q``'s dtype: the ``_dq_kernel`` kernel of
+    ``_backward_route`` on a CUDA tensor (counted on that route), the plain
+    version on a CPU one."""
     _check_bwd(q, k, v, do, lse, delta)
     _device(q, "flash_attention_dq")
     if q.device.type == "cpu":
         return flash_attention_dq_ref(q, k, v, do, lse, delta, scale,
                                       causal, window, softcap)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("repro_flash_dq", (dq,), q, k, v, do, lse, delta, scale,
-                causal, window, softcap)
-    flash_attention_dq.launches += 1
+    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, scale, causal, window,
+                softcap)
     return dq
 
 
@@ -176,8 +193,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale: float,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None) -> tuple:
     """Per-q-head dK and dV, each (B, Hq, Lk, D) f32 (the caller sums each
-    GQA group): the ``_dkv_kernel`` kernel on a CUDA tensor (counted), the
-    plain version on a CPU one."""
+    GQA group): the ``_dkv_kernel`` kernel of ``_backward_route`` on a
+    CUDA tensor (counted on that route), the plain version on a CPU one."""
     _check_bwd(q, k, v, do, lse, delta)
     _device(q, "flash_attention_dkv")
     if q.device.type == "cpu":
@@ -186,9 +203,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale: float,
     shape = (q.shape[0], q.shape[1], k.shape[2], q.shape[3])
     dk, dv = (torch.empty(shape, dtype=torch.float32, device=q.device)
               for _ in range(2))
-    _launch_bwd("repro_flash_dkv", (dk, dv), q, k, v, do, lse, delta, scale,
-                causal, window, softcap)
-    flash_attention_dkv.launches += 1
+    _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, scale, causal,
+                window, softcap)
     return dk, dv
 
 
@@ -246,33 +262,49 @@ def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
     return o, lse
 
 
-def _launch_bwd(entry, outs, q, k, v, do, lse, delta, scale, causal, window,
-                softcap) -> None:
-    """Launch one backward kernel into ``outs`` on the current stream."""
+def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
+                window, softcap, route=None) -> None:
+    """Launch the backward kernel ``kernel`` (``"dq"`` or ``"dkv"``) into
+    ``outs`` on checked CUDA tensors, on the current stream: ``route``
+    names its library (``"sm90"`` or ``"simt"``), by default
+    ``_backward_route``'s.  Counts the launch on that route's counter."""
+    D = q.shape[3]
+    route = route or _backward_route(q.dtype, D)
+    if route == "sm90" and _backward_route(q.dtype, D) != "sm90":
+        raise ValueError(f"the sm90 backward takes bf16 with head_dim up to "
+                         f"{_SM90_MAX_HEAD_DIM}; got {q.dtype}, {D}")
     _check_grid(q)
     if outs[0].numel() == 0:
         return
     q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
-    B, Hq, Lq, D = q.shape
-    lib = _build.load("flash_bwd")
+    B, Hq, Lq, _ = q.shape
+    name, entries = _BACKWARD[route]
+    lib = _build.load(name)
+    # the sm90 kernels take bf16 only; the CUDA-core ones are told the dtype
+    dtype_flag = () if route == "sm90" else (int(q.dtype == torch.bfloat16),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = getattr(lib, entry)(
+        code = getattr(lib, entries[kernel])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             B, Hq, k.shape[1], Lq, k.shape[2], D, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            int(q.dtype == torch.bfloat16),
+            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
-    _build.check(lib, code, entry)
+    _build.check(lib, code, f"flash_attention_{kernel} ({route})")
+    _BWD_COUNTERS[kernel, route].launches += 1
 
 
-#: kernel launches since the last reset (CPU calls never count);
-#: ``flash_attention``'s are its ``"sm90"`` route's, and
-#: ``simt_forward``'s its ``"simt"`` route's
+#: kernel launches since the last reset (CPU calls never count); each
+#: wrapper's are its ``"sm90"`` route's, and ``simt_forward``'s,
+#: ``simt_dq``'s and ``simt_dkv``'s the ``"simt"`` route's
 flash_attention.launches = 0
 simt_forward = SimpleNamespace(launches=0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+simt_dq = SimpleNamespace(launches=0)
+simt_dkv = SimpleNamespace(launches=0)
 _ROUTE_COUNTERS = {"sm90": flash_attention, "simt": simt_forward}
+_BWD_COUNTERS = {("dq", "sm90"): flash_attention_dq,
+                 ("dkv", "sm90"): flash_attention_dkv,
+                 ("dq", "simt"): simt_dq, ("dkv", "simt"): simt_dkv}

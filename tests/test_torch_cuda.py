@@ -27,6 +27,9 @@ DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int8)
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 #: the forward's routes, by the name of their launch counter
 ROUTES = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
+#: the backward's routes, by the names of their (dq, dkv) launch counters
+BWD_ROUTES = {"sm90": ("flash_attention_dq", "flash_attention_dkv"),
+              "simt": ("flash_attention_dq_simt", "flash_attention_dkv_simt")}
 MASKS = [(True, None, None), (False, None, None), (True, 48, None),
          (True, None, 30.0), (False, 48, 30.0)]
 
@@ -37,6 +40,28 @@ def _route_launches(fn):
     out = fn()
     after = K.launch_counts()
     return out, {r: after[n] - before[n] for r, n in ROUTES.items()}
+
+
+def _bwd_route_launches(fn):
+    """``fn()`` and the backward's (dq, dkv) launches on each route."""
+    before = K.launch_counts()
+    out = fn()
+    after = K.launch_counts()
+    return out, {r: tuple(after[n] - before[n] for n in names)
+                 for r, names in BWD_ROUTES.items()}
+
+
+def _bwd_on_route(args, route):
+    """dQ and per-q-head dK, dV on the named route, through the wrapper's
+    module-private launcher."""
+    q, k = args[0], args[1]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((q.shape[0], q.shape[1], k.shape[2], q.shape[3]),
+                          dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    FA._launch_bwd("dq", (dq,), *args, route=route)
+    FA._launch_bwd("dkv", (dk, dv), *args, route=route)
+    return dq, dk, dv
 
 
 @pytest.fixture
@@ -193,11 +218,13 @@ def test_flash_kernel_reads_strided_views(cuda):
                           (True, 48, None), (False, 48, 30.0)])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
                                        softcap):
-    """dQ and the per-q-head dK, dV against their plain versions on the
-    same inputs: f32 at the reference's gradient tolerance (rtol 1e-3,
-    atol 1e-4); bf16 dQ within one bf16 step (both round one f32 sum:
-    rtol 2^-7, atol 1e-4), dK and dV f32 in both.  Ragged lengths (150,
-    Lk 100), GQA 4, a padded head dim (48), q and k of std sqrt(2)."""
+    """The CUDA-core backward kernels (``csrc/flash_bwd.cu``, the route
+    named, so bf16 at D <= 128 runs them too): dQ and the per-q-head dK,
+    dV against their plain versions on the same inputs: f32 at the
+    reference's gradient tolerance (rtol 1e-3, atol 1e-4); bf16 dQ within
+    one bf16 step (both round one f32 sum: rtol 2^-7, atol 1e-4), dK and
+    dV f32 in both.  Ragged lengths (150, Lk 100), GQA 4, a padded head dim
+    (48), q and k of std sqrt(2); one launch of each on the simt route."""
     gen = torch.Generator(device=cuda).manual_seed(D + 1)
     B, Hq, Hkv, L, Lk = 2, 8, 2, 150, 100
     q, k, v, do = (std * torch.randn((B, h, n, D), generator=gen,
@@ -209,11 +236,10 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
     o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
-    before = (K.flash_attention_dq.launches, K.flash_attention_dkv.launches)
-    dq, (dk, dv) = K.flash_attention_dq(*args), K.flash_attention_dkv(*args)
+    (dq, dk, dv), ran = _bwd_route_launches(
+        lambda: _bwd_on_route(args, "simt"))
     torch.cuda.synchronize()
-    assert (K.flash_attention_dq.launches, K.flash_attention_dkv.launches) \
-        == (before[0] + 1, before[1] + 1)
+    assert ran == {"sm90": (0, 0), "simt": (1, 1)}
     rdk, rdv = flash_attention_dkv_ref(*args)
     f32 = dict(rtol=1e-3, atol=1e-4)
     assert dq.dtype == dtype and dk.dtype == dv.dtype == torch.float32
@@ -222,6 +248,50 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
         **(f32 if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-4)))
     torch.testing.assert_close(dk, rdk, **f32)
     torch.testing.assert_close(dv, rdv, **f32)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+@pytest.mark.parametrize("g,strided", [(1, False), (4, True)],
+                         ids=["mha", "gqa4_strided"])
+def test_flash_bwd_sm90_kernels_match_plain(cuda, D, causal, window, softcap,
+                                            g, strided):
+    """The sm90 backward kernels (bf16, every width they are built for, the
+    five masks) against their plain versions: dQ within one bf16 step
+    (rtol 2^-7, atol 1e-4), the per-q-head dK, dV within the f32 gradient
+    tolerance (rtol 1e-3, atol 1e-4).  Ragged Lq 150 and Lk 100 (no
+    multiple of the 128- or 64-row tiles), GQA groups of 1 and of 4, and
+    q, k, v, dO as (B, H, L, D) views of (B, L, H, D) tensors read in
+    place; the wrappers' calls counted once each on the sm90 route."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 11 * g)
+    B, Hkv, L, Lk = 2, 2, 150, 100
+    Hq = g * Hkv
+    shapes = ((2 ** 0.5, Hq, L), (2 ** 0.5, Hkv, Lk), (0.5, Hkv, Lk),
+              (0.5, Hq, L))
+    if strided:
+        q, k, v, do = ((std * torch.randn((B, n, h, D), generator=gen,
+                                          device=cuda))
+                       .bfloat16().transpose(1, 2) for std, h, n in shapes)
+    else:
+        q, k, v, do = ((std * torch.randn((B, h, n, D), generator=gen,
+                                          device=cuda)).bfloat16()
+                       for std, h, n in shapes)
+    scale = D ** -0.5
+    o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+    (dq, (dk, dv)), ran = _bwd_route_launches(
+        lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
+    torch.cuda.synchronize()
+    assert ran == {"sm90": (1, 1), "simt": (0, 0)}
+    assert dq.dtype == torch.bfloat16 and dq.shape == (B, Hq, L, D)
+    assert dk.shape == dv.shape == (B, Hq, Lk, D)
+    torch.testing.assert_close(dq.float(),
+                               flash_attention_dq_ref(*args).float(),
+                               rtol=2 ** -7, atol=1e-4)
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    torch.testing.assert_close(dk, rdk, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(dv, rdv, rtol=1e-3, atol=1e-4)
 
 
 def test_flash_attention_grads_on_the_card(cuda):
@@ -244,9 +314,9 @@ def test_flash_attention_grads_on_the_card(cuda):
 
 def test_training_step_through_the_kernels(cuda):
     """One AdamW step of the qwen2.5-3b smoke config on the card with the
-    flash route on under ``remat="dots"``: one dQ and one dK/dV launch
-    per layer, the sm90 forward twice per layer (again in the recompute), and
-    finite metrics."""
+    flash route on under ``remat="dots"``: one sm90 dQ and one sm90 dK/dV
+    launch per layer, the sm90 forward twice per layer (again in the
+    recompute), none on the CUDA-core routes, and finite metrics."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import LM
@@ -267,3 +337,5 @@ def test_training_step_through_the_kernels(cuda):
         == cfg.n_layers
     assert counts["flash_attention"] == 2 * cfg.n_layers
     assert counts["flash_attention_simt"] == 0
+    assert counts["flash_attention_dq_simt"] == 0
+    assert counts["flash_attention_dkv_simt"] == 0

@@ -170,7 +170,9 @@ def test_cpu_tensors_never_launch():
                                  "flash_attention": 0,
                                  "flash_attention_simt": 0,
                                  "flash_attention_dq": 0,
-                                 "flash_attention_dkv": 0}
+                                 "flash_attention_dq_simt": 0,
+                                 "flash_attention_dkv": 0,
+                                 "flash_attention_dkv_simt": 0}
 
 
 def test_wrappers_check_their_inputs():
