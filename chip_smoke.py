@@ -21,14 +21,15 @@ Phases, each printing one JSON line:
    beside the memory-bandwidth bound, the plain version and one PyTorch
    call computing the same function;
 5. launch counts of the main-path run; every kernel must have run;
-6. the flash-attention forward's two kernels against their plain version
-   on the card, within tolerance: masks, GQA groups, head dims 16-256
-   (padded ones too), ragged lengths, f32 and bf16, the serving path's two
-   shapes with scores of std 2, and two more bf16 cases (D 80 at L 200;
-   D 128 at L 2048 with a window of 512 and a softcap); the launch counts
-   show that each bf16 case with head_dim up to 128 ran the sm90 kernel
-   (``csrc/flash_fwd_sm90.cu``) and every other case the f32 CUDA-core
-   one (``csrc/flash_fwd.cu``);
+6. the flash-attention forward's kernels against their plain version on
+   the card, within tolerance: masks, GQA groups, head dims 16-256
+   (padded ones too), ragged lengths, f32 and bf16, the serving paths'
+   shapes (qwen2.5-3b's in bf16 and f32, gemma2-2b's) with scores of std
+   2, and two more bf16 cases (D 80 at L 200; D 128 at L 2048 with a
+   window of 512 and a softcap); the launch counts show that each bf16
+   case ran the sm90 route (``csrc/flash_fwd_sm90.cu`` up to head_dim
+   128, ``csrc/flash_fwd_sm90_d256.cu`` above) and each f32 case the
+   CUDA-core kernel (``csrc/flash_fwd.cu``);
 7. the serving path at full width: ``ServeEngine.generate`` on
    qwen2.5-3b (36 layers, random weights from a seed, attention
    projections at true fan-in: see ``serving_params``) with the flash
@@ -38,13 +39,14 @@ Phases, each printing one JSON line:
    f32 compute, each flash prefill's launch counts read on their own: the
    bf16 one runs the sm90 kernel, the f32 one the CUDA-core kernel), and
    a profile of prefill and decode;
-8. flash-attention forward times at the serving and training shapes
-   (as phase 4's): the sm90 kernel beside its bound, the
-   CUDA-core kernel on the same bf16 inputs, the plain version and
-   ``scaled_dot_product_attention``; and the CUDA-core kernel on the f32
-   inputs of the f32 serving path, beside its bound and SDPA's;
+8. flash-attention forward times at the serving and training shapes and
+   at gemma2-2b's (as phase 4's): the sm90 route's kernel beside its
+   bound, the CUDA-core kernel on the same bf16 inputs, the plain version
+   and ``scaled_dot_product_attention`` (gemma2-2b's also without the
+   softcap, which SDPA lacks); and the CUDA-core kernel on the f32 inputs
+   of the f32 serving path, beside its bound and SDPA's;
 9. launch counts of the serving run; the sm90 kernel must have run once
-   per layer at least, the CUDA-core kernel never;
+   per layer at least, the head_dim-256 and CUDA-core kernels never;
 10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
     forward's sweep and the training shape given as strided views (on both
@@ -70,8 +72,15 @@ Phases, each printing one JSON line:
     ``scaled_dot_product_attention`` (its kernels' device time from the
     profiler: autograd's host work outlasts them); the CUDA-core kernels on
     the f32 inputs of the f32 route comparison; and gemma2-2b's bf16
-    head_dim-256 shape, which the CUDA-core forward and backward take,
-    beside their bound, the plain versions and SDPA.
+    head_dim-256 shape, which the CUDA-core backward takes, beside its
+    bound, the plain versions and SDPA;
+13. the serving path at gemma2-2b's full width (26 layers, head_dim 256,
+    local and global layers, softcaps; random weights: see
+    ``training_params``), as phase 7 serves qwen2.5-3b: the bf16 prefill
+    launches the sm90 route's head_dim-256 kernel once per layer and the
+    CUDA-core forward never, the f32 route comparison the CUDA-core
+    forward once per layer, and the profile names the flash forward's
+    device time in the prefill.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -110,8 +119,9 @@ COMPONENTS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 SEED = 0
 REPS = 20
 
-#: the serving path: qwen2.5-3b, 4 prompts of 2048 tokens, 32 new tokens
-SERVE_ARCH = "qwen2.5-3b"
+#: the serving path: qwen2.5-3b, 4 prompts of 2048 tokens, 32 new tokens;
+#: gemma2-2b (head_dim 256) serves the same traffic
+SERVE_ARCH, GEMMA2_ARCH = "qwen2.5-3b", "gemma2-2b"
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
 #: flash attention at the serving path's shape, and at gemma2-2b's (its
 #: config's window of 4096 and softcap of 50; head_dim 256); their
@@ -133,8 +143,10 @@ FLASH_D80 = dict(B=2, Hq=8, Hkv=2, L=200, D=80, causal=True, window=None,
                  softcap=None)
 FLASH_LONG_WINDOW = dict(B=1, Hq=16, Hkv=2, L=2048, D=128, causal=True,
                          window=512, softcap=30.0)
-#: the forward's routes, by the name of their launch counter
+#: the forward's routes, by the name of their launch counter; the sm90
+#: route's head_dim-256 kernel counts its own launches too
 FLASH_ROUTES = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
+FLASH_D256 = "flash_attention_d256"
 LSE_TOL = (1e-4, 1e-4)
 #: flash vs q-chunked prefill logits: max |d| / max |q-chunked|
 LOGIT_GAP = 2e-2
@@ -169,6 +181,9 @@ KERNELS = {
                             "src/repro/kernels/relayout.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
                         "src/repro/kernels/flash_attention.py:39"),
+    "flash_attention_d256": (
+        "src/repro_torch/kernels/csrc/flash_fwd_sm90_d256.cu",
+        "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                              "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
@@ -285,17 +300,42 @@ def probe(torch) -> dict:
     return info
 
 
+def ptxas_report(log: str) -> dict:
+    """``ptxas -v``'s report on one library: its entry functions, the most
+    registers any uses, and each one that spills with its spill stores and
+    loads in bytes (names demangled where ``c++filt`` is found)."""
+    regs, spills, entry = [], {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln and entry:
+            n = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            if n[1] or n[2]:
+                spills[entry] = n[1:3]
+        elif "Used" in ln and "registers" in ln and entry:
+            regs.append(int(ln.split("Used")[1].split()[0]))
+    if spills and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(spills),
+                               capture_output=True, text=True).stdout
+        spills = dict(zip(names.split("\n"), spills.values()))
+    return {"entries": len(regs), "max_registers": max(regs, default=0),
+            "spills": spills}
+
+
 def build() -> dict:
+    """Build and load every library; the tensor-core kernels, sized to
+    their register budget, must not spill."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     info = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
-    return {"seconds": time.perf_counter() - t0,
-            "libs": {n: {"seconds": v["seconds"],
-                         "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                                   if "Used" in ln or "spill" in ln]}
-                     for n, v in info.items()}}
+    libs = {n: {"seconds": v["seconds"], "ptxas": ptxas_report(v["log"])}
+            for n, v in info.items()}
+    for n, v in libs.items():
+        if n.endswith(("_sm90", "_sm90_d256")) and v["ptxas"]["spills"]:
+            raise RuntimeError(f"{n} spills: {v['ptxas']['spills']}")
+    return {"seconds": time.perf_counter() - t0, "libs": libs}
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -552,7 +592,9 @@ def _qkv(torch, gen, dev, dtype, B, Hq, Hkv, L, D, Lk=None, qk_std=0.5,
 def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
     """Kernel vs plain version: (max |dO|, max |dLSE|, the route that
     ran), raising beyond the tolerances and unless exactly one launch of
-    the route ``_forward_route`` picks for these inputs was counted."""
+    the route ``_forward_route`` picks for these inputs was counted, on
+    the sm90 route's head_dim-256 kernel when the head is wider than
+    128."""
     import repro_torch.kernels as K
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -562,10 +604,13 @@ def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
                              return_lse=True)
     after = K.launch_counts()
     route = FA._forward_route(q.dtype, q.shape[-1])
-    ran = {r: after[n] - before[n] for r, n in FLASH_ROUTES.items()}
-    if ran != {r: int(r == route) for r in FLASH_ROUTES}:
-        raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected one "
-                             f"launch on the {route} route, counted {ran}")
+    ran = {r: after[n] - before[n]
+           for r, n in (*FLASH_ROUTES.items(), ("d256", FLASH_D256))}
+    want = {r: int(r == route) for r in FLASH_ROUTES}
+    want["d256"] = int(route == "sm90" and q.shape[-1] > 128)
+    if ran != want:
+        raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected {want} "
+                             f"launches by route, counted {ran}")
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     torch.cuda.synchronize()
     rtol, atol = FLASH_TOL[str(q.dtype).split(".")[-1]]
@@ -582,13 +627,13 @@ def check_flash(torch, dev) -> dict:
     routes = dict.fromkeys(FLASH_ROUTES, 0)
     cases = 0
     # lengths that are no multiple of the kernel's 64-row tiles, one case
-    # with Lq != Lk, and head dims 24, 48, 200 that run on zero-padded
-    # columns (to 32, 64, 256)
+    # with Lq != Lk, and head dims 24, 48, 136, 200 that run on zero-padded
+    # columns (to 32, 64, 256, 256)
     for dtype in (torch.float32, torch.bfloat16):
         for name, (causal, window, softcap) in masks.items():
             worst = [0.0, 0.0]
             for g in (1, 2, 4, 8):
-                for D in (16, 24, 32, 48, 80, 128, 200, 256):
+                for D in (16, 24, 32, 48, 80, 128, 136, 200, 256):
                     q, k, v = _qkv(torch, gen, dev, dtype, B=2, Hq=2 * g,
                                    Hkv=2, L=200, D=D,
                                    Lk=136 if g == 2 else None)
@@ -600,18 +645,24 @@ def check_flash(torch, dev) -> dict:
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = {
                 "o": worst[0], "lse": worst[1]}
     shapes = {}
-    for name, shp in (("serving", FLASH_MAIN), ("gemma2", FLASH_GEMMA2),
-                      ("d80", FLASH_D80), ("long_window", FLASH_LONG_WINDOW)):
+    # bf16 on the sm90 route (gemma2's on its head_dim-256 kernel); the f32
+    # serving prefill's shape on the CUDA-core route
+    for name, shp, dtype, want in (
+            ("serving", FLASH_MAIN, torch.bfloat16, "sm90"),
+            ("gemma2", FLASH_GEMMA2, torch.bfloat16, "sm90"),
+            ("d80", FLASH_D80, torch.bfloat16, "sm90"),
+            ("long_window", FLASH_LONG_WINDOW, torch.bfloat16, "sm90"),
+            ("serving_f32", FLASH_MAIN, torch.float32, "simt")):
         # as attention hands them over: (B, H, L, D) views of (B, L, H, D)
         q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
-                   for x in _qkv(torch, gen, dev, torch.bfloat16,
+                   for x in _qkv(torch, gen, dev, dtype,
                                  qk_std=math.sqrt(2.0), **shp))
         *e, route = _flash_case(torch, q, k, v, shp["causal"], shp["window"],
                                 shp["softcap"])
-        if name != "gemma2" and route != "sm90":
+        if route != want:
             raise AssertionError(f"the {name} shape ran the {route} route")
-        shapes[name] = {"shape": shp, "o": e[0], "lse": e[1],
-                        "route": route}
+        shapes[name] = {"shape": shp, "dtype": str(dtype).split(".")[-1],
+                        "o": e[0], "lse": e[1], "route": route}
         routes[route] += 1
         cases += 1
         del q, k, v
@@ -621,28 +672,32 @@ def check_flash(torch, dev) -> dict:
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "main_shapes": shapes,
             "max_abs_err": {"flash_attention": shapes["serving"]["o"],
-                            "flash_attention_simt": shapes["gemma2"]["o"]}}
+                            FLASH_D256: shapes["gemma2"]["o"],
+                            "flash_attention_simt":
+                                shapes["serving_f32"]["o"]}}
 
 
 # -- phase 7 -------------------------------------------------------------------
 
-def serve(torch, dev, K) -> dict:
-    """``ServeEngine.generate`` on the full qwen2.5-3b with the flash
-    route on; the launch counts of that one call; then the flash route's
-    prefill logits against the q-chunked route's on the same weights and
-    prompts, in the model's bf16 compute and in f32, each held to
-    LOGIT_GAP."""
+def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
+    """``ServeEngine.generate`` on the full ``arch`` with the flash route
+    on, weights from ``init`` (by default ``serving_params``); the launch
+    counts of that one call; then the flash route's prefill logits against
+    the q-chunked route's on the same weights and prompts, in the model's
+    bf16 compute and in f32, each held to LOGIT_GAP, each flash prefill's
+    launches read on their own: one per layer on the route its dtype takes
+    (on the sm90 route's head_dim-256 kernel for heads wider than 128)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.serve import ServeEngine, cache_bytes
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash=True)
+    cfg = dataclasses.replace(get_config(arch), flash=True)
     if PROMPT_LEN % cfg.flash_block:
         raise ValueError("the prompts must take the flash route")
     model = LM(cfg)
     t0 = time.perf_counter()
-    params = serving_params(model, torch.Generator(device=dev)
-                            .manual_seed(SEED))
+    params = (init or serving_params)(model, torch.Generator(device=dev)
+                                      .manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     max_len = PROMPT_LEN + NEW_TOKENS
@@ -672,12 +727,16 @@ def serve(torch, dev, K) -> dict:
         for lg in (flash_logits, base_logits):
             if not torch.isfinite(lg).all():
                 raise AssertionError("non-finite prefill logits")
-        # bf16 compute runs the sm90 kernel, f32 the CUDA-core one
+        # bf16 compute runs the sm90 route, f32 the CUDA-core kernel
         route = "sm90" if dtype == torch.bfloat16 else "simt"
-        ran = {r: flash_launches[n] for r, n in FLASH_ROUTES.items()}
-        if ran != {r: cfg.n_layers * (r == route) for r in FLASH_ROUTES}:
+        ran = {r: flash_launches[n]
+               for r, n in (*FLASH_ROUTES.items(), ("d256", FLASH_D256))}
+        want = {r: cfg.n_layers * (r == route) for r in FLASH_ROUTES}
+        want["d256"] = cfg.n_layers * (route == "sm90" and cfg.head_dim > 128)
+        if ran != want:
             raise AssertionError(f"{dtype} flash prefill: launches {ran}, "
-                                 f"not one {route} launch per layer")
+                                 f"expected {want} (one {route} launch per "
+                                 f"layer)")
         routes[str(dtype).split(".")[-1]] = {
             "logit_gap": float((flash_logits - base_logits).abs().max()
                                / base_logits.abs().max()),
@@ -693,7 +752,8 @@ def serve(torch, dev, K) -> dict:
     profile = profile_serving(torch, model, params, batch)
     del params, engine, flash_logits, base_logits
     torch.cuda.empty_cache()
-    return {"arch": SERVE_ARCH, "layers": cfg.n_layers, "flash": True,
+    return {"arch": arch, "layers": cfg.n_layers,
+            "head_dim": cfg.head_dim, "flash": True,
             "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
             "new_tokens": NEW_TOKENS, "init_seconds": init_s,
             "prefill_seconds": stats.prefill_seconds,
@@ -720,13 +780,23 @@ def serving_params(model, generator) -> dict:
     have a std of about 1, as a trained model's are of order 1-10."""
     cfg = model.cfg
     params = model.init(generator)
-    for seg in params["segments"]:
-        a = seg["attn"]
+    for a in _attn_params(params["segments"]):
         a["wq"].mul_(math.sqrt(cfg.n_heads / cfg.d_model))
         a["wk"].mul_(math.sqrt(cfg.n_kv / cfg.d_model))
         a["wv"].mul_(math.sqrt(cfg.n_kv / cfg.d_model))
         a["wo"].mul_(1.0 / math.sqrt(cfg.n_heads))
     return params
+
+
+def _attn_params(tree) -> list:
+    """Every attention's parameters in ``tree``: a segment's ``attn``, or
+    its ``local`` and ``global`` layers' (gemma2-2b's ``pair_lg``)."""
+    if isinstance(tree, dict):
+        return [tree] if "wq" in tree else \
+            [a for v in tree.values() for a in _attn_params(v)]
+    if isinstance(tree, list):
+        return [a for v in tree for a in _attn_params(v)]
+    return []
 
 
 @contextlib.contextmanager
@@ -744,8 +814,8 @@ def compute_dtype(dtype):
 def profile_serving(torch, model, params, batch) -> dict:
     """Device time by kernel of one prefill and of 4 decode steps
     (``torch.profiler``), beside their host-clock time under the profiler:
-    the device's busy share, the kernel count, and the kernels that take
-    the most of it."""
+    the device's busy share, the kernel count, the kernels that take the
+    most of it, and the flash forward kernels' time and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
@@ -764,11 +834,14 @@ def profile_serving(torch, model, params, batch) -> dict:
                 if e.device_type == DeviceType.CUDA]
         device_us = sum(r[1] for r in rows)
         top = sorted(rows, key=lambda r: -r[1])[:8]
+        flash = [r for r in rows if "flash_fwd" in r[0]]
         out[name] = {"wall_ms": wall * 1e3,
                      "device_ms": device_us / 1e3 if rows else None,
                      "busy_share": device_us / 1e3 / (wall * 1e3)
                      if rows else None,
                      "kernels": sum(r[2] for r in rows),
+                     "flash_fwd_ms": sum(r[1] for r in flash) / 1e3,
+                     "flash_fwd_calls": {k[:60]: c for k, _, c in flash},
                      "top": [{"name": k[:60], "ms": t / 1e3, "calls": c}
                              for k, t, c in top]}
 
@@ -799,10 +872,13 @@ def live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
 
 
 def flash_timings(torch, dev) -> dict:
-    """The forward's kernels at the serving and training shapes, bf16: the
-    sm90 kernel (``ms``) and the CUDA-core kernel on the same inputs
-    (``simt_ms``, through the wrapper's module-private launcher that names
-    the route), beside the bound, the plain version and SDPA.  Then the
+    """The forward's kernels at the serving and training shapes and at
+    gemma2-2b's, bf16: the sm90 route (``ms``; gemma2-2b's runs its
+    head_dim-256 kernel, also timed without the softcap,
+    ``ms_no_softcap``, as SDPA has none) and the CUDA-core kernel on the
+    same inputs (``simt_ms``, through the wrapper's module-private launcher
+    that names the route), beside the bound, the plain version and SDPA
+    (causal; gemma2-2b's window of 4096 masks nothing at L 2048).  Then the
     CUDA-core kernel on the path it serves here, the f32 prefill's inputs
     at the serving shape, beside its f32 bound and SDPA in f32."""
     import torch.nn.functional as F
@@ -815,15 +891,17 @@ def flash_timings(torch, dev) -> dict:
         q, k, v = _qkv(torch, gen, dev, dtype, **shp)
         B, Hq, L, D = q.shape
         scale = 1.0 / D ** 0.5
+        masks = (shp["causal"], shp["window"], shp["softcap"])
         flops = 4 * B * Hq * D * live_pairs(L, L, shp["causal"],
                                             shp["window"])
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
             + B * Hq * L * 4                # O like q, and the f32 LSE
         res = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
                "flops": flops, "bytes": nbytes,
-               **{key: time_ms(lambda: fn(q, k, v, scale))
+               **{key: time_ms(lambda fn=fn: fn(q, k, v, scale, *masks))
                   for key, fn in kernels.items()},
-               "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v)),
+               "plain_ms": time_ms(lambda: flash_attention_ref(
+                   q, k, v, scale, *masks)),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
                "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
@@ -836,13 +914,18 @@ def flash_timings(torch, dev) -> dict:
             res[key.replace("ms", "tflops")] = flops / res[key] / 1e9
         return res
 
-    def simt(q, k, v, scale):
-        return FA._launch(q, k, v, scale, True, None, None, route="simt")
+    def simt(q, k, v, scale, causal, window, softcap):
+        return FA._launch(q, k, v, scale, causal, window, softcap,
+                          route="simt")
 
-    bf16 = {"ms": lambda q, k, v, scale: flash_attention(q, k, v, scale),
-            "simt_ms": simt}
+    def no_softcap(q, k, v, scale, causal, window, _):
+        return flash_attention(q, k, v, scale, causal, window)
+
+    bf16 = {"ms": flash_attention, "simt_ms": simt}
     out = {"serving": timed(FLASH_MAIN, torch.bfloat16, BF16_FLOPS, bf16),
            "training": timed(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, bf16),
+           "gemma2": timed(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS,
+                           {**bf16, "ms_no_softcap": no_softcap}),
            "simt_f32": timed(FLASH_MAIN, torch.float32, F32_FLOPS,
                              {"ms": simt})}
     torch.cuda.empty_cache()
@@ -1089,6 +1172,17 @@ def check_training(trained: dict) -> None:
                              f"none on the CUDA-core routes")
 
 
+def check_gemma2_serving(served: dict) -> None:
+    """The gemma2-2b serving run's gates beyond ``serve``'s own: its one
+    bf16 prefill launched the sm90 forward once per layer, every launch on
+    the head_dim-256 kernel, and the CUDA-core forward never."""
+    n, got = served["layers"], served["launches"]
+    if not (got["flash_attention"] == got[FLASH_D256] == n
+            and got["flash_attention_simt"] == 0):
+        raise AssertionError(f"gemma2-2b serving launched {got}, not one "
+                             f"head_dim-256 sm90 forward per layer ({n})")
+
+
 def training_params(model, generator) -> dict:
     """Random weights for the training run: ``serving_params``, then the
     tied embedding rescaled from the reference's std 1 to
@@ -1097,7 +1191,10 @@ def training_params(model, generator) -> dict:
     steps of about lr per weight overshoot: the loss went 331, 184, 259,
     575, 518, 438 over 6 steps at lr 3e-4 (an H100, PERF.md).  At
     1/sqrt(d_model) the logits have a std of about 1, as at a real
-    model's initialization (std 0.02)."""
+    model's initialization (std 0.02).  gemma2-2b's serving run takes
+    them too: it multiplies the tied embedding by sqrt(d_model), and at
+    std 1 its final logits (std about 48) saturate the final softcap of
+    30, where greedy near-ties make the route comparison meaningless."""
     params = serving_params(model, generator)
     params["embed"].mul_(1.0 / math.sqrt(model.cfg.d_model))
     return params
@@ -1224,16 +1321,15 @@ def bwd_timings(torch, dev) -> dict:
     work.  ``training_f32``: the CUDA-core kernels on the f32 inputs of the
     f32 route comparison, the path that runs them here, beside their f32
     bound and SDPA in f32.  ``gemma2``: gemma2-2b's bf16 head_dim-256
-    shape (``FLASH_GEMMA2``), which the CUDA-core forward and backward
-    take, beside their bf16 bound, the plain versions and SDPA (causal
-    without the softcap, which SDPA lacks; the window of 4096 masks nothing
-    at L 2048)."""
+    shape (``FLASH_GEMMA2``), whose backward takes the CUDA-core kernels,
+    beside their bf16 bound, the plain versions and SDPA (causal without
+    the softcap, which SDPA lacks; the window of 4096 masks nothing at L
+    2048); phase 8 times its forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
     from repro_torch.kernels.ref import (flash_attention_dkv_ref,
-                                         flash_attention_dq_ref,
-                                         flash_attention_ref)
+                                         flash_attention_dq_ref)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
 
     def timed(res, name, flops, nbytes, peak, fns) -> None:
@@ -1279,19 +1375,6 @@ def bwd_timings(torch, dev) -> dict:
         library = device_ms(sdpa_fwd_bwd) - fwd
         res = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
                "library_fwd_ms": fwd, "library_bwd_ms": library}
-        if simt_only and dtype == torch.bfloat16:
-            # the CUDA-core forward, which this shape's dtype and width take
-            timed(res, "flash_attention_simt", 4 * D * pairs,
-                  sum(x.numel() * x.element_size() for x in (q, k, v, q))
-                  + B * Hq * L * 4, peak,
-                  {"ms": lambda: flash_attention(q, k, v, scale, causal,
-                                                 window, softcap),
-                   "plain_ms": lambda: flash_attention_ref(
-                       q, k, v, scale, causal, window, softcap)})
-            res["flash_attention_simt"]["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, scale=scale,
-                    enable_gqa=True))["median"]
         for kind, kernel, plain, flops, nbytes in (
                 ("dq", flash_attention_dq, flash_attention_dq_ref,
                  6 * D * pairs, ins + q.numel() * size),
@@ -1390,12 +1473,14 @@ def main() -> int:
     emit(9, launches=serve_launches)
     n_layers = served["layers"]
     if serve_launches["flash_attention"] < n_layers or \
-            serve_launches["flash_attention_simt"]:
+            serve_launches["flash_attention_simt"] or \
+            serve_launches[FLASH_D256]:
         raise AssertionError(
             f"serving launched the sm90 flash kernel "
             f"{serve_launches['flash_attention']} times for {n_layers} "
             f"layers, the CUDA-core one "
-            f"{serve_launches['flash_attention_simt']} times")
+            f"{serve_launches['flash_attention_simt']} times, the "
+            f"head_dim-256 one {serve_launches[FLASH_D256]} times")
 
     t0 = time.perf_counter()
     bwd_check = check_flash_bwd(torch, dev)
@@ -1411,6 +1496,11 @@ def main() -> int:
     emit(12, seconds=time.perf_counter() - t0, **bwd_times,
          bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS,
          hbm_bytes_per_s=HBM_BYTES_PER_S)
+
+    t0 = time.perf_counter()
+    gemma2 = serve(torch, dev, K, GEMMA2_ARCH, training_params)
+    emit(13, seconds=time.perf_counter() - t0, **gemma2)
+    check_gemma2_serving(gemma2)
     emit("total", seconds=time.perf_counter() - t_start)
 
     rows = [{"name": name, "route": "cuda", "source": source,
@@ -1421,11 +1511,14 @@ def main() -> int:
              "library_ms": times[name]["library_ms"]}
             for name, (source, replaces) in KERNELS.items()
             if not name.startswith("flash_attention")]
-    # the sm90 forward on the serving run; the CUDA-core forward on the
-    # f32 serving prefill, the path that runs it here
+    # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's
+    # head_dim 128, gemma2-2b's 256); the CUDA-core forward on the f32
+    # serving prefill, the path that runs it here
     for name, launched, t in (
-            ("flash_attention", serve_launches["flash_attention"],
-             flash_times["serving"]),
+            ("flash_attention", serve_launches["flash_attention"]
+             - serve_launches[FLASH_D256], flash_times["serving"]),
+            (FLASH_D256, gemma2["launches"][FLASH_D256],
+             flash_times["gemma2"]),
             ("flash_attention_simt", served["flash_vs_q_chunked"]["float32"]
              ["flash_launches"]["flash_attention_simt"],
              flash_times["simt_f32"])):

@@ -3,7 +3,7 @@ versions beside them (:mod:`.ref`) and a launch count on every wrapper."""
 
 from .flash_attention import (flash_attention, flash_attention_dkv,
                               flash_attention_dq, simt_dkv, simt_dq,
-                              simt_forward)
+                              simt_forward, sm90_d256)
 from .ops import merge_blocks_device, split_merged
 from .pack_blocks import pack_rows
 from .relayout import chunked_to_rowmajor, rowmajor_to_chunked
@@ -17,11 +17,14 @@ __all__ = ["merge_blocks_device", "split_merged", "pack_rows",
 #: every kernel's launch counter, by kernel name: its wrapper, or for the
 #: flash kernels one per route (``flash_attention``, ``flash_attention_dq``
 #: and ``flash_attention_dkv`` count the sm90 kernels, the ``_simt`` names
-#: the f32 CUDA-core ones)
+#: the f32 CUDA-core ones); ``flash_attention_d256`` counts the sm90
+#: forward's head_dim-256 kernel alone, whose launches
+#: ``flash_attention`` counts too
 WRAPPERS = {"pack_rows": pack_rows,
             "chunked_to_rowmajor": chunked_to_rowmajor,
             "rowmajor_to_chunked": rowmajor_to_chunked,
             "flash_attention": flash_attention,
+            "flash_attention_d256": sm90_d256,
             "flash_attention_simt": simt_forward,
             "flash_attention_dq": flash_attention_dq,
             "flash_attention_dq_simt": simt_dq,

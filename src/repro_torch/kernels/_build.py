@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 
+_FLASH_FWD_SM90 = (_P,) * 5 + (_LL,) * 15 + (_I, _I, _LL, _I, _F, _F, _P)
 _FLASH_BWD = (_LL,) * 18 + (_I, _I, _I, _LL, _I, _F, _F, _P)
 _FLASH_BWD_SM90 = (_LL,) * 18 + (_I, _I, _LL, _I, _F, _F, _P)
 
@@ -44,8 +45,8 @@ SOURCES = {
     "relayout": {"repro_relayout": (_P, _P, _LL, _LL, _LL, _LL, _I, _P)},
     "flash_fwd": {"repro_flash_fwd": (_P,) * 5 + (_LL,) * 15
                   + (_I, _I, _I, _LL, _I, _F, _F, _P)},
-    "flash_fwd_sm90": {"repro_flash_fwd_sm90": (_P,) * 5 + (_LL,) * 15
-                       + (_I, _I, _LL, _I, _F, _F, _P)},
+    "flash_fwd_sm90": {"repro_flash_fwd_sm90": _FLASH_FWD_SM90},
+    "flash_fwd_sm90_d256": {"repro_flash_fwd_sm90_d256": _FLASH_FWD_SM90},
     "flash_bwd": {"repro_flash_dq": (_P,) * 7 + _FLASH_BWD,
                   "repro_flash_dkv": (_P,) * 8 + _FLASH_BWD},
     "flash_bwd_sm90": {"repro_flash_dq_sm90": (_P,) * 7 + _FLASH_BWD_SM90,
@@ -80,8 +81,9 @@ def _digest() -> str:
 def build_all() -> dict:
     """Build every missing library, all ``nvcc`` processes started together.
 
-    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0.0 and
-    ``log`` empty for a library that was already built.  Raises with the
+    Returns ``{name: {"path", "seconds", "log"}}``: ``log`` is the
+    compiler's output (``ptxas -v``'s report), kept beside the library, and
+    ``seconds`` 0.0 for a library that was already built.  Raises with the
     compiler's output if any build fails.
     """
     out_dir = BUILD_ROOT / _digest()
@@ -93,6 +95,8 @@ def build_all() -> dict:
         lib = out_dir / f"lib{name}.so"
         info[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
         if lib.exists():
+            saved = out_dir / f"lib{name}.log"
+            info[name]["log"] = saved.read_text() if saved.exists() else ""
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

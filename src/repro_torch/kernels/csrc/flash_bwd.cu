@@ -43,13 +43,16 @@
 // memory peaks at 174,592 bytes (dkv, DP 128), opted in above 48 KB.
 // Tiles wholly above the causal diagonal are skipped (each holds only
 // P = 0, dS = 0: a row whose live keys are all masked has no in-range key
-// above its diagonal), heaviest tiles first.  Ragged edges: rows and
-// columns past Lq or Lk are computed on zeros, get P = 0 and dS = 0, and
-// are not stored.  exp/tanh are the accurate expf/tanhf (no fast math).
+// above its diagonal), heaviest tiles first, on the (batch*head, tile) grid
+// of flash_grid.cuh, which holds neither extent to a grid limit.  Ragged
+// edges: rows and columns past Lq or Lk are computed on zeros, get P = 0
+// and dS = 0, and are not stored.  exp/tanh are the accurate expf/tanhf
+// (no fast math).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_grid.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -172,8 +175,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
   float* dSs = Vs + BT * LDB;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long iq = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const long long bh = blockIdx.y;
+  const long long bh = blockIdx.x;
+  const int n_qt = static_cast<int>((p.Lq + BT - 1) / BT);
+  if (flash::grid_tile() >= n_qt) return;  // past the last q tile
+  const long long iq = n_qt - 1 - flash::grid_tile();  // heaviest first
   const long long b = bh / p.Hq, h = bh % p.Hq;
   const long long kvh = h / (p.Hq / p.Hkv);
   const long long q0 = iq * BT;
@@ -278,8 +283,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
   __shared__ float lse_s[BT], delta_s[BT];
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long ik = blockIdx.x;  // causal: low k tiles see the most q
-  const long long bh = blockIdx.y;
+  const long long bh = blockIdx.x;
+  const long long ik = flash::grid_tile();  // causal: low ones see most q
+  if (ik * BT >= p.Lk) return;  // past the last k tile
   const long long b = bh / p.Hq, h = bh % p.Hq;
   const long long kvh = h / (p.Hq / p.Hkv);
   const long long k0 = ik * BT;
@@ -387,9 +393,8 @@ cudaError_t launch(Kernel kernel, int staged, int NJ, long long rows,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int bt = tile_rows(NJ);
-  const dim3 grid(static_cast<unsigned>((rows + bt - 1) / bt),
-                  static_cast<unsigned>(bh));
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<flash::tile_grid(bh, (rows + bt - 1) / bt), kThreads, smem,
+           stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -426,8 +431,8 @@ int run(bool dq, Params& p, long long B, int is_bf16, void* stream) {
 // element strides (D contiguous, rows 16-byte aligned), one dtype; lse and
 // delta: (B, Hq, Lq) f32 contiguous.  dq: (B, Hq, Lq, D) contiguous in the
 // input dtype.  dk, dv: (B, Hq, Lk, D) f32 contiguous, one slice per
-// q-head.  head_dim a multiple of 8 up to 256, Hq a multiple of Hkv,
-// B*Hq < 65536: the Python wrapper checks all of it.
+// q-head.  head_dim a multiple of 8 up to 256, Hq a multiple of Hkv: the
+// Python wrapper checks all of it.
 #define REPRO_FLASH_BWD_ARGS                                                  \
   const void *q, const void *k, const void *v, const void *dout,             \
       const void *lse, const void *delta

@@ -41,8 +41,8 @@
 // swizzle, 64-column boxes, zero fill past Lq, Lk and D) keep a CTA's own
 // 128-row tile resident and stream 64-row tiles of the other side through a
 // ring of kStages stages, each guarded by a full and an empty mbarrier.
-// The grid is (batch*head, tile) with the heaviest causal tiles first in
-// launch order.
+// The grid is flash_grid.cuh's (batch*head, tile), with the heaviest causal
+// tiles first in launch order.
 //   dkv:  a 128-row k tile; K and V resident; Q and dO tiles stream, with
 //         their LSE and delta rows written into the stage by the producer
 //         warp's lanes.  Each consumer warpgroup owns 64 k rows and, per q
@@ -77,6 +77,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_grid.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
@@ -170,7 +171,10 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   float* rows = reinterpret_cast<float*>(smem_raw + (sRows - base));
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBT;  // low k tiles see the most q rows
+  // past the last k tile
+  if (static_cast<long long>(flash::grid_tile()) * kBT >= p.Lk) return;
+  // low k tiles see the most q rows
+  const int k0 = flash::grid_tile() * kBT;
   const int b = bh / p.Hq, h = bh % p.Hq;
   const int kvh = h / (p.Hq / p.Hkv);
   const bool skip = skip_above_diagonal(p);
@@ -383,7 +387,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t empty = full + 8 * kStages;   // + 8 * stage
 
   const int bh = blockIdx.x;
-  const int iq = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
+  const int n_qt = (p.Lq + kBT - 1) / kBT;
+  if (flash::grid_tile() >= n_qt) return;  // past the last q tile
+  const int iq = n_qt - 1 - flash::grid_tile();
   const int b = bh / p.Hq, h = bh % p.Hq;
   const int kvh = h / (p.Hq / p.Hkv);
   const int q0 = iq * kBT;
@@ -549,9 +555,8 @@ cudaError_t launch(Kernel kernel, int threads, int smem, long long rows,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(bh),
-                  static_cast<unsigned>((rows + kBT - 1) / kBT));
-  kernel<<<grid, threads, smem, stream>>>(m.q, m.k, m.v, m.dout, p);
+  kernel<<<flash::tile_grid(bh, (rows + kBT - 1) / kBT), threads, smem,
+           stream>>>(m.q, m.k, m.v, m.dout, p);
   return cudaGetLastError();
 }
 
@@ -623,8 +628,7 @@ Params make_params(const void* lse, const void* delta, void* dq, void* dk,
 // 16-byte aligned, as TMA needs); lse and delta: (B, Hq, Lq) f32
 // contiguous.  dq: (B, Hq, Lq, D) contiguous bf16.  dk, dv: (B, Hq, Lk, D)
 // f32 contiguous, one slice per q-head.  head_dim a multiple of 8 up to
-// 128, Hq a multiple of Hkv, B*Hq < 65536: the Python wrapper checks all
-// of it.
+// 128, Hq a multiple of Hkv: the Python wrapper checks all of it.
 #define REPRO_FLASH_BWD_SM90_SHAPE                                            \
   long long B, long long Hq, long long Hkv, long long Lq, long long Lk,      \
       long long D, long long q_sb, long long q_sh, long long q_sl,           \

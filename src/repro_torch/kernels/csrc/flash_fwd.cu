@@ -2,11 +2,11 @@
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // src/repro/kernels/flash_attention.py (launched by `_fwd`), the prefill
-// attention of every layer on the flash route, for the cases that
-// flash_fwd_sm90.cu (bf16 with head_dim up to 128, on the tensor cores)
-// does not take: f32 inputs, whose tolerance bf16 tensor cores cannot
-// meet, and head dims above 128 (gemma2-2b's 256), in either dtype.  The
-// wrapper picks the route by dtype and head dim.  Same function: f32
+// attention of every layer on the flash route, for f32 inputs, whose
+// tolerance bf16 tensor cores cannot meet; bf16 runs on the tensor cores
+// (flash_fwd_sm90.cu, flash_fwd_sm90_d256.cu), or here when the caller
+// names this route (a timing comparison).  The wrapper picks the route by
+// dtype and head dim.  Same function: f32
 // accumulation; scale, then softcap c*tanh(s/c); mask qpos >= kpos when
 // causal and (qpos - kpos) < window whenever a window is set (one-sided,
 // even when non-causal); masked scores are the finite -1e30 of the
@@ -32,16 +32,19 @@
 // the K tile's space (dead by then; sized to hold either).  K rows are
 // padded by 4 floats so a quarter-warp's float4 reads of eight K rows hit
 // distinct banks.  Tiles wholly above the causal diagonal are skipped; the
-// heaviest q tiles are scheduled first.  Ragged edges are masked: q rows
-// past Lq are computed on zeros and not stored; k columns past Lk score
-// -inf, so they add exactly nothing (the running max starts at -1e30 and
-// stays finite).  Shared memory is 197,632 bytes at head_dim 256, which
-// needs the opt-in above 48 KB (cudaFuncAttributeMaxDynamicSharedMemorySize).
+// heaviest q tiles are scheduled first, on the (batch*head, q tile) grid of
+// flash_grid.cuh, which holds neither extent to a grid limit.  Ragged
+// edges are masked: q rows past Lq are computed on zeros and not stored;
+// k columns past Lk score -inf, so they add exactly nothing (the running
+// max starts at -1e30 and stays finite).  Shared memory is 197,632 bytes
+// at head_dim 256, which needs the opt-in above 48 KB
+// (cudaFuncAttributeMaxDynamicSharedMemorySize).
 // exp/tanh/log are the accurate expf/tanhf/logf (no fast math).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_grid.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -91,8 +94,10 @@ __global__ void __launch_bounds__(kThreads)
   float* Vs = Qs + smem_floats(DP) - kBK * LDV;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long iq = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const long long bh = blockIdx.y;
+  const long long bh = blockIdx.x;
+  const int n_qt = static_cast<int>((p.Lq + kBQ - 1) / kBQ);
+  if (flash::grid_tile() >= n_qt) return;  // past the last q tile
+  const long long iq = n_qt - 1 - flash::grid_tile();  // heaviest first
   const long long b = bh / p.Hq, h = bh % p.Hq;
   const long long kvh = h / (p.Hq / p.Hkv);
   const long long q0 = iq * kBQ;
@@ -236,9 +241,8 @@ cudaError_t launch(const Params& p, long long bh, cudaStream_t stream) {
       flash_fwd_kernel<NJ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((p.Lq + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(bh));
-  flash_fwd_kernel<NJ, T><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<NJ, T><<<flash::tile_grid(bh, (p.Lq + kBQ - 1) / kBQ),
+                            kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -262,7 +266,7 @@ cudaError_t dispatch(const Params& p, long long bh, cudaStream_t st) {
 // q: (B, Hq, Lq, D), k/v: (B, Hkv, Lk, D) with the given element strides
 // (D contiguous; rows 16-byte aligned); o: (B, Hq, Lq, D) contiguous in the
 // input dtype; lse: (B, Hq, Lq) f32.  head_dim a multiple of 8 up to 256,
-// Hq a multiple of Hkv, B*Hq < 65536: the Python wrapper checks all of it.
+// Hq a multiple of Hkv: the Python wrapper checks all of it.
 extern "C" int repro_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long B, long long Hq, long long Hkv, long long Lq, long long Lk,

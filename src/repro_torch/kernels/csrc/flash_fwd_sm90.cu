@@ -4,13 +4,14 @@
 // Replaces the Pallas kernel `_fwd_kernel` of
 // src/repro/kernels/flash_attention.py:39 (launched by `_fwd`), the prefill
 // attention of every layer on the flash route, for bf16 q, k, v with head_dim
-// padded to 16, 32, 64, 80 or 128; flash_fwd.cu keeps f32 inputs and wider
-// heads.  Same function as flash_fwd.cu: scale, then softcap c*tanh(s/c);
-// mask qpos >= kpos when causal and (qpos - kpos) < window whenever a window
-// is set (one-sided, even when non-causal); masked scores are the finite
-// -1e30 of the reference, columns past Lk are -inf; O in bf16, rounded once
-// from f32; LSE = m + log(max(l, 1e-30)) in f32; GQA q-head h of batch b
-// reads kv-head h / (Hq / Hkv).  Exponentials are exp2f((s - m) * log2(e)),
+// padded to 16, 32, 64, 80 or 128; flash_fwd_sm90_d256.cu takes wider bf16
+// heads and flash_fwd.cu f32 inputs.  Same function as flash_fwd.cu:
+// scale, then softcap c*tanh(s/c); mask qpos >= kpos when causal and
+// (qpos - kpos) < window whenever a window is set (one-sided, even when
+// non-causal); masked scores are the finite -1e30 of the reference,
+// columns past Lk are -inf; O in bf16, rounded once from f32;
+// LSE = m + log(max(l, 1e-30)) in f32; GQA q-head h of batch b reads
+// kv-head h / (Hq / Hkv).  Exponentials are exp2f((s - m) * log2(e)),
 // logf for the LSE (the backward recomputes P from it).
 //
 // Bound on this card: operations.  At the serving shape a live (q, k) pair
@@ -19,13 +20,14 @@
 // the bf16 tensor cores' 989 TFLOP/s set the bound.  The split of P below
 // makes this kernel's own work 6*D flops a pair.
 //
-// Design.  One CTA of 288 threads per (batch*head, 128-row q tile), heaviest
-// causal tiles first: two consumer warpgroups of 64 q rows each and one
-// producer warp.  The producer's first lane loads the Q tile once and then
-// K and V tiles of 64 rows through a ring of kStages stages with TMA (4-D
-// tensor maps over the strided (B, H, L, D) views, so the model's
-// transposed projections are read in place; 128-byte swizzle, 64-column
-// boxes; TMA's zero fill pads ragged Lq, Lk and head dims such as 80 -> 128),
+// Design.  One CTA of 288 threads per (batch*head, 128-row q tile), on
+// flash_grid.cuh's (batch*head, q tile) grid, heaviest causal tiles first:
+// two consumer warpgroups of 64 q rows each and one producer warp.  The
+// producer's first lane loads the Q tile once and then K and V tiles of 64
+// rows through a ring of kStages stages with TMA (4-D tensor maps over the
+// strided (B, H, L, D) views, so the model's transposed projections are
+// read in place; 128-byte swizzle, 64-column boxes; TMA's zero fill pads
+// ragged Lq, Lk and head dims such as 80 -> 128),
 // each stage guarded by a full and an empty mbarrier.  Tiles wholly above
 // the causal diagonal are never loaded.  Each consumer warpgroup, per tile:
 //   S = Q.K^T      wgmma m64n64k16, both operands K-major in shared memory,
@@ -49,6 +51,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_grid.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
@@ -97,8 +100,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full = q_full + 8;              // + 8 * stage
   const uint32_t empty = full + 8 * kStages;     // + 8 * stage
 
-  const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int n_qt = (p.Lq + kBM - 1) / kBM;
+  if (flash::grid_tile() >= n_qt) return;  // past the last q tile
+  const int iq = n_qt - 1 - flash::grid_tile();
   const int b = bh / p.Hq, h = bh % p.Hq;
   const int kvh = h / (p.Hq / p.Hkv);
   const int q0 = iq * kBM;
@@ -271,9 +276,8 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
       flash_fwd_sm90_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((p.Lq + kBM - 1) / kBM),
-                  static_cast<unsigned>(bh));
-  flash_fwd_sm90_kernel<DP><<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
+  flash_fwd_sm90_kernel<DP><<<flash::tile_grid(bh, (p.Lq + kBM - 1) / kBM),
+                              kThreads, smem, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
 
@@ -282,8 +286,8 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
 // q: (B, Hq, Lq, D), k/v: (B, Hkv, Lk, D) bf16 with the given element
 // strides (D contiguous; strides multiples of 8 and the bases 16-byte
 // aligned, as TMA needs); o: (B, Hq, Lq, D) contiguous bf16; lse: (B, Hq,
-// Lq) f32.  head_dim a multiple of 8 up to 128, Hq a multiple of Hkv,
-// B*Hq < 65536: the Python wrapper checks all of it.
+// Lq) f32.  head_dim a multiple of 8 up to 128, Hq a multiple of Hkv: the
+// Python wrapper checks all of it.
 extern "C" int repro_flash_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long B, long long Hq, long long Hkv, long long Lq, long long Lk,

@@ -1,7 +1,8 @@
 // Hopper building blocks of the sm_90a flash-attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, 4-D TMA tile loads and
-// their tensor maps, wgmma shared-memory descriptors and products, and the
-// split of an f32 tile (P, dS) into two bf16 halves.
+// (flash_fwd_sm90.cu, flash_fwd_sm90_d256.cu, flash_bwd_sm90.cu):
+// mbarriers, 4-D TMA tile loads and their tensor maps, wgmma shared-memory
+// descriptors and products, and the split of an f32 tile (P, dS) into two
+// bf16 halves.
 //
 // Tiles in shared memory are 64 bf16 columns (128 bytes) wide, in TMA's
 // 128-byte swizzle, one 1024-byte-aligned box per 64 columns: the canonical
@@ -112,13 +113,13 @@ inline EncodeTiled tensor_map_encoder() {
 }
 
 // A 4-D map (D, L, H, B) over a bf16 (B, H, L, D) tensor with element
-// strides sb, sh, sl (D contiguous), boxes of 64 columns x 64 rows of one
-// (batch, head), in 128-byte swizzle.  Returns false if the encoding is
+// strides sb, sh, sl (D contiguous), boxes of 64 columns x `rows` rows of
+// one (batch, head), in 128-byte swizzle.  Returns false if the encoding is
 // refused (strides must be multiples of 16 bytes, the base 16-byte
 // aligned).
 inline bool make_tile_map(CUtensorMap* map, const void* base, long long B,
                           long long H, long long L, long long D, long long sb,
-                          long long sh, long long sl) {
+                          long long sh, long long sl, unsigned rows = 64) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -128,7 +129,7 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, long long B,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t box[4] = {64, rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,

@@ -4,15 +4,16 @@ backward, each a hand-written CUDA kernel.
 The forward replaces the JAX package's Pallas ``_fwd_kernel``: it keeps
 each score tile on chip with a running row max and sum, so attention's
 device-memory traffic is Q, K, V and O only.  It has two routes, picked by
-dtype and head dim (``_forward_route``): bf16 with head_dim up to 128 runs
-``csrc/flash_fwd_sm90.cu`` (wgmma and TMA on Hopper's tensor cores); f32,
-and head dims above 128, run ``csrc/flash_fwd.cu`` (f32 on the CUDA cores).
-The backward kernels replace ``_dq_kernel`` and ``_dkv_kernel``: they
-recompute P from the forward's LSE, dQ over k tiles and per-q-head dK, dV
-over q tiles; the GQA group sum follows in f32, as the reference's custom
-vjp does.  They take routes by the forward's rule (``_backward_route``):
-``csrc/flash_bwd_sm90.cu`` (wgmma and TMA) for bf16 with head_dim up to
-128, ``csrc/flash_bwd.cu`` (f32 on the CUDA cores) otherwise.
+dtype and head dim (``_forward_route``): bf16 runs the ``"sm90"`` route
+(wgmma and TMA on Hopper's tensor cores), ``csrc/flash_fwd_sm90.cu`` for
+head_dim up to 128 and ``csrc/flash_fwd_sm90_d256.cu`` above; f32 runs
+``csrc/flash_fwd.cu`` (f32 on the CUDA cores).  The backward kernels
+replace ``_dq_kernel`` and ``_dkv_kernel``: they recompute P from the
+forward's LSE, dQ over k tiles and per-q-head dK, dV over q tiles; the GQA
+group sum follows in f32, as the reference's custom vjp does.  Their routes
+(``_backward_route``): ``csrc/flash_bwd_sm90.cu`` (wgmma and TMA) for bf16
+with head_dim up to 128, ``csrc/flash_bwd.cu`` (f32 on the CUDA cores) for
+f32 and for wider heads.
 ``flash_attention`` is differentiable through a
 ``torch.autograd.Function`` over the three.  Causal and
 one-sided sliding-window masks, a logit softcap and GQA, as the
@@ -37,11 +38,17 @@ __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_dq",
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
-#: the widest head the sm90 forward takes (its O accumulator's registers)
-_SM90_MAX_HEAD_DIM = 128
-#: forward route -> (library, C entry point)
+#: the widest heads the sm90 forward and backward take
+_SM90_FWD_MAX_HEAD_DIM = 256
+_SM90_BWD_MAX_HEAD_DIM = 128
+#: the widest head of the sm90 forward's first kernel; wider ones up to 256
+#: run its second (``csrc/flash_fwd_sm90_d256.cu``)
+_SM90_NARROW_HEAD_DIM = 128
+#: forward route -> (library, C entry point); the sm90 route's wide heads
+#: take ``_FORWARD_SM90_D256``
 _FORWARD = {"sm90": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
             "simt": ("flash_fwd", "repro_flash_fwd")}
+_FORWARD_SM90_D256 = ("flash_fwd_sm90_d256", "repro_flash_fwd_sm90_d256")
 #: backward route -> (library, {kernel: C entry point})
 _BACKWARD = {"sm90": ("flash_bwd_sm90", {"dq": "repro_flash_dq_sm90",
                                          "dkv": "repro_flash_dkv_sm90"}),
@@ -51,21 +58,23 @@ _BACKWARD = {"sm90": ("flash_bwd_sm90", {"dq": "repro_flash_dq_sm90",
 
 def _forward_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel for inputs of ``dtype`` and ``head_dim``:
-    ``"sm90"`` (``csrc/flash_fwd_sm90.cu``) for bf16 with head_dim padded
-    to 16, 32, 64, 80 or 128; ``"simt"`` (``csrc/flash_fwd.cu``) for f32,
-    whose tolerance bf16 tensor cores cannot meet, and for wider heads."""
-    if dtype == torch.bfloat16 and head_dim <= _SM90_MAX_HEAD_DIM:
+    ``"sm90"`` for bf16 with head_dim up to 256 (``csrc/flash_fwd_sm90.cu``
+    with it padded to 16, 32, 64, 80 or 128; ``csrc/flash_fwd_sm90_d256.cu``
+    above, padded to 256); ``"simt"`` (``csrc/flash_fwd.cu``) for f32,
+    whose tolerance bf16 tensor cores cannot meet."""
+    if dtype == torch.bfloat16 and head_dim <= _SM90_FWD_MAX_HEAD_DIM:
         return "sm90"
     return "simt"
 
 
 def _backward_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels for inputs of ``dtype`` and ``head_dim``, by
-    the forward's rule: ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16
-    with head_dim up to 128; ``"simt"`` (``csrc/flash_bwd.cu``) for f32,
-    whose gradient tolerance bf16 tensor cores cannot meet, and for wider
-    heads."""
-    return _forward_route(dtype, head_dim)
+    """The backward kernels for inputs of ``dtype`` and ``head_dim``:
+    ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16 with head_dim up to
+    128; ``"simt"`` (``csrc/flash_bwd.cu``) for f32, whose gradient
+    tolerance bf16 tensor cores cannot meet, and for wider heads."""
+    if dtype == torch.bfloat16 and head_dim <= _SM90_BWD_MAX_HEAD_DIM:
+        return "sm90"
+    return "simt"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -218,12 +227,6 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _check_grid(q) -> None:
-    if q.shape[0] * q.shape[1] >= 65536:
-        raise ValueError(f"B*Hq = {q.shape[0] * q.shape[1]}: the grid's y "
-                         f"extent is 65535")
-
-
 def _mask_args(causal, window, softcap) -> tuple:
     return (int(causal), int(window is not None),
             0 if window is None else int(window), int(softcap is not None),
@@ -233,20 +236,21 @@ def _mask_args(causal, window, softcap) -> tuple:
 def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
     """Launch a forward kernel on checked CUDA tensors, on the current
     stream: ``route`` names it (``"sm90"`` or ``"simt"``), by default
-    ``_forward_route``'s.  Counts the launch on that route's counter."""
+    ``_forward_route``'s.  Counts the launch on that route's counter, and
+    a launch of the sm90 route's wide-head kernel on ``sm90_d256`` too."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     route = route or _forward_route(q.dtype, D)
     if route == "sm90" and _forward_route(q.dtype, D) != "sm90":
         raise ValueError(f"the sm90 forward takes bf16 with head_dim up to "
-                         f"{_SM90_MAX_HEAD_DIM}; got {q.dtype}, {D}")
-    _check_grid(q)
+                         f"{_SM90_FWD_MAX_HEAD_DIM}; got {q.dtype}, {D}")
+    wide = route == "sm90" and D > _SM90_NARROW_HEAD_DIM
     q, k, v = (_kernel_view(x) for x in (q, k, v))
     o = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Lq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    name, entry = _FORWARD[route]
+    name, entry = _FORWARD_SM90_D256 if wide else _FORWARD[route]
     lib = _build.load(name)
     # the sm90 kernel takes bf16 only; the CUDA-core one is told the dtype
     dtype_flag = () if route == "sm90" else (int(q.dtype == torch.bfloat16),)
@@ -257,8 +261,9 @@ def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
             lse.data_ptr(), B, Hq, Hkv, Lq, Lk, D, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
-    _build.check(lib, code, f"flash_attention ({route})")
+    _build.check(lib, code, f"flash_attention ({name})")
     _ROUTE_COUNTERS[route].launches += 1
+    sm90_d256.launches += wide
     return o, lse
 
 
@@ -272,8 +277,7 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
     route = route or _backward_route(q.dtype, D)
     if route == "sm90" and _backward_route(q.dtype, D) != "sm90":
         raise ValueError(f"the sm90 backward takes bf16 with head_dim up to "
-                         f"{_SM90_MAX_HEAD_DIM}; got {q.dtype}, {D}")
-    _check_grid(q)
+                         f"{_SM90_BWD_MAX_HEAD_DIM}; got {q.dtype}, {D}")
     if outs[0].numel() == 0:
         return
     q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
@@ -297,8 +301,11 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
 
 #: kernel launches since the last reset (CPU calls never count); each
 #: wrapper's are its ``"sm90"`` route's, and ``simt_forward``'s,
-#: ``simt_dq``'s and ``simt_dkv``'s the ``"simt"`` route's
+#: ``simt_dq``'s and ``simt_dkv``'s the ``"simt"`` route's; ``sm90_d256``
+#: counts the sm90 forward's wide-head kernel alone (its launches are on
+#: ``flash_attention``'s count too)
 flash_attention.launches = 0
+sm90_d256 = SimpleNamespace(launches=0)
 simt_forward = SimpleNamespace(launches=0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0

@@ -34,12 +34,15 @@ MASKS = [(True, None, None), (False, None, None), (True, 48, None),
          (True, None, 30.0), (False, 48, 30.0)]
 
 
-def _route_launches(fn):
-    """``fn()`` and the forward's launches on each route during it."""
+def _route_launches(fn, wide=False):
+    """``fn()`` and the forward's launches on each route during it; with
+    ``wide``, also the launches of the sm90 route's head_dim-256 kernel
+    (``"d256"``)."""
     before = K.launch_counts()
     out = fn()
     after = K.launch_counts()
-    return out, {r: after[n] - before[n] for r, n in ROUTES.items()}
+    names = {**ROUTES, "d256": "flash_attention_d256"} if wide else ROUTES
+    return out, {r: after[n] - before[n] for r, n in names.items()}
 
 
 def _bwd_route_launches(fn):
@@ -134,17 +137,20 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
     result: rtol 2^-7, atol 1e-5); LSE within 1e-4.  Lengths that are not
     multiples of the kernel's 64-row tiles, GQA groups of 4, a head dim
     (48) that runs zero-padded, and q, k of std sqrt(2), so the scores
-    have std 2 and the online softmax rescales across k tiles."""
+    have std 2 and the online softmax rescales across k tiles.  bf16 runs
+    the sm90 route (above head_dim 128 its head_dim-256 kernel), f32 the
+    CUDA-core one."""
     gen = torch.Generator(device=cuda).manual_seed(D)
     B, Hq, Hkv, L = 2, 8, 2, 150
     q, k, v = (std * torch.randn((B, h, L, D), generator=gen, device=cuda)
                for std, h in ((2 ** 0.5, Hq), (2 ** 0.5, Hkv), (0.5, Hkv)))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     (o, lse), ran = _route_launches(lambda: K.flash_attention(
-        q, k, v, None, causal, window, softcap, return_lse=True))
+        q, k, v, None, causal, window, softcap, return_lse=True), wide=True)
     torch.cuda.synchronize()
-    route = "sm90" if dtype == torch.bfloat16 and D <= 128 else "simt"
-    assert ran == {r: int(r == route) for r in ROUTES}
+    bf16 = dtype == torch.bfloat16
+    assert ran == {"sm90": int(bf16), "simt": int(not bf16),
+                   "d256": int(bf16 and D > 128)}
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == dtype and lse.dtype == torch.float32
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
@@ -153,15 +159,16 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 136, 200, 256])
 @pytest.mark.parametrize("causal,window,softcap", MASKS)
 def test_flash_sm90_kernel_matches_plain(cuda, D, causal, window, softcap):
-    """The sm90 forward (bf16, every width it is built for, the five
-    masks) against the plain version: O within one bf16 step (rtol 2^-7,
-    atol 1e-5), LSE within 1e-4.  Ragged Lq 150 and Lk 100 (neither a
-    multiple of its 128-row q or 64-row k tiles), GQA groups of 4, q, k
-    as (B, H, L, D) views of (B, L, H, D) tensors, read in place; each
-    call counted once on the sm90 route."""
+    """The sm90 forward (bf16, every width its two kernels are built for,
+    and 136 and 200 padded to 256, the five masks) against the plain
+    version: O within one bf16 step (rtol 2^-7, atol 1e-5), LSE within
+    1e-4.  Ragged Lq 150 and Lk 100 (neither a multiple of its 128-row q
+    or 64-row k tiles), GQA groups of 4, q, k as (B, H, L, D) views of
+    (B, L, H, D) tensors, read in place; each call counted once on the
+    sm90 route, and above head_dim 128 once on its head_dim-256 kernel."""
     gen = torch.Generator(device=cuda).manual_seed(D + 2)
     B, Hq, Hkv, L, Lk = 2, 8, 2, 150, 100
     q, k, v = ((std * torch.randn((B, n, h, D), generator=gen, device=cuda))
@@ -169,9 +176,9 @@ def test_flash_sm90_kernel_matches_plain(cuda, D, causal, window, softcap):
                for std, h, n in ((2 ** 0.5, Hq, L), (2 ** 0.5, Hkv, Lk),
                                  (0.5, Hkv, Lk)))
     (o, lse), ran = _route_launches(lambda: K.flash_attention(
-        q, k, v, None, causal, window, softcap, return_lse=True))
+        q, k, v, None, causal, window, softcap, return_lse=True), wide=True)
     torch.cuda.synchronize()
-    assert ran == {"sm90": 1, "simt": 0}
+    assert ran == {"sm90": 1, "simt": 0, "d256": int(D > 128)}
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == torch.bfloat16 and o.shape == (B, Hq, L, D)
     torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
@@ -310,6 +317,137 @@ def test_flash_attention_grads_on_the_card(cuda):
                                                    )[0], (q, k, v), do)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
+
+
+def test_bf16_d256_gradients_run_the_cuda_core_backward(cuda):
+    """bf16 at head_dim 256 (gemma2-2b's width): the forward runs the sm90
+    route's head_dim-256 kernel, the backward the CUDA-core dq and dkv
+    (``_backward_route``), and the gradients match the plain backward on
+    the same O and LSE: dQ, dK, dV each rounded once to bf16 in both
+    (rtol 2^-7, atol 1e-4)."""
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    q, k, v = ((std * torch.randn((2, 130, h, 256), generator=gen,
+                                  device=cuda)).bfloat16().transpose(1, 2)
+               .requires_grad_()
+               for std, h in ((2 ** 0.5, 8), (2 ** 0.5, 4), (0.5, 4)))
+    do = (0.5 * torch.randn((2, 8, 130, 256), generator=gen,
+                            device=cuda)).bfloat16()
+    before = K.launch_counts()
+    o, lse = K.flash_attention(q, k, v, None, True, 4096, 50.0,
+                               return_lse=True)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    after = K.launch_counts()
+    ran = {n: after[n] - before[n] for n in after if n.startswith("flash")}
+    assert ran == {"flash_attention": 1, "flash_attention_d256": 1,
+                   "flash_attention_simt": 0, "flash_attention_dq": 0,
+                   "flash_attention_dkv": 0, "flash_attention_dq_simt": 1,
+                   "flash_attention_dkv_simt": 1}
+    want = FA.flash_attention_bwd(*(x.detach().cpu() for x in (q, k, v, o,
+                                                              lse, do)),
+                                  256 ** -0.5, True, 4096, 50.0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float().cpu(), w.float(),
+                                   rtol=2 ** -7, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 16),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 16)],
+                         ids=["sm90", "sm90_d256", "simt"])
+def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
+    """B*Hq = 65536, one past a grid's y extent: q (4096, 16, 8, D), k and
+    v (4096, 2, 8, D), causal.  The forward (sm90 route for bf16, at D 16
+    and on its head_dim-256 kernel; CUDA-core for f32) and the backward
+    (sm90 for bf16 D 16, CUDA-core otherwise) against their plain
+    versions within the tolerances of the tests above."""
+    gen = torch.Generator(device=cuda).manual_seed(65536 + D)
+    q, k, v, do = ((std * torch.randn(shape, generator=gen, device=cuda))
+                   .to(dtype) for std, shape in (
+                       (2 ** 0.5, (4096, 16, 8, D)),
+                       (2 ** 0.5, (4096, 2, 8, D)), (0.5, (4096, 2, 8, D)),
+                       (0.5, (4096, 16, 8, D))))
+    bf16 = dtype == torch.bfloat16
+    (o, lse), ran = _route_launches(lambda: K.flash_attention(
+        q, k, v, return_lse=True), wide=True)
+    assert ran == {"sm90": int(bf16), "simt": int(not bf16),
+                   "d256": int(D > 128)}
+    ro, rlse = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(o.float(), ro.float(),
+                               **(dict(rtol=2 ** -7, atol=1e-5) if bf16
+                                  else dict(rtol=1e-4, atol=1e-5)))
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    scale = D ** -0.5
+    delta = (do.float() * ro.float()).sum(-1)
+    args = (q, k, v, do, rlse, delta, scale, True, None, None)
+    (dq, (dk, dv)), ran = _bwd_route_launches(
+        lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
+    route = FA._backward_route(dtype, D)
+    assert ran == {r: (int(r == route),) * 2 for r in BWD_ROUTES}
+    f32 = dict(rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(
+        dq.float(), flash_attention_dq_ref(*args).float(),
+        **(dict(rtol=2 ** -7, atol=1e-4) if bf16 else f32))
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    torch.testing.assert_close(dk, rdk, **f32)
+    torch.testing.assert_close(dv, rdv, **f32)
+
+
+@pytest.mark.parametrize("dtype,D,long_q,long_k",
+                         [(torch.bfloat16, 16, (1 << 23) + 100, 1 << 23),
+                          (torch.bfloat16, 256, (1 << 23) + 100, 1 << 21),
+                          (torch.float32, 16, (1 << 22) + 100, 1 << 22)],
+                         ids=["sm90", "sm90_d256", "simt"])
+def test_flash_kernels_fold_long_sequences_into_grid_z(cuda, dtype, D,
+                                                       long_q, long_k):
+    """More tiles than a grid's y extent (65,535) holds: each kernel's
+    tile rows times 65,536 or more.  A long Lq for the forward and dQ
+    (sm90 and head_dim-256 tiles of 128 rows, CUDA-core ones of 64), a
+    long Lk for dK, dV (128, 64, or 32 at D 256), against 16 keys or
+    queries, non-causal.  Each output row depends on its own row and the
+    short side alone, so the plain versions check the first and last 256
+    rows, the last ones in grid z's second slice, within the tolerances
+    of the tests above."""
+    gen = torch.Generator(device=cuda).manual_seed(D + long_q)
+    bf16 = dtype == torch.bfloat16
+    o_tol = dict(rtol=2 ** -7, atol=1e-5) if bf16 else \
+        dict(rtol=1e-4, atol=1e-5)
+    dq_tol = dict(rtol=2 ** -7, atol=1e-4) if bf16 else \
+        dict(rtol=1e-3, atol=1e-4)
+    rows = torch.cat([torch.arange(256), torch.arange(long_q - 256, long_q)]
+                     ).to(cuda)
+
+    def draw(L, std):
+        return (std * torch.randn((1, 1, L, D), generator=gen,
+                                  device=cuda)).to(dtype)
+
+    q, do = draw(long_q, 2 ** 0.5), draw(long_q, 0.5)
+    k, v = draw(16, 2 ** 0.5), draw(16, 0.5)
+    o, lse = K.flash_attention(q, k, v, None, False, return_lse=True)
+    ro, rlse = flash_attention_ref(q[:, :, rows], k, v, None, False)
+    torch.testing.assert_close(o[:, :, rows].float(), ro.float(), **o_tol)
+    torch.testing.assert_close(lse[:, :, rows], rlse, rtol=1e-4, atol=1e-4)
+    scale = D ** -0.5
+    delta = (do.float() * o.float()).sum(-1)
+    dq = K.flash_attention_dq(q, k, v, do, lse, delta, scale, False)
+    want = flash_attention_dq_ref(q[:, :, rows], k, v, do[:, :, rows],
+                                  lse[:, :, rows], delta[:, :, rows], scale,
+                                  False)
+    torch.testing.assert_close(dq[:, :, rows].float(), want.float(),
+                               **dq_tol)
+    del q, do, o, lse, delta, dq
+
+    rows = torch.cat([torch.arange(256), torch.arange(long_k - 256, long_k)]
+                     ).to(cuda)
+    q, do = draw(16, 2 ** 0.5), draw(16, 0.5)
+    k, v = draw(long_k, 2 ** 0.5), draw(long_k, 0.5)
+    o, lse = flash_attention_ref(q, k, v, scale, False)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = K.flash_attention_dkv(q, k, v, do, lse, delta, scale, False)
+    rdk, rdv = flash_attention_dkv_ref(q, k[:, :, rows], v[:, :, rows], do,
+                                       lse, delta, scale, False)
+    torch.testing.assert_close(dk[:, :, rows], rdk, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(dv[:, :, rows], rdv, rtol=1e-3, atol=1e-4)
 
 
 def test_training_step_through_the_kernels(cuda):

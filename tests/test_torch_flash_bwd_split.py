@@ -184,10 +184,11 @@ def test_one_bf16_p_and_ds_break_the_tolerance(mask):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 @pytest.mark.parametrize("D", [8, 16, 24, 32, 48, 64, 72, 80, 120, 128,
-                               136, 256])
+                               136, 200, 256])
 def test_backward_route(dtype, D):
-    """The forward's rule: bf16 with head_dim up to 128 takes the sm90
-    kernels; f32 and wider heads the CUDA-core ones."""
+    """bf16 with head_dim up to 128 takes the sm90 kernels; f32 and wider
+    heads (bf16 at 256 too, though its forward runs on the sm90 route) the
+    CUDA-core ones."""
     want = "sm90" if dtype == torch.bfloat16 and D <= 128 else "simt"
     assert FA._backward_route(dtype, D) == want
 

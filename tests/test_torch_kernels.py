@@ -3,6 +3,9 @@ vectorized row-table lowering equals the reference lowering, and the plain
 versions of the three copy kernels equal the Pallas kernels run in
 interpret mode.  All comparisons are bit-exact: these are copies."""
 
+import pathlib
+import sys
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -168,6 +171,7 @@ def test_cpu_tensors_never_launch():
     assert K.launch_counts() == {"pack_rows": 0, "chunked_to_rowmajor": 0,
                                  "rowmajor_to_chunked": 0,
                                  "flash_attention": 0,
+                                 "flash_attention_d256": 0,
                                  "flash_attention_simt": 0,
                                  "flash_attention_dq": 0,
                                  "flash_attention_dq_simt": 0,
@@ -197,3 +201,49 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         K.chunked_to_rowmajor(torch.zeros(2, 2, 4, 8, device="meta"),
                               chunk=(4, 8))
+
+
+def test_build_keeps_each_librarys_ptxas_log(tmp_path, monkeypatch):
+    """A library built earlier is reused, and ``build_all`` still returns
+    the compiler's report kept beside it."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc-is-not-run")
+    out = tmp_path / _build._digest()
+    out.mkdir()
+    for name in _build.SOURCES:
+        (out / f"lib{name}.so").write_bytes(b"")
+        (out / f"lib{name}.log").write_text(f"ptxas info : {name}\n")
+    info = _build.build_all()
+    assert set(info) == set(_build.SOURCES)
+    for name, v in info.items():
+        assert v["seconds"] == 0.0
+        assert v["log"] == f"ptxas info : {name}\n"
+
+
+def test_chip_smoke_reads_spills_from_the_ptxas_report():
+    """Phase 1's summary of ``ptxas -v``: entry count, most registers, and
+    only the entries that spill, with their store and load bytes."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1av",
+        "    24 bytes stack frame, 24 bytes spill stores, 28 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 24 bytes "
+        "cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1bv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 254 registers, used 1 barriers"])
+    rep = chip_smoke.ptxas_report(log)
+    assert rep["entries"] == 2 and rep["max_registers"] == 254
+    assert list(rep["spills"].values()) == [[24, 28]]
+    assert list(rep["spills"])[0] in ("_Z1av", "a()")
+    assert chip_smoke.ptxas_report("") == {"entries": 0, "max_registers": 0,
+                                           "spills": {}}

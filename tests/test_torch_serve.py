@@ -83,6 +83,26 @@ def test_prefill_logits_match(arch, flash, f32_compute):
                                    rtol=2 ** -7, atol=1e-4)
 
 
+def test_prefill_logits_match_at_head_dim_256(f32_compute):
+    """gemma2-2b's attention at its own head_dim of 256 on the flash route:
+    a two-layer ``pair_lg`` model (one local layer under a window of 96,
+    one global; softcap 50, narrow d_model 64) prefilling 256 tokens in
+    two 128-row flash blocks.  Its last-position logits are within rtol
+    2e-2 / atol 2e-2 of the reference's, whose flash prefill runs the
+    Pallas forward in interpret mode (the port's CPU route runs the plain
+    version that the head_dim-256 kernel is held to on the card)."""
+    over = dict(n_layers=2, program=(("pair_lg", 1),), head_dim=256,
+                window=96, flash=True, flash_block=128)
+    jm, jp, tm, tp = _models("gemma2-2b", seed=2, **over)
+    assert jm.cfg.head_dim == 256 and jm.cfg.attn_cap == 50.0
+    toks = np.random.default_rng(2).integers(0, jm.cfg.vocab, (2, 256))
+    jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.shape == (2, 1, jm.cfg.vocab) and torch.isfinite(tl).all()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=RTOL,
+                               atol=ATOL)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """prefill(L) + decode(token L) == forward(L+1) at the last position,
@@ -170,6 +190,15 @@ def test_full_config_cache_bytes():
     tm = LM(tcfg.get_config("qwen2.5-3b"), device="cpu")
     assert cache_bytes(tm, 4, 2080) == 36 * 2 * 4 * 2080 * 2 * 128 * 2 == \
         jcache_bytes(JLM(jcfg.get_config("qwen2.5-3b")), 4, 2080)
+
+
+def test_gemma2_full_config_cache_bytes():
+    """gemma2-2b at the chip run's batch: 26 layers x k, v x (4, 2080, 4,
+    256) bf16 (the local layers' ring of 4096 slots is cut to the 2080 the
+    run needs)."""
+    tm = LM(tcfg.get_config("gemma2-2b"), device="cpu")
+    assert cache_bytes(tm, 4, 2080) == 26 * 2 * 4 * 2080 * 4 * 256 * 2 == \
+        jcache_bytes(JLM(jcfg.get_config("gemma2-2b")), 4, 2080)
 
 
 def test_entry_points_need_a_gpu_unless_cpu(monkeypatch, capsys):
