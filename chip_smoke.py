@@ -49,12 +49,14 @@ Phases, each printing one JSON line:
    per layer at least, the head_dim-256 and CUDA-core kernels never;
 10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
-    forward's sweep and the training shape given as strided views (on both
-    routes), and ``flash_attention``'s gradients against autograd through
-    the plain forward; the launch counts show that each bf16 case with
-    head_dim up to 128 ran the sm90 kernels (``csrc/flash_bwd_sm90.cu``)
-    and every other case the CUDA-core ones (``csrc/flash_bwd.cu``), and
-    each route's count equals the cases the sweep sends it;
+    forward's sweep, the training shape given as strided views (on both
+    routes) and gemma2-2b's full-length shape as strided views, and
+    ``flash_attention``'s gradients against autograd through the plain
+    forward; the launch counts show that each bf16 case ran the sm90
+    kernels (``csrc/flash_bwd_sm90.cu`` up to head_dim 128,
+    ``csrc/flash_bwd_sm90_d256.cu`` above) and each f32 case the
+    CUDA-core ones (``csrc/flash_bwd.cu``), and each route's count equals
+    the cases the sweep sends it;
 11. the training path at full width: qwen2.5-3b (36 layers, random
     weights from a seed: see ``training_params``; ``remat="dots"``) with
     the flash route on, at
@@ -66,21 +68,27 @@ Phases, each printing one JSON line:
     read just after (36 sm90 dq and 36 sm90 dkv launches a step, none on
     the CUDA-core route), the step times, peak memory, and a profile of
     one more step;
-12. the backward kernels' times (as phase 4's): at the training shape the
-    sm90 kernels beside the CUDA-core kernels on the same bf16 inputs,
-    their bound, the plain versions and the backward of
-    ``scaled_dot_product_attention`` (its kernels' device time from the
-    profiler: autograd's host work outlasts them); the CUDA-core kernels on
-    the f32 inputs of the f32 route comparison; and gemma2-2b's bf16
-    head_dim-256 shape, which the CUDA-core backward takes, beside its
-    bound, the plain versions and SDPA;
+12. the backward kernels' times (as phase 4's): at the training shape and
+    at gemma2-2b's bf16 head_dim-256 shape the sm90 kernels beside the
+    CUDA-core kernels on the same bf16 inputs, their bound, the plain
+    versions and the backward of ``scaled_dot_product_attention`` (its
+    kernels' device time from the profiler: autograd's host work outlasts
+    them); the CUDA-core kernels on the f32 inputs of the f32 route
+    comparison;
 13. the serving path at gemma2-2b's full width (26 layers, head_dim 256,
     local and global layers, softcaps; random weights: see
     ``training_params``), as phase 7 serves qwen2.5-3b: the bf16 prefill
     launches the sm90 route's head_dim-256 kernel once per layer and the
     CUDA-core forward never, the f32 route comparison the CUDA-core
     forward once per layer, and the profile names the flash forward's
-    device time in the prefill.
+    device time in the prefill;
+14. the training path at gemma2-2b's full width, as phase 11 trains
+    qwen2.5-3b (the same traffic, steps and checks): 26 launches a step
+    of each head_dim-256 sm90 backward kernel
+    (``csrc/flash_bwd_sm90_d256.cu``), 52 of the head_dim-256 forward,
+    none on a CUDA-core route; the f32 route comparison runs the
+    CUDA-core backward once per layer, and the profile names the flash
+    backward's device time in a step.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -143,10 +151,9 @@ FLASH_D80 = dict(B=2, Hq=8, Hkv=2, L=200, D=80, causal=True, window=None,
                  softcap=None)
 FLASH_LONG_WINDOW = dict(B=1, Hq=16, Hkv=2, L=2048, D=128, causal=True,
                          window=512, softcap=30.0)
-#: the forward's routes, by the name of their launch counter; the sm90
-#: route's head_dim-256 kernel counts its own launches too
-FLASH_ROUTES = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
-FLASH_D256 = "flash_attention_d256"
+#: the flash kernels' routes (``flash_attention._route``); ``flash_kernel``
+#: names each route's kernel for a head dim
+FLASH_ROUTES = ("sm90", "simt")
 LSE_TOL = (1e-4, 1e-4)
 #: flash vs q-chunked prefill logits: max |d| / max |q-chunked|
 LOGIT_GAP = 2e-2
@@ -188,16 +195,35 @@ KERNELS = {
                              "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
                            "src/repro/kernels/flash_attention.py:146"),
+    "flash_attention_dq_d256": (
+        "src/repro_torch/kernels/csrc/flash_bwd_sm90_d256.cu",
+        "src/repro/kernels/flash_attention.py:146"),
     "flash_attention_dq_simt": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:146"),
     "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
                             "src/repro/kernels/flash_attention.py:166"),
+    "flash_attention_dkv_d256": (
+        "src/repro_torch/kernels/csrc/flash_bwd_sm90_d256.cu",
+        "src/repro/kernels/flash_attention.py:166"),
     "flash_attention_dkv_simt": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                                  "src/repro/kernels/flash_attention.py:166"),
 }
-#: the backward's routes, by the names of their (dq, dkv) launch counters
-BWD_ROUTES = {"sm90": ("flash_attention_dq", "flash_attention_dkv"),
-              "simt": ("flash_attention_dq_simt", "flash_attention_dkv_simt")}
+FLASH_KERNELS = [n for n in KERNELS if n.startswith("flash_attention")]
+
+
+def flash_kernel(kind: str, route: str, head_dim: int) -> str:
+    """The launch counter of the flash kernel ``kind`` (``"fwd"``,
+    ``"dq"`` or ``"dkv"``) that ``route`` runs at ``head_dim``: the sm90
+    route's head_dim-256 kernels above 128."""
+    name = "flash_attention" + ("" if kind == "fwd" else f"_{kind}")
+    if route == "simt":
+        return name + "_simt"
+    return name + ("_d256" if head_dim > 128 else "")
+
+
+def flash_deltas(before: dict, after: dict) -> dict:
+    """Each flash kernel's launches between two ``launch_counts()``."""
+    return {n: after[n] - before[n] for n in FLASH_KERNELS}
 
 
 def emit(phase, **fields) -> None:
@@ -591,10 +617,9 @@ def _qkv(torch, gen, dev, dtype, B, Hq, Hkv, L, D, Lk=None, qk_std=0.5,
 
 def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
     """Kernel vs plain version: (max |dO|, max |dLSE|, the route that
-    ran), raising beyond the tolerances and unless exactly one launch of
-    the route ``_forward_route`` picks for these inputs was counted, on
-    the sm90 route's head_dim-256 kernel when the head is wider than
-    128."""
+    ran), raising beyond the tolerances and unless exactly one launch was
+    counted, on the kernel of the route ``_route`` picks for these
+    inputs (``flash_kernel``), and none on any other flash kernel."""
     import repro_torch.kernels as K
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -603,11 +628,10 @@ def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
     o, lse = flash_attention(q, k, v, None, causal, window, softcap,
                              return_lse=True)
     after = K.launch_counts()
-    route = FA._forward_route(q.dtype, q.shape[-1])
-    ran = {r: after[n] - before[n]
-           for r, n in (*FLASH_ROUTES.items(), ("d256", FLASH_D256))}
-    want = {r: int(r == route) for r in FLASH_ROUTES}
-    want["d256"] = int(route == "sm90" and q.shape[-1] > 128)
+    route = FA._route(q.dtype, q.shape[-1])
+    ran = flash_deltas(before, after)
+    kernel = flash_kernel("fwd", route, q.shape[-1])
+    want = {n: int(n == kernel) for n in FLASH_KERNELS}
     if ran != want:
         raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected {want} "
                              f"launches by route, counted {ran}")
@@ -672,7 +696,7 @@ def check_flash(torch, dev) -> dict:
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "main_shapes": shapes,
             "max_abs_err": {"flash_attention": shapes["serving"]["o"],
-                            FLASH_D256: shapes["gemma2"]["o"],
+                            "flash_attention_d256": shapes["gemma2"]["o"],
                             "flash_attention_simt":
                                 shapes["serving_f32"]["o"]}}
 
@@ -685,8 +709,8 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
     counts of that one call; then the flash route's prefill logits against
     the q-chunked route's on the same weights and prompts, in the model's
     bf16 compute and in f32, each held to LOGIT_GAP, each flash prefill's
-    launches read on their own: one per layer on the route its dtype takes
-    (on the sm90 route's head_dim-256 kernel for heads wider than 128)."""
+    launches read on their own: one per layer on the kernel of the route
+    its dtype takes (``flash_kernel``), none on any other."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -729,13 +753,12 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
                 raise AssertionError("non-finite prefill logits")
         # bf16 compute runs the sm90 route, f32 the CUDA-core kernel
         route = "sm90" if dtype == torch.bfloat16 else "simt"
-        ran = {r: flash_launches[n]
-               for r, n in (*FLASH_ROUTES.items(), ("d256", FLASH_D256))}
-        want = {r: cfg.n_layers * (r == route) for r in FLASH_ROUTES}
-        want["d256"] = cfg.n_layers * (route == "sm90" and cfg.head_dim > 128)
+        kernel = flash_kernel("fwd", route, cfg.head_dim)
+        ran = {n: flash_launches[n] for n in FLASH_KERNELS}
+        want = {n: cfg.n_layers * (n == kernel) for n in FLASH_KERNELS}
         if ran != want:
             raise AssertionError(f"{dtype} flash prefill: launches {ran}, "
-                                 f"expected {want} (one {route} launch per "
+                                 f"expected {want} (one {kernel} launch per "
                                  f"layer)")
         routes[str(dtype).split(".")[-1]] = {
             "logit_gap": float((flash_logits - base_logits).abs().max()
@@ -937,7 +960,7 @@ def flash_timings(torch, dev) -> dict:
 def _bwd_kernel(torch, kind, args, route=None) -> tuple:
     """One backward kernel's outputs, ``(dq,)`` for ``kind`` "dq" or
     ``(dk, dv)`` for "dkv": through its wrapper, which takes
-    ``_backward_route``'s route, or on ``route`` named through the
+    ``_route``'s route, or on ``route`` named through the
     module-private launcher (a comparison of the two routes)."""
     from repro_torch.kernels import flash_attention_dkv, flash_attention_dq
     if route is None:
@@ -960,8 +983,9 @@ def _bwd_case(torch, q, k, v, causal, window, softcap, gen,
     """The dQ and dK/dV kernels against their plain versions on the same
     q, k, v, dO and the plain forward's O and LSE: (max |d dQ|,
     max |d dK|, max |d dV|, the route that ran), raising beyond the
-    tolerances and unless exactly one dq and one dkv launch of ``route``
-    (by default the one ``_backward_route`` picks) was counted."""
+    tolerances and unless exactly one launch each was counted on the dq
+    and dkv kernels of ``route`` (by default the one ``_route``
+    picks) at this head dim (``flash_kernel``), and none on any other."""
     import repro_torch.kernels as K
     from repro_torch.kernels.ref import (flash_attention_dkv_ref,
                                          flash_attention_dq_ref,
@@ -973,17 +997,16 @@ def _bwd_case(torch, q, k, v, causal, window, softcap, gen,
           ).to(q.dtype)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
-    want = route or FA._backward_route(q.dtype, q.shape[-1])
+    want = route or FA._route(q.dtype, q.shape[-1])
     before = K.launch_counts()
     dq, dk, dv = (*_bwd_kernel(torch, "dq", args, route),
                   *_bwd_kernel(torch, "dkv", args, route))
-    after = K.launch_counts()
-    ran = {r: tuple(after[n] - before[n] for n in names)
-           for r, names in BWD_ROUTES.items()}
-    if ran != {r: (int(r == want),) * 2 for r in BWD_ROUTES}:
-        raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected one dq "
-                             f"and one dkv launch on the {want} route, "
-                             f"counted {ran}")
+    ran = flash_deltas(before, K.launch_counts())
+    kernels = {flash_kernel(kind, want, q.shape[-1]) for kind in ("dq", "dkv")}
+    if ran != {n: int(n in kernels) for n in FLASH_KERNELS}:
+        raise AssertionError(f"{q.dtype} D {q.shape[-1]}: expected one "
+                             f"launch each of {sorted(kernels)}, counted "
+                             f"{ran}")
     rdq, (rdk, rdv) = flash_attention_dq_ref(*args), \
         flash_attention_dkv_ref(*args)
     torch.cuda.synchronize()
@@ -1004,8 +1027,8 @@ def check_flash_bwd(torch, dev) -> dict:
              "window": (True, 48, None), "softcap": (True, None, 30.0),
              "window_softcap": (False, 48, 30.0)}
     groups: dict = {}
-    routes = dict.fromkeys(BWD_ROUTES, 0)
-    expected = dict.fromkeys(BWD_ROUTES, 0)
+    routes = dict.fromkeys(FLASH_ROUTES, 0)
+    expected = dict.fromkeys(FLASH_ROUTES, 0)
     cases = 0
     # the forward's sweep: ragged lengths, Lq != Lk, zero-padded head dims
     for dtype in (torch.float32, torch.bfloat16):
@@ -1021,7 +1044,7 @@ def check_flash_bwd(torch, dev) -> dict:
                                           softcap, gen)
                     worst = [max(a, b) for a, b in zip(worst, e)]
                     routes[route] += 1
-                    expected["sm90" if dtype == torch.bfloat16 and D <= 128
+                    expected["sm90" if dtype == torch.bfloat16
                              else "simt"] += 1
                     cases += 1
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = dict(
@@ -1040,6 +1063,16 @@ def check_flash_bwd(torch, dev) -> dict:
         routes[ran] += 1
         expected[route] += 1
         cases += 1
+    # gemma2-2b's full length on the head_dim-256 kernels, as strided views
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in _qkv(torch, gen, dev, torch.bfloat16,
+                             qk_std=math.sqrt(2.0), **FLASH_GEMMA2))
+    *e, ran = _bwd_case(torch, q, k, v, FLASH_GEMMA2["causal"],
+                        FLASH_GEMMA2["window"], FLASH_GEMMA2["softcap"], gen)
+    gemma2 = {"shape": FLASH_GEMMA2, **dict(zip(("dq", "dk", "dv"), e))}
+    routes[ran] += 1
+    expected["sm90"] += 1
+    cases += 1
     del q, k, v
     if routes != expected:
         raise AssertionError(f"cases by route {routes}, expected {expected}")
@@ -1064,28 +1097,31 @@ def check_flash_bwd(torch, dev) -> dict:
             "tolerance": {"dq": BWD_TOL, "dk_dv": BWD_TOL["float32"],
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "training_shape": train,
+            "gemma2_shape": gemma2,
             "autograd_vs_plain_forward_f32": fn_err,
             "max_abs_err": {
                 f"flash_attention_{kind}{suffix}": (
-                    train[route]["dq"] if kind == "dq" else
-                    max(train[route]["dk"], train[route]["dv"]))
-                for route, suffix in (("sm90", ""), ("simt", "_simt"))
+                    case["dq"] if kind == "dq" else
+                    max(case["dk"], case["dv"]))
+                for case, suffix in ((train["sm90"], ""),
+                                     (gemma2, "_d256"),
+                                     (train["simt"], "_simt"))
                 for kind in ("dq", "dkv")}}
 
 
 # -- phase 11 ------------------------------------------------------------------
 
-def train(torch, dev, K) -> dict:
-    """The training path at full width: the flash route's gradients
-    against the q-chunked route's, then ``Trainer.run`` with the launch
-    counts of that one call, then a profile of one more step."""
+def train(torch, dev, K, arch=SERVE_ARCH) -> dict:
+    """The training path at ``arch``'s full width: the flash route's
+    gradients against the q-chunked route's, then ``Trainer.run`` with the
+    launch counts of that one call, then a profile of one more step."""
     import dataclasses
     import itertools
     from repro_torch.configs import get_config
     from repro_torch.data import PipelineConfig, SyntheticTokens
     from repro_torch.models import LM
     from repro_torch.train import OptimizerConfig, Trainer, adamw_init
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash=True)
+    cfg = dataclasses.replace(get_config(arch), flash=True)
     if TRAIN_SEQ % cfg.flash_block or cfg.remat != "dots":
         raise ValueError("the training run must take the flash route under "
                          "remat='dots'")
@@ -1119,7 +1155,8 @@ def train(torch, dev, K) -> dict:
     profile = profile_train_step(torch, trainer, params, opt, K)
     del params, opt, trainer
     torch.cuda.empty_cache()
-    return {"arch": SERVE_ARCH, "layers": cfg.n_layers, "flash": True,
+    return {"arch": arch, "layers": cfg.n_layers,
+            "head_dim": cfg.head_dim, "flash": True,
             "remat": cfg.remat, "global_batch": TRAIN_BATCH,
             "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
             "optimizer": TRAIN_OPT,
@@ -1133,19 +1170,23 @@ def train(torch, dev, K) -> dict:
 
 
 def check_training(trained: dict) -> None:
-    """The training run's gates: f32 gradients of the flash route within
-    GRAD_GAP_F32 of the q-chunked route's per leaf and bf16 losses within
-    LOSS_GAP_BF16; the bf16 route comparison's backward on the sm90
-    kernels and the f32 one's on the CUDA-core kernels, one dq and one dkv
-    a layer; every loss and grad norm finite and positive; the last loss
-    below the first; one sm90 dq and one sm90 dkv launch per layer and
-    step, two of the sm90 forward, none on the CUDA-core routes."""
+    """A training run's gates, for its arch's layer count and head dim:
+    f32 gradients of the flash route within GRAD_GAP_F32 of the q-chunked
+    route's per leaf and bf16 losses within LOSS_GAP_BF16; the bf16 route
+    comparison's backward on the sm90 kernels (``flash_kernel``: the
+    head_dim-256 ones above 128) and the f32 one's on the CUDA-core
+    kernels, one dq and one dkv a layer; every loss and grad norm finite
+    and positive; the last loss below the first; per step one launch a
+    layer of the sm90 dq and dkv kernels for this head dim, two of its
+    sm90 forward, none on any other flash kernel (the CUDA-core ones
+    included)."""
     routes = trained["flash_vs_q_chunked"]
-    n = trained["layers"]
+    n, D = trained["layers"], trained["head_dim"]
+    bwd = [name for name in FLASH_KERNELS if "_dq" in name or "_dkv" in name]
     for dtype, route in (("bfloat16", "sm90"), ("float32", "simt")):
         got = routes[dtype]["flash_launches"]
-        want = {name: n * (r == route) for r, names in BWD_ROUTES.items()
-                for name in names}
+        ran = {flash_kernel(kind, route, D) for kind in ("dq", "dkv")}
+        want = {name: n * (name in ran) for name in bwd}
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"the {dtype} route comparison's backward "
                                  f"launched {got}, expected {want}")
@@ -1161,15 +1202,15 @@ def check_training(trained: dict) -> None:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     per_step = trained["launches_per_step"]
-    if not (per_step["flash_attention_dq"] == per_step["flash_attention_dkv"]
-            == n and per_step["flash_attention"] == 2 * n
-            and per_step["flash_attention_simt"] == 0
-            and per_step["flash_attention_dq_simt"] == 0
-            and per_step["flash_attention_dkv_simt"] == 0):
-        raise AssertionError(f"launches per step {per_step}, not one sm90 "
-                             f"dq and one sm90 dkv per layer and two sm90 "
-                             f"forwards (the dots recompute runs it again), "
-                             f"none on the CUDA-core routes")
+    want = dict.fromkeys(FLASH_KERNELS, 0)
+    want[flash_kernel("fwd", "sm90", D)] = 2 * n
+    want[flash_kernel("dq", "sm90", D)] = n
+    want[flash_kernel("dkv", "sm90", D)] = n
+    if {k: per_step[k] for k in want} != want:
+        raise AssertionError(f"launches per step {per_step}, not {want}: "
+                             f"one sm90 dq and one sm90 dkv per layer and "
+                             f"two sm90 forwards (the dots recompute runs "
+                             f"it again), none on any other flash kernel")
 
 
 def check_gemma2_serving(served: dict) -> None:
@@ -1177,7 +1218,7 @@ def check_gemma2_serving(served: dict) -> None:
     bf16 prefill launched the sm90 forward once per layer, every launch on
     the head_dim-256 kernel, and the CUDA-core forward never."""
     n, got = served["layers"], served["launches"]
-    if not (got["flash_attention"] == got[FLASH_D256] == n
+    if not (got["flash_attention_d256"] == n and got["flash_attention"] == 0
             and got["flash_attention_simt"] == 0):
         raise AssertionError(f"gemma2-2b serving launched {got}, not one "
                              f"head_dim-256 sm90 forward per layer ({n})")
@@ -1291,16 +1332,17 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
             if device_us else None
 
     top = sorted(rows, key=lambda r: -r[1])[:10]
+    # each kernel's share of the step's device time, by its own name
+    kernels = ("flash_fwd_sm90", "flash_fwd_sm90_d256", "flash_fwd",
+               "flash_dq_sm90", "flash_dq_sm90_d256", "flash_dq",
+               "flash_dkv_sm90", "flash_dkv_sm90_d256", "flash_dkv")
     return {"wall_ms": wall * 1e3,
             "device_ms": device_us / 1e3 if rows else None,
             "busy_share": device_us / 1e3 / (wall * 1e3) if rows else None,
             "kernels": sum(r[2] for r in rows),
-            "flash_fwd_sm90_share": share("flash_fwd_sm90_kernel"),
-            "flash_fwd_share": share("flash_fwd_kernel"),
-            "flash_dq_sm90_share": share("flash_dq_sm90_kernel"),
-            "flash_dkv_sm90_share": share("flash_dkv_sm90_kernel"),
-            "flash_dq_share": share("flash_dq_kernel"),
-            "flash_dkv_share": share("flash_dkv_kernel"),
+            **{f"{k}_share": share(f"{k}_kernel") for k in kernels},
+            "flash_fwd_ms": sum(r[1] for r in rows
+                                if "flash_fwd" in r[0]) / 1e3,
             "flash_bwd_ms": sum(r[1] for r in rows if "flash_dq" in r[0]
                                 or "flash_dkv" in r[0]) / 1e3,
             "launches": launches,
@@ -1318,13 +1360,12 @@ def bwd_timings(torch, dev) -> dict:
     ``scaled_dot_product_attention`` (forward + backward minus forward,
     computing dQ, dK and dV together; device time from the profiler, as
     the backward's host work outlasts its kernels), with TFLOP/s of useful
-    work.  ``training_f32``: the CUDA-core kernels on the f32 inputs of the
-    f32 route comparison, the path that runs them here, beside their f32
-    bound and SDPA in f32.  ``gemma2``: gemma2-2b's bf16 head_dim-256
-    shape (``FLASH_GEMMA2``), whose backward takes the CUDA-core kernels,
-    beside their bf16 bound, the plain versions and SDPA (causal without
-    the softcap, which SDPA lacks; the window of 4096 masks nothing at L
-    2048); phase 8 times its forward."""
+    work.  ``gemma2``: the same at gemma2-2b's bf16 head_dim-256 shape
+    (``FLASH_GEMMA2``) on the sm90 route's head_dim-256 kernels (SDPA
+    causal without the softcap, which SDPA lacks; the window of 4096 masks
+    nothing at L 2048); phase 8 times its forward.  ``training_f32``: the
+    CUDA-core kernels on the f32 inputs of the f32 route comparison, the
+    path that runs them here, beside their f32 bound and SDPA in f32."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
@@ -1345,7 +1386,9 @@ def bwd_timings(torch, dev) -> dict:
                 r[key.replace("ms", "tflops")] = flops / r[key] / 1e9
         res[name] = r
 
-    def shape(shp, dtype, peak, simt_only) -> dict:
+    def shape(shp, dtype, peak, suffix) -> dict:
+        """Times at ``shp``, named ``flash_attention_{dq,dkv}{suffix}``:
+        the CUDA-core kernels alone for ``"_simt"``."""
         causal, window, softcap = shp["causal"], shp["window"], shp["softcap"]
         q, k, v = _qkv(torch, gen, dev, dtype, **shp)
         B, Hq, L, D = q.shape
@@ -1382,20 +1425,20 @@ def bwd_timings(torch, dev) -> dict:
                  8 * D * pairs, ins + 2 * per_head)):
             def simt(kind=kind):
                 return _bwd_kernel(torch, kind, args, "simt")
-            fns = {"simt_ms": simt} if simt_only else \
+            fns = {"simt_ms": simt} if suffix == "_simt" else \
                 {"ms": lambda kernel=kernel: kernel(*args), "simt_ms": simt}
             fns["plain_ms"] = lambda plain=plain: plain(*args)
-            name = f"flash_attention_{kind}" + ("_simt" if simt_only else "")
+            name = f"flash_attention_{kind}{suffix}"
             timed(res, name, flops, nbytes, peak, fns)
             res[name]["library_ms"] = library
         torch.cuda.empty_cache()
         return res
 
-    return {"training": shape(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS,
-                              False),
+    return {"training": shape(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, ""),
             "training_f32": shape(FLASH_TRAIN, torch.float32, F32_FLOPS,
-                                  True),
-            "gemma2": shape(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS, True)}
+                                  "_simt"),
+            "gemma2": shape(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS,
+                            "_d256")}
 
 
 # -- driver --------------------------------------------------------------------
@@ -1474,13 +1517,14 @@ def main() -> int:
     n_layers = served["layers"]
     if serve_launches["flash_attention"] < n_layers or \
             serve_launches["flash_attention_simt"] or \
-            serve_launches[FLASH_D256]:
+            serve_launches["flash_attention_d256"]:
         raise AssertionError(
             f"serving launched the sm90 flash kernel "
             f"{serve_launches['flash_attention']} times for {n_layers} "
             f"layers, the CUDA-core one "
             f"{serve_launches['flash_attention_simt']} times, the "
-            f"head_dim-256 one {serve_launches[FLASH_D256]} times")
+            f"head_dim-256 one {serve_launches['flash_attention_d256']} "
+            f"times")
 
     t0 = time.perf_counter()
     bwd_check = check_flash_bwd(torch, dev)
@@ -1501,6 +1545,11 @@ def main() -> int:
     gemma2 = serve(torch, dev, K, GEMMA2_ARCH, training_params)
     emit(13, seconds=time.perf_counter() - t0, **gemma2)
     check_gemma2_serving(gemma2)
+
+    t0 = time.perf_counter()
+    trained_g = train(torch, dev, K, GEMMA2_ARCH)
+    emit(14, seconds=time.perf_counter() - t0, **trained_g)
+    check_training(trained_g)
     emit("total", seconds=time.perf_counter() - t_start)
 
     rows = [{"name": name, "route": "cuda", "source": source,
@@ -1515,9 +1564,9 @@ def main() -> int:
     # head_dim 128, gemma2-2b's 256); the CUDA-core forward on the f32
     # serving prefill, the path that runs it here
     for name, launched, t in (
-            ("flash_attention", serve_launches["flash_attention"]
-             - serve_launches[FLASH_D256], flash_times["serving"]),
-            (FLASH_D256, gemma2["launches"][FLASH_D256],
+            ("flash_attention", serve_launches["flash_attention"],
+             flash_times["serving"]),
+            ("flash_attention_d256", gemma2["launches"]["flash_attention_d256"],
              flash_times["gemma2"]),
             ("flash_attention_simt", served["flash_vs_q_chunked"]["float32"]
              ["flash_launches"]["flash_attention_simt"],
@@ -1529,16 +1578,23 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    # the sm90 backward on the training run; the CUDA-core backward on the
-    # f32 route comparison, the path that runs it here
+    # the sm90 backward on the training runs (qwen2.5-3b's head_dim 128,
+    # gemma2-2b's 256); the CUDA-core backward on qwen2.5-3b's f32 route
+    # comparison, the path that runs it here
     f32_launches = trained["flash_vs_q_chunked"]["float32"]["flash_launches"]
     for name, launched, t in (
             ("flash_attention_dq", trained["launches"]["flash_attention_dq"],
              bwd_times["training"]["flash_attention_dq"]),
+            ("flash_attention_dq_d256",
+             trained_g["launches"]["flash_attention_dq_d256"],
+             bwd_times["gemma2"]["flash_attention_dq_d256"]),
             ("flash_attention_dq_simt", f32_launches["flash_attention_dq_simt"],
              bwd_times["training_f32"]["flash_attention_dq_simt"]),
             ("flash_attention_dkv", trained["launches"]["flash_attention_dkv"],
              bwd_times["training"]["flash_attention_dkv"]),
+            ("flash_attention_dkv_d256",
+             trained_g["launches"]["flash_attention_dkv_d256"],
+             bwd_times["gemma2"]["flash_attention_dkv_d256"]),
             ("flash_attention_dkv_simt",
              f32_launches["flash_attention_dkv_simt"],
              bwd_times["training_f32"]["flash_attention_dkv_simt"])):

@@ -1,9 +1,10 @@
 """The port's kernels: hand-written CUDA for Hopper, with plain PyTorch
 versions beside them (:mod:`.ref`) and a launch count on every wrapper."""
 
-from .flash_attention import (flash_attention, flash_attention_dkv,
+from .flash_attention import (d256_dkv, d256_dq, d256_forward,
+                              flash_attention, flash_attention_dkv,
                               flash_attention_dq, simt_dkv, simt_dq,
-                              simt_forward, sm90_d256)
+                              simt_forward)
 from .ops import merge_blocks_device, split_merged
 from .pack_blocks import pack_rows
 from .relayout import chunked_to_rowmajor, rowmajor_to_chunked
@@ -14,21 +15,23 @@ __all__ = ["merge_blocks_device", "split_merged", "pack_rows",
            "WRAPPERS",
            "launch_counts", "reset_launch_counts"]
 
-#: every kernel's launch counter, by kernel name: its wrapper, or for the
-#: flash kernels one per route (``flash_attention``, ``flash_attention_dq``
-#: and ``flash_attention_dkv`` count the sm90 kernels, the ``_simt`` names
-#: the f32 CUDA-core ones); ``flash_attention_d256`` counts the sm90
-#: forward's head_dim-256 kernel alone, whose launches
-#: ``flash_attention`` counts too
+#: every kernel's launch counter, by kernel name, each added to by that
+#: kernel alone: its wrapper's, or for the flash kernels one per kernel
+#: (``flash_attention``, ``flash_attention_dq`` and ``flash_attention_dkv``
+#: count the sm90 route's kernels for head_dim up to 128, the ``_d256``
+#: names its head_dim-256 kernels, the ``_simt`` names the f32 CUDA-core
+#: ones); a route's launches are the sum of its kernels'
 WRAPPERS = {"pack_rows": pack_rows,
             "chunked_to_rowmajor": chunked_to_rowmajor,
             "rowmajor_to_chunked": rowmajor_to_chunked,
             "flash_attention": flash_attention,
-            "flash_attention_d256": sm90_d256,
+            "flash_attention_d256": d256_forward,
             "flash_attention_simt": simt_forward,
             "flash_attention_dq": flash_attention_dq,
+            "flash_attention_dq_d256": d256_dq,
             "flash_attention_dq_simt": simt_dq,
             "flash_attention_dkv": flash_attention_dkv,
+            "flash_attention_dkv_d256": d256_dkv,
             "flash_attention_dkv_simt": simt_dkv}
 
 

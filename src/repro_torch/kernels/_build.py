@@ -51,6 +51,9 @@ SOURCES = {
                   "repro_flash_dkv": (_P,) * 8 + _FLASH_BWD},
     "flash_bwd_sm90": {"repro_flash_dq_sm90": (_P,) * 7 + _FLASH_BWD_SM90,
                        "repro_flash_dkv_sm90": (_P,) * 8 + _FLASH_BWD_SM90},
+    "flash_bwd_sm90_d256": {
+        "repro_flash_dq_sm90_d256": (_P,) * 7 + _FLASH_BWD_SM90,
+        "repro_flash_dkv_sm90_d256": (_P,) * 8 + _FLASH_BWD_SM90},
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,10 @@
 //
 // Replaces the Pallas kernels `_dq_kernel` and `_dkv_kernel` of
 // src/repro/kernels/flash_attention.py (launched by `_bwd`), the attention
-// backward of every layer on the flash route.  Same function: the scores
+// backward of every layer on the flash route, for f32 inputs only: bf16
+// runs flash_bwd_sm90.cu (head_dim up to 128) and flash_bwd_sm90_d256.cu
+// (above), and this file's bf16 instantiation runs only where a caller
+// names its route (timing comparisons, tests).  Same function: the scores
 // are recomputed in f32 (scale, then softcap c*tanh(s/c), then the masks:
 // qpos >= kpos when causal, (qpos - kpos) < window whenever a window is
 // set, one-sided even when non-causal, masked scores the finite -1e30),
@@ -17,9 +20,9 @@
 // Bound on this card: operations.  A live (q, k) pair costs 6*D flops in
 // dQ (Q.K^T, dO.V^T, dS.K) and 8*D in dK/dV (Q.K^T, dO.V^T, P^T.dO,
 // dS^T.Q) against Q, K, V, dO, O, dQ, dK, dV bytes read or written once,
-// far above the ~300 flops/byte where HBM stops being the limit.  This
-// first version does its arithmetic in f32 on the CUDA cores, as the
-// forward does; wgmma/TMA and bf16 tensor cores are later work.
+// far above the ~300 flops/byte where HBM stops being the limit.  It does
+// its arithmetic in f32 on the CUDA cores, as f32 inputs need: bf16 tensor
+// cores cannot meet the f32 gradient tolerance.
 //
 // Design.  The TPU kernels walked sequential grids with accumulators in
 // VMEM scratch: dQ over (bh, iq, ik), dK/dV over (bh, ik, iq).  Here one

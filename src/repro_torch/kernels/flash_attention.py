@@ -3,17 +3,17 @@ backward, each a hand-written CUDA kernel.
 
 The forward replaces the JAX package's Pallas ``_fwd_kernel``: it keeps
 each score tile on chip with a running row max and sum, so attention's
-device-memory traffic is Q, K, V and O only.  It has two routes, picked by
-dtype and head dim (``_forward_route``): bf16 runs the ``"sm90"`` route
-(wgmma and TMA on Hopper's tensor cores), ``csrc/flash_fwd_sm90.cu`` for
-head_dim up to 128 and ``csrc/flash_fwd_sm90_d256.cu`` above; f32 runs
-``csrc/flash_fwd.cu`` (f32 on the CUDA cores).  The backward kernels
-replace ``_dq_kernel`` and ``_dkv_kernel``: they recompute P from the
-forward's LSE, dQ over k tiles and per-q-head dK, dV over q tiles; the GQA
-group sum follows in f32, as the reference's custom vjp does.  Their routes
-(``_backward_route``): ``csrc/flash_bwd_sm90.cu`` (wgmma and TMA) for bf16
-with head_dim up to 128, ``csrc/flash_bwd.cu`` (f32 on the CUDA cores) for
-f32 and for wider heads.
+device-memory traffic is Q, K, V and O only.  The backward kernels replace
+``_dq_kernel`` and ``_dkv_kernel``: they recompute P from the forward's
+LSE, dQ over k tiles and per-q-head dK, dV over q tiles; the GQA group sum
+follows in f32, as the reference's custom vjp does.  Forward and backward
+take one of two routes, picked by dtype and head dim (``_route``): bf16
+runs the ``"sm90"`` route (wgmma and TMA on Hopper's tensor cores),
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` for head_dim up
+to 128 and ``csrc/flash_fwd_sm90_d256.cu`` and
+``csrc/flash_bwd_sm90_d256.cu`` above; f32, and only f32, runs
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (f32 on the CUDA cores).
+Every kernel counts its own launches (``_COUNTERS``).
 ``flash_attention`` is differentiable through a
 ``torch.autograd.Function`` over the three.  Causal and
 one-sided sliding-window masks, a logit softcap and GQA, as the
@@ -38,41 +38,34 @@ __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_dq",
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
-#: the widest heads the sm90 forward and backward take
-_SM90_FWD_MAX_HEAD_DIM = 256
-_SM90_BWD_MAX_HEAD_DIM = 128
-#: the widest head of the sm90 forward's first kernel; wider ones up to 256
-#: run its second (``csrc/flash_fwd_sm90_d256.cu``)
+#: the widest head of the sm90 route's first kernels; wider ones up to 256
+#: run its head_dim-256 kernels (``csrc/flash_fwd_sm90_d256.cu``,
+#: ``csrc/flash_bwd_sm90_d256.cu``)
 _SM90_NARROW_HEAD_DIM = 128
 #: forward route -> (library, C entry point); the sm90 route's wide heads
 #: take ``_FORWARD_SM90_D256``
 _FORWARD = {"sm90": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
             "simt": ("flash_fwd", "repro_flash_fwd")}
 _FORWARD_SM90_D256 = ("flash_fwd_sm90_d256", "repro_flash_fwd_sm90_d256")
-#: backward route -> (library, {kernel: C entry point})
+#: backward route -> (library, {kernel: C entry point}); the sm90 route's
+#: wide heads take ``_BACKWARD_SM90_D256``
 _BACKWARD = {"sm90": ("flash_bwd_sm90", {"dq": "repro_flash_dq_sm90",
                                          "dkv": "repro_flash_dkv_sm90"}),
              "simt": ("flash_bwd", {"dq": "repro_flash_dq",
                                     "dkv": "repro_flash_dkv"})}
+_BACKWARD_SM90_D256 = ("flash_bwd_sm90_d256",
+                       {"dq": "repro_flash_dq_sm90_d256",
+                        "dkv": "repro_flash_dkv_sm90_d256"})
 
 
-def _forward_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel for inputs of ``dtype`` and ``head_dim``:
-    ``"sm90"`` for bf16 with head_dim up to 256 (``csrc/flash_fwd_sm90.cu``
-    with it padded to 16, 32, 64, 80 or 128; ``csrc/flash_fwd_sm90_d256.cu``
-    above, padded to 256); ``"simt"`` (``csrc/flash_fwd.cu``) for f32,
-    whose tolerance bf16 tensor cores cannot meet."""
-    if dtype == torch.bfloat16 and head_dim <= _SM90_FWD_MAX_HEAD_DIM:
-        return "sm90"
-    return "simt"
-
-
-def _backward_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels for inputs of ``dtype`` and ``head_dim``:
-    ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16 with head_dim up to
-    128; ``"simt"`` (``csrc/flash_bwd.cu``) for f32, whose gradient
-    tolerance bf16 tensor cores cannot meet, and for wider heads."""
-    if dtype == torch.bfloat16 and head_dim <= _SM90_BWD_MAX_HEAD_DIM:
+def _route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward and backward kernels for inputs of ``dtype`` and
+    ``head_dim``: ``"sm90"`` for bf16 with head_dim up to 256 (the
+    ``csrc/flash_*_sm90.cu`` kernels with it padded to 16, 32, 64, 80 or
+    128; the ``csrc/flash_*_sm90_d256.cu`` ones above, padded to 256);
+    ``"simt"`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) for f32, whose
+    tolerances bf16 tensor cores cannot meet."""
+    if dtype == torch.bfloat16 and head_dim <= _MAX_HEAD_DIM:
         return "sm90"
     return "simt"
 
@@ -110,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``block_q``/``block_k`` are the reference's tile sizes, kept so calls
     read the same in both packages; the CUDA kernels pick their own tiles
-    and take any Lq, Lk.  The forward's kernel follows ``_forward_route``.
+    and take any Lq, Lk.  The kernels follow ``_route``.
     """
     _check(q, k, v)
     if block_q <= 0 or block_k <= 0:
@@ -185,8 +178,8 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float,
                        causal: bool = True, window: int | None = None,
                        softcap: float | None = None) -> torch.Tensor:
     """dQ (B, Hq, Lq, D) in ``q``'s dtype: the ``_dq_kernel`` kernel of
-    ``_backward_route`` on a CUDA tensor (counted on that route), the plain
-    version on a CPU one."""
+    ``_route`` on a CUDA tensor (counted on that kernel's counter),
+    the plain version on a CPU one."""
     _check_bwd(q, k, v, do, lse, delta)
     _device(q, "flash_attention_dq")
     if q.device.type == "cpu":
@@ -202,8 +195,9 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale: float,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None) -> tuple:
     """Per-q-head dK and dV, each (B, Hq, Lk, D) f32 (the caller sums each
-    GQA group): the ``_dkv_kernel`` kernel of ``_backward_route`` on a
-    CUDA tensor (counted on that route), the plain version on a CPU one."""
+    GQA group): the ``_dkv_kernel`` kernel of ``_route`` on a
+    CUDA tensor (counted on that kernel's counter), the plain version on a
+    CPU one."""
     _check_bwd(q, k, v, do, lse, delta)
     _device(q, "flash_attention_dkv")
     if q.device.type == "cpu":
@@ -236,14 +230,14 @@ def _mask_args(causal, window, softcap) -> tuple:
 def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
     """Launch a forward kernel on checked CUDA tensors, on the current
     stream: ``route`` names it (``"sm90"`` or ``"simt"``), by default
-    ``_forward_route``'s.  Counts the launch on that route's counter, and
-    a launch of the sm90 route's wide-head kernel on ``sm90_d256`` too."""
+    ``_route``'s.  Counts the launch on the kernel's own counter
+    (``_COUNTERS``)."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    route = route or _forward_route(q.dtype, D)
-    if route == "sm90" and _forward_route(q.dtype, D) != "sm90":
+    route = route or _route(q.dtype, D)
+    if route == "sm90" and _route(q.dtype, D) != "sm90":
         raise ValueError(f"the sm90 forward takes bf16 with head_dim up to "
-                         f"{_SM90_FWD_MAX_HEAD_DIM}; got {q.dtype}, {D}")
+                         f"{_MAX_HEAD_DIM}; got {q.dtype}, {D}")
     wide = route == "sm90" and D > _SM90_NARROW_HEAD_DIM
     q, k, v = (_kernel_view(x) for x in (q, k, v))
     o = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
@@ -262,8 +256,7 @@ def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
             *k.stride()[:3], *v.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
     _build.check(lib, code, f"flash_attention ({name})")
-    _ROUTE_COUNTERS[route].launches += 1
-    sm90_d256.launches += wide
+    _COUNTERS[entry].launches += 1
     return o, lse
 
 
@@ -272,18 +265,20 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
     """Launch the backward kernel ``kernel`` (``"dq"`` or ``"dkv"``) into
     ``outs`` on checked CUDA tensors, on the current stream: ``route``
     names its library (``"sm90"`` or ``"simt"``), by default
-    ``_backward_route``'s.  Counts the launch on that route's counter."""
+    ``_route``'s, on its head_dim-256 library above head_dim
+    128.  Counts the launch on the kernel's own counter (``_COUNTERS``)."""
     D = q.shape[3]
-    route = route or _backward_route(q.dtype, D)
-    if route == "sm90" and _backward_route(q.dtype, D) != "sm90":
+    route = route or _route(q.dtype, D)
+    if route == "sm90" and _route(q.dtype, D) != "sm90":
         raise ValueError(f"the sm90 backward takes bf16 with head_dim up to "
-                         f"{_SM90_BWD_MAX_HEAD_DIM}; got {q.dtype}, {D}")
+                         f"{_MAX_HEAD_DIM}; got {q.dtype}, {D}")
+    wide = route == "sm90" and D > _SM90_NARROW_HEAD_DIM
     if outs[0].numel() == 0:
         return
     q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     B, Hq, Lq, _ = q.shape
-    name, entries = _BACKWARD[route]
+    name, entries = _BACKWARD_SM90_D256 if wide else _BACKWARD[route]
     lib = _build.load(name)
     # the sm90 kernels take bf16 only; the CUDA-core ones are told the dtype
     dtype_flag = () if route == "sm90" else (int(q.dtype == torch.bfloat16),)
@@ -295,23 +290,31 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
             B, Hq, k.shape[1], Lq, k.shape[2], D, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
-    _build.check(lib, code, f"flash_attention_{kernel} ({route})")
-    _BWD_COUNTERS[kernel, route].launches += 1
+    _build.check(lib, code, f"flash_attention_{kernel} ({name})")
+    _COUNTERS[entries[kernel]].launches += 1
 
 
-#: kernel launches since the last reset (CPU calls never count); each
-#: wrapper's are its ``"sm90"`` route's, and ``simt_forward``'s,
-#: ``simt_dq``'s and ``simt_dkv``'s the ``"simt"`` route's; ``sm90_d256``
-#: counts the sm90 forward's wide-head kernel alone (its launches are on
-#: ``flash_attention``'s count too)
+#: kernel launches since the last reset (CPU calls never count), one
+#: counter per kernel, each added to by that kernel's launches alone: the
+#: wrappers' own count the sm90 route's first kernels (head_dim up to 128),
+#: the ``d256_*`` counters its head_dim-256 kernels, the ``simt_*`` ones the
+#: CUDA-core kernels
 flash_attention.launches = 0
-sm90_d256 = SimpleNamespace(launches=0)
-simt_forward = SimpleNamespace(launches=0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+d256_forward = SimpleNamespace(launches=0)
+d256_dq = SimpleNamespace(launches=0)
+d256_dkv = SimpleNamespace(launches=0)
+simt_forward = SimpleNamespace(launches=0)
 simt_dq = SimpleNamespace(launches=0)
 simt_dkv = SimpleNamespace(launches=0)
-_ROUTE_COUNTERS = {"sm90": flash_attention, "simt": simt_forward}
-_BWD_COUNTERS = {("dq", "sm90"): flash_attention_dq,
-                 ("dkv", "sm90"): flash_attention_dkv,
-                 ("dq", "simt"): simt_dq, ("dkv", "simt"): simt_dkv}
+#: C entry point -> its kernel's launch counter
+_COUNTERS = {"repro_flash_fwd_sm90": flash_attention,
+             "repro_flash_fwd_sm90_d256": d256_forward,
+             "repro_flash_fwd": simt_forward,
+             "repro_flash_dq_sm90": flash_attention_dq,
+             "repro_flash_dq_sm90_d256": d256_dq,
+             "repro_flash_dq": simt_dq,
+             "repro_flash_dkv_sm90": flash_attention_dkv,
+             "repro_flash_dkv_sm90_d256": d256_dkv,
+             "repro_flash_dkv": simt_dkv}

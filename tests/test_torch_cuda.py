@@ -25,33 +25,38 @@ pytestmark = pytest.mark.cuda
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int8)
 # the package's ``flash_attention`` attribute is the function, not the module
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
-#: the forward's routes, by the name of their launch counter
-ROUTES = {"sm90": "flash_attention", "simt": "flash_attention_simt"}
-#: the backward's routes, by the names of their (dq, dkv) launch counters
-BWD_ROUTES = {"sm90": ("flash_attention_dq", "flash_attention_dkv"),
-              "simt": ("flash_attention_dq_simt", "flash_attention_dkv_simt")}
+#: the forward's routes, by their kernels' launch counters (the sm90
+#: route's head_dim-128 and head_dim-256 kernels)
+ROUTES = {"sm90": ("flash_attention", "flash_attention_d256"),
+          "simt": ("flash_attention_simt",)}
+#: the backward's routes, by their (dq, dkv) kernels' launch counters
+BWD_ROUTES = {"sm90": (("flash_attention_dq", "flash_attention_dq_d256"),
+                       ("flash_attention_dkv", "flash_attention_dkv_d256")),
+              "simt": (("flash_attention_dq_simt",),
+                       ("flash_attention_dkv_simt",))}
 MASKS = [(True, None, None), (False, None, None), (True, 48, None),
          (True, None, 30.0), (False, 48, 30.0)]
 
 
-def _route_launches(fn, wide=False):
-    """``fn()`` and the forward's launches on each route during it; with
-    ``wide``, also the launches of the sm90 route's head_dim-256 kernel
-    (``"d256"``)."""
+def _launches(fn):
+    """``fn()`` and each flash kernel's launches during it."""
     before = K.launch_counts()
     out = fn()
     after = K.launch_counts()
-    names = {**ROUTES, "d256": "flash_attention_d256"} if wide else ROUTES
-    return out, {r: after[n] - before[n] for r, n in names.items()}
+    return out, {n: after[n] - before[n] for n in after
+                 if n.startswith("flash")}
 
 
-def _bwd_route_launches(fn):
-    """``fn()`` and the backward's (dq, dkv) launches on each route."""
-    before = K.launch_counts()
-    out = fn()
-    after = K.launch_counts()
-    return out, {r: tuple(after[n] - before[n] for n in names)
-                 for r, names in BWD_ROUTES.items()}
+def _routes(ran):
+    """The forward's launches on each route: the sum of its kernels'."""
+    return {r: sum(ran[n] for n in names) for r, names in ROUTES.items()}
+
+
+def _bwd_routes(ran):
+    """The backward's (dq, dkv) launches on each route: the sums of its
+    kernels'."""
+    return {r: tuple(sum(ran[n] for n in kind) for kind in names)
+            for r, names in BWD_ROUTES.items()}
 
 
 def _bwd_on_route(args, route):
@@ -145,12 +150,12 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
     q, k, v = (std * torch.randn((B, h, L, D), generator=gen, device=cuda)
                for std, h in ((2 ** 0.5, Hq), (2 ** 0.5, Hkv), (0.5, Hkv)))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    (o, lse), ran = _route_launches(lambda: K.flash_attention(
-        q, k, v, None, causal, window, softcap, return_lse=True), wide=True)
+    (o, lse), ran = _launches(lambda: K.flash_attention(
+        q, k, v, None, causal, window, softcap, return_lse=True))
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
-    assert ran == {"sm90": int(bf16), "simt": int(not bf16),
-                   "d256": int(bf16 and D > 128)}
+    assert _routes(ran) == {"sm90": int(bf16), "simt": int(not bf16)}
+    assert ran["flash_attention_d256"] == int(bf16 and D > 128)
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == dtype and lse.dtype == torch.float32
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
@@ -175,10 +180,11 @@ def test_flash_sm90_kernel_matches_plain(cuda, D, causal, window, softcap):
                .bfloat16().transpose(1, 2)
                for std, h, n in ((2 ** 0.5, Hq, L), (2 ** 0.5, Hkv, Lk),
                                  (0.5, Hkv, Lk)))
-    (o, lse), ran = _route_launches(lambda: K.flash_attention(
-        q, k, v, None, causal, window, softcap, return_lse=True), wide=True)
+    (o, lse), ran = _launches(lambda: K.flash_attention(
+        q, k, v, None, causal, window, softcap, return_lse=True))
     torch.cuda.synchronize()
-    assert ran == {"sm90": 1, "simt": 0, "d256": int(D > 128)}
+    assert _routes(ran) == {"sm90": 1, "simt": 0}
+    assert ran["flash_attention_d256"] == int(D > 128)
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == torch.bfloat16 and o.shape == (B, Hq, L, D)
     torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
@@ -193,9 +199,9 @@ def test_flash_simt_route_takes_bf16_when_named(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn((2, h, 130, 128), generator=gen, device=cuda)
                .bfloat16() for h in (8, 2, 2))
-    (simt, _), ran = _route_launches(lambda: FA._launch(
+    (simt, _), ran = _launches(lambda: FA._launch(
         q, k, v, 128 ** -0.5, True, None, None, route="simt"))
-    assert ran == {"sm90": 0, "simt": 1}
+    assert _routes(ran) == {"sm90": 0, "simt": 1}
     sm90 = K.flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref = flash_attention_ref(q, k, v)[0].float()
@@ -243,10 +249,9 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
     o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
-    (dq, dk, dv), ran = _bwd_route_launches(
-        lambda: _bwd_on_route(args, "simt"))
+    (dq, dk, dv), ran = _launches(lambda: _bwd_on_route(args, "simt"))
     torch.cuda.synchronize()
-    assert ran == {"sm90": (0, 0), "simt": (1, 1)}
+    assert _bwd_routes(ran) == {"sm90": (0, 0), "simt": (1, 1)}
     rdk, rdv = flash_attention_dkv_ref(*args)
     f32 = dict(rtol=1e-3, atol=1e-4)
     assert dq.dtype == dtype and dk.dtype == dv.dtype == torch.float32
@@ -257,19 +262,22 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
     torch.testing.assert_close(dv, rdv, **f32)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 136, 200, 256])
 @pytest.mark.parametrize("causal,window,softcap", MASKS)
 @pytest.mark.parametrize("g,strided", [(1, False), (4, True)],
                          ids=["mha", "gqa4_strided"])
 def test_flash_bwd_sm90_kernels_match_plain(cuda, D, causal, window, softcap,
                                             g, strided):
-    """The sm90 backward kernels (bf16, every width they are built for, the
-    five masks) against their plain versions: dQ within one bf16 step
+    """The sm90 backward kernels (bf16, every width they are built for:
+    16, 32, 64, 80 and 128 on ``csrc/flash_bwd_sm90.cu``, 256 on
+    ``csrc/flash_bwd_sm90_d256.cu``, with 136 and 200 zero-padded to it;
+    the five masks) against their plain versions: dQ within one bf16 step
     (rtol 2^-7, atol 1e-4), the per-q-head dK, dV within the f32 gradient
     tolerance (rtol 1e-3, atol 1e-4).  Ragged Lq 150 and Lk 100 (no
-    multiple of the 128- or 64-row tiles), GQA groups of 1 and of 4, and
-    q, k, v, dO as (B, H, L, D) views of (B, L, H, D) tensors read in
-    place; the wrappers' calls counted once each on the sm90 route."""
+    multiple of the 128-, 64- or 32-row tiles), GQA groups of 1 and of 4,
+    and q, k, v, dO as (B, H, L, D) views of (B, L, H, D) tensors read in
+    place; the wrappers' calls counted once each on the sm90 route, on its
+    head_dim-256 kernels above 128."""
     gen = torch.Generator(device=cuda).manual_seed(D + 11 * g)
     B, Hkv, L, Lk = 2, 2, 150, 100
     Hq = g * Hkv
@@ -287,10 +295,12 @@ def test_flash_bwd_sm90_kernels_match_plain(cuda, D, causal, window, softcap,
     o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
-    (dq, (dk, dv)), ran = _bwd_route_launches(
+    (dq, (dk, dv)), ran = _launches(
         lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
     torch.cuda.synchronize()
-    assert ran == {"sm90": (1, 1), "simt": (0, 0)}
+    assert _bwd_routes(ran) == {"sm90": (1, 1), "simt": (0, 0)}
+    assert ran["flash_attention_dq_d256"] == \
+        ran["flash_attention_dkv_d256"] == int(D > 128)
     assert dq.dtype == torch.bfloat16 and dq.shape == (B, Hq, L, D)
     assert dk.shape == dv.shape == (B, Hq, Lk, D)
     torch.testing.assert_close(dq.float(),
@@ -319,12 +329,13 @@ def test_flash_attention_grads_on_the_card(cuda):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
-def test_bf16_d256_gradients_run_the_cuda_core_backward(cuda):
-    """bf16 at head_dim 256 (gemma2-2b's width): the forward runs the sm90
-    route's head_dim-256 kernel, the backward the CUDA-core dq and dkv
-    (``_backward_route``), and the gradients match the plain backward on
-    the same O and LSE: dQ, dK, dV each rounded once to bf16 in both
-    (rtol 2^-7, atol 1e-4)."""
+def test_bf16_d256_gradients_run_the_d256_sm90_backward(cuda):
+    """bf16 at head_dim 256 under gemma2-2b's masks (causal, window 4096,
+    softcap 50; ragged L 130, GQA 8:4): the forward runs the sm90 route's
+    head_dim-256 kernel, the backward its head_dim-256 dq and dkv
+    (``_route``), no other flash kernel runs, and the gradients
+    match the plain backward on the same O and LSE: dQ, dK, dV each
+    rounded once to bf16 in both (rtol 2^-7, atol 1e-4)."""
     gen = torch.Generator(device=cuda).manual_seed(256)
     q, k, v = ((std * torch.randn((2, 130, h, 256), generator=gen,
                                   device=cuda)).bfloat16().transpose(1, 2)
@@ -332,16 +343,19 @@ def test_bf16_d256_gradients_run_the_cuda_core_backward(cuda):
                for std, h in ((2 ** 0.5, 8), (2 ** 0.5, 4), (0.5, 4)))
     do = (0.5 * torch.randn((2, 8, 130, 256), generator=gen,
                             device=cuda)).bfloat16()
-    before = K.launch_counts()
-    o, lse = K.flash_attention(q, k, v, None, True, 4096, 50.0,
-                               return_lse=True)
-    got = torch.autograd.grad(o, (q, k, v), do)
-    after = K.launch_counts()
-    ran = {n: after[n] - before[n] for n in after if n.startswith("flash")}
-    assert ran == {"flash_attention": 1, "flash_attention_d256": 1,
+
+    def run():
+        o, lse = K.flash_attention(q, k, v, None, True, 4096, 50.0,
+                                   return_lse=True)
+        return o, lse, torch.autograd.grad(o, (q, k, v), do)
+
+    (o, lse, got), ran = _launches(run)
+    assert ran == {"flash_attention": 0, "flash_attention_d256": 1,
                    "flash_attention_simt": 0, "flash_attention_dq": 0,
-                   "flash_attention_dkv": 0, "flash_attention_dq_simt": 1,
-                   "flash_attention_dkv_simt": 1}
+                   "flash_attention_dq_d256": 1,
+                   "flash_attention_dq_simt": 0, "flash_attention_dkv": 0,
+                   "flash_attention_dkv_d256": 1,
+                   "flash_attention_dkv_simt": 0}
     want = FA.flash_attention_bwd(*(x.detach().cpu() for x in (q, k, v, o,
                                                               lse, do)),
                                   256 ** -0.5, True, 4096, 50.0)
@@ -357,10 +371,10 @@ def test_bf16_d256_gradients_run_the_cuda_core_backward(cuda):
                          ids=["sm90", "sm90_d256", "simt"])
 def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
     """B*Hq = 65536, one past a grid's y extent: q (4096, 16, 8, D), k and
-    v (4096, 2, 8, D), causal.  The forward (sm90 route for bf16, at D 16
-    and on its head_dim-256 kernel; CUDA-core for f32) and the backward
-    (sm90 for bf16 D 16, CUDA-core otherwise) against their plain
-    versions within the tolerances of the tests above."""
+    v (4096, 2, 8, D), causal.  The forward and the backward (sm90 route
+    for bf16, at D 16 and on its head_dim-256 kernels; CUDA-core for f32)
+    against their plain versions within the tolerances of the tests
+    above."""
     gen = torch.Generator(device=cuda).manual_seed(65536 + D)
     q, k, v, do = ((std * torch.randn(shape, generator=gen, device=cuda))
                    .to(dtype) for std, shape in (
@@ -368,10 +382,10 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
                        (2 ** 0.5, (4096, 2, 8, D)), (0.5, (4096, 2, 8, D)),
                        (0.5, (4096, 16, 8, D))))
     bf16 = dtype == torch.bfloat16
-    (o, lse), ran = _route_launches(lambda: K.flash_attention(
-        q, k, v, return_lse=True), wide=True)
-    assert ran == {"sm90": int(bf16), "simt": int(not bf16),
-                   "d256": int(D > 128)}
+    (o, lse), ran = _launches(lambda: K.flash_attention(
+        q, k, v, return_lse=True))
+    assert _routes(ran) == {"sm90": int(bf16), "simt": int(not bf16)}
+    assert ran["flash_attention_d256"] == int(D > 128)
     ro, rlse = flash_attention_ref(q, k, v)
     torch.testing.assert_close(o.float(), ro.float(),
                                **(dict(rtol=2 ** -7, atol=1e-5) if bf16
@@ -380,10 +394,13 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
     scale = D ** -0.5
     delta = (do.float() * ro.float()).sum(-1)
     args = (q, k, v, do, rlse, delta, scale, True, None, None)
-    (dq, (dk, dv)), ran = _bwd_route_launches(
+    (dq, (dk, dv)), ran = _launches(
         lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
-    route = FA._backward_route(dtype, D)
-    assert ran == {r: (int(r == route),) * 2 for r in BWD_ROUTES}
+    route = FA._route(dtype, D)
+    assert _bwd_routes(ran) == {r: (int(r == route),) * 2
+                                for r in BWD_ROUTES}
+    assert ran["flash_attention_dq_d256"] == \
+        ran["flash_attention_dkv_d256"] == int(D > 128)
     f32 = dict(rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(
         dq.float(), flash_attention_dq_ref(*args).float(),
@@ -395,19 +412,19 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
 
 @pytest.mark.parametrize("dtype,D,long_q,long_k",
                          [(torch.bfloat16, 16, (1 << 23) + 100, 1 << 23),
-                          (torch.bfloat16, 256, (1 << 23) + 100, 1 << 21),
+                          (torch.bfloat16, 256, (1 << 23) + 100, 1 << 22),
                           (torch.float32, 16, (1 << 22) + 100, 1 << 22)],
                          ids=["sm90", "sm90_d256", "simt"])
 def test_flash_kernels_fold_long_sequences_into_grid_z(cuda, dtype, D,
                                                        long_q, long_k):
-    """More tiles than a grid's y extent (65,535) holds: each kernel's
-    tile rows times 65,536 or more.  A long Lq for the forward and dQ
-    (sm90 and head_dim-256 tiles of 128 rows, CUDA-core ones of 64), a
-    long Lk for dK, dV (128, 64, or 32 at D 256), against 16 keys or
-    queries, non-causal.  Each output row depends on its own row and the
-    short side alone, so the plain versions check the first and last 256
-    rows, the last ones in grid z's second slice, within the tolerances
-    of the tests above."""
+    """More tiles than a grid's y extent (65,535) holds: each kernel's tile
+    rows times 65,536 or more.  A long Lq for the forward and dQ (sm90 and
+    head_dim-256 tiles of 128 rows, CUDA-core ones of 64), a long Lk for
+    dK, dV (sm90 tiles of 128 rows, head_dim-256 and CUDA-core ones of 64),
+    against 16 keys or queries, non-causal.  Each output row depends on its
+    own row and the short side alone, so the plain versions check the first
+    and last 256 rows, the last ones in grid z's second slice, within the
+    tolerances of the tests above."""
     gen = torch.Generator(device=cuda).manual_seed(D + long_q)
     bf16 = dtype == torch.bfloat16
     o_tol = dict(rtol=2 ** -7, atol=1e-5) if bf16 else \

@@ -185,7 +185,7 @@ def test_forward_route(dtype, D):
     16, 32, 64, 80 or 128 on its first kernel, to 256 on its head_dim-256
     kernel); f32 the CUDA-core kernel."""
     want = "sm90" if dtype == torch.bfloat16 else "simt"
-    assert FA._forward_route(dtype, D) == want
+    assert FA._route(dtype, D) == want
 
 
 def test_sm90_route_refuses_what_it_cannot_run():
