@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
 0. device probe (torch, CUDA, nvcc, card, power limit);
 1. kernel build from ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a);
 2. every kernel against its plain PyTorch version on the card, bit-exact:
-   the unit sweeps, the main path's shapes, and the 3-D merge world;
+   the unit sweeps, the main path's shapes (``pack_rows`` also as the main
+   path calls it, ``ops.pack_tables`` on host-checked tables into an
+   unfilled output, and on a plan that leaves rows uncovered, which must
+   come out zero), and the 3-D merge world;
 3. the main path at full size: a WarpX-style 2-D field output step (six
    8192 x 8192 f32 components in 256 x 256 blocks over 48 load-balanced
    processes) written through ``Dataset.write`` and read back through
@@ -19,7 +22,8 @@ Phases, each printing one JSON line:
 4. kernel times at the main path's shapes (CUDA events around runs of
    20 back-to-back calls, median of 5 runs),
    beside the memory-bandwidth bound, the plain version and one PyTorch
-   call computing the same function;
+   call computing the same function; ``pack_rows`` as its kernel, its
+   public wrapper and ``pack_tables`` as the main path calls it;
 5. launch counts of the main-path run; every kernel must have run;
 6. the flash-attention forward's kernels against their plain version on
    the card, within tolerance: masks, GQA groups, head dims 16-256
@@ -29,7 +33,9 @@ Phases, each printing one JSON line:
    window of 512 and a softcap); the launch counts show that each bf16
    case ran the sm90 route (``csrc/flash_fwd_sm90.cu`` up to head_dim
    128, ``csrc/flash_fwd_sm90_d256.cu`` above) and each f32 case the
-   CUDA-core kernel (``csrc/flash_fwd.cu``);
+   3xTF32 tensor-core kernel (``csrc/flash_fwd_f32tc.cu``), each route's
+   total equal to the cases sent to it; the CUDA-core kernel
+   (``csrc/flash_fwd.cu``), named, on the f32 serving shape;
 7. the serving path at full width: ``ServeEngine.generate`` on
    qwen2.5-3b (36 layers, random weights from a seed, attention
    projections at true fan-in: see ``serving_params``) with the flash
@@ -37,16 +43,19 @@ Phases, each printing one JSON line:
    counts reset just before it and read just after; then its prefill
    logits against the q-chunked route's on the same weights (bf16 and
    f32 compute, each flash prefill's launch counts read on their own: the
-   bf16 one runs the sm90 kernel, the f32 one the CUDA-core kernel), and
-   a profile of prefill and decode;
+   bf16 one runs the sm90 kernel, the f32 one the 3xTF32 kernel), and a
+   profile of prefill and decode;
 8. flash-attention forward times at the serving and training shapes and
    at gemma2-2b's (as phase 4's): the sm90 route's kernel beside its
    bound, the CUDA-core kernel on the same bf16 inputs, the plain version
    and ``scaled_dot_product_attention`` (gemma2-2b's also without the
-   softcap, which SDPA lacks); and the CUDA-core kernel on the f32 inputs
-   of the f32 serving path, beside its bound and SDPA's;
+   softcap, which SDPA lacks); and on f32 inputs at the same three shapes
+   the 3xTF32 kernel beside the CUDA-core kernel on the same inputs, both
+   bounds (three TF32 products at the TF32 peak, and f32 on the CUDA
+   cores), the plain version and SDPA in f32;
 9. launch counts of the serving run; the sm90 kernel must have run once
-   per layer at least, the head_dim-256 and CUDA-core kernels never;
+   per layer at least, the head_dim-256, 3xTF32 and CUDA-core forwards
+   never;
 10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
     forward's sweep, the training shape given as strided views (on both
@@ -63,7 +72,8 @@ Phases, each printing one JSON line:
     global batch 2 x 2048 tokens from the synthetic pipeline: first the
     flash route's loss and gradients against the q-chunked route's (f32
     and bf16 compute; the bf16 route's backward runs the sm90 kernels, the
-    f32 one the CUDA-core kernels), then ``Trainer.run`` for 6 AdamW steps
+    f32 one the CUDA-core kernels after the 3xTF32 forward), then
+    ``Trainer.run`` for 6 AdamW steps
     on one batch (``TRAIN_OPT``), launch counts reset just before it and
     read just after (36 sm90 dq and 36 sm90 dkv launches a step, none on
     the CUDA-core route), the step times, peak memory, and a profile of
@@ -79,16 +89,16 @@ Phases, each printing one JSON line:
     local and global layers, softcaps; random weights: see
     ``training_params``), as phase 7 serves qwen2.5-3b: the bf16 prefill
     launches the sm90 route's head_dim-256 kernel once per layer and the
-    CUDA-core forward never, the f32 route comparison the CUDA-core
-    forward once per layer, and the profile names the flash forward's
-    device time in the prefill;
+    CUDA-core forward never, the f32 route comparison the 3xTF32 forward
+    once per layer, and the profile names the flash forward's device time
+    in the prefill;
 14. the training path at gemma2-2b's full width, as phase 11 trains
     qwen2.5-3b (the same traffic, steps and checks): 26 launches a step
     of each head_dim-256 sm90 backward kernel
     (``csrc/flash_bwd_sm90_d256.cu``), 52 of the head_dim-256 forward,
-    none on a CUDA-core route; the f32 route comparison runs the
-    CUDA-core backward once per layer, and the profile names the flash
-    backward's device time in a step.
+    none on a CUDA-core route; the f32 route comparison runs the 3xTF32
+    forward and the CUDA-core backward once per layer, and the profile
+    names the flash backward's device time in a step.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -119,6 +129,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOPS = 67e12
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet); the 3xTF32
+#: forward does three TF32 products for each useful one
+TF32_FLOPS = 495e12
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 FIELD = (8192, 8192)
 BLOCK = (256, 256)
@@ -153,7 +167,7 @@ FLASH_LONG_WINDOW = dict(B=1, Hq=16, Hkv=2, L=2048, D=128, causal=True,
                          window=512, softcap=30.0)
 #: the flash kernels' routes (``flash_attention._route``); ``flash_kernel``
 #: names each route's kernel for a head dim
-FLASH_ROUTES = ("sm90", "simt")
+FLASH_ROUTES = ("sm90", "f32tc", "simt")
 LSE_TOL = (1e-4, 1e-4)
 #: flash vs q-chunked prefill logits: max |d| / max |q-chunked|
 LOGIT_GAP = 2e-2
@@ -191,6 +205,9 @@ KERNELS = {
     "flash_attention_d256": (
         "src/repro_torch/kernels/csrc/flash_fwd_sm90_d256.cu",
         "src/repro/kernels/flash_attention.py:39"),
+    "flash_attention_f32tc": (
+        "src/repro_torch/kernels/csrc/flash_fwd_f32tc.cu",
+        "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_simt": ("src/repro_torch/kernels/csrc/flash_fwd.cu",
                              "src/repro/kernels/flash_attention.py:39"),
     "flash_attention_dq": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
@@ -214,10 +231,11 @@ FLASH_KERNELS = [n for n in KERNELS if n.startswith("flash_attention")]
 def flash_kernel(kind: str, route: str, head_dim: int) -> str:
     """The launch counter of the flash kernel ``kind`` (``"fwd"``,
     ``"dq"`` or ``"dkv"``) that ``route`` runs at ``head_dim``: the sm90
-    route's head_dim-256 kernels above 128."""
+    route's head_dim-256 kernels above 128; the f32tc route has a forward
+    only."""
     name = "flash_attention" + ("" if kind == "fwd" else f"_{kind}")
-    if route == "simt":
-        return name + "_simt"
+    if route in ("simt", "f32tc"):
+        return f"{name}_{route}"
     return name + ("_d256" if head_dim > 128 else "")
 
 
@@ -359,7 +377,8 @@ def build() -> dict:
     libs = {n: {"seconds": v["seconds"], "ptxas": ptxas_report(v["log"])}
             for n, v in info.items()}
     for n, v in libs.items():
-        if n.endswith(("_sm90", "_sm90_d256")) and v["ptxas"]["spills"]:
+        if n.endswith(("_sm90", "_sm90_d256", "_f32tc")) and \
+                v["ptxas"]["spills"]:
             raise RuntimeError(f"{n} spills: {v['ptxas']['spills']}")
     return {"seconds": time.perf_counter() - t0, "libs": libs}
 
@@ -391,9 +410,13 @@ def slice_tables(layout):
 def check_kernels(torch, dev, layout) -> dict:
     from repro_torch.core import (build_merge_plan, simulate_load_balance,
                                   uniform_grid_blocks)
+    from repro_torch.core.blocks import Block
+    from repro_torch.core.clustering import Cluster
+    from repro_torch.core.merge import plan_from_clusters
     from repro_torch.kernels import (chunked_to_rowmajor,
                                      merge_blocks_device, pack_rows,
                                      rowmajor_to_chunked)
+    from repro_torch.kernels.ops import pack_tables
     from repro_torch.kernels.ref import (chunked_to_rowmajor_ref,
                                          pack_rows_ref,
                                          rowmajor_to_chunked_ref)
@@ -442,8 +465,29 @@ def check_kernels(torch, dev, layout) -> dict:
     src = torch.randn(total, generator=gen, device=dev)
     sr_t, dr_t = (torch.from_numpy(a).to(dev) for a in (sr, dr))
     kw = dict(n_dst_rows=total // width, width=width)
-    err["pack_rows"] = max_abs_err(pack_rows(src, sr_t, dr_t, **kw),
-                                   pack_rows_ref(src, sr_t, dr_t, **kw))
+    want = pack_rows_ref(src, sr_t, dr_t, **kw)
+    err["pack_rows"] = max_abs_err(pack_rows(src, sr_t, dr_t, **kw), want)
+    # as the main path calls it: the numpy tables checked on the host, the
+    # output left unfilled (they name every row), in memory the allocator
+    # has just handed out full of NaN
+    torch.full((total,), float("nan"), device=dev)
+    max_abs_err(pack_tables(src, slice_tables(layout), _covered=True),
+                want.reshape(-1))
+    # a plan whose cluster holds rows no block names: they come out zero,
+    # though the allocator hands out memory full of NaN
+    holey = plan_from_clusters([Cluster(
+        Block((0, 0), (64, 96)),
+        (Block((0, 0), (32, 64), block_id=0),
+         Block((32, 32), (64, 96), block_id=1)))])
+    parts = {b: torch.randn((32, 64), generator=gen, device=dev)
+             for b in (0, 1)}
+    ref = torch.zeros((64, 96), device=dev)
+    ref[:32, :64], ref[32:, 32:] = parts[0], parts[1]
+    torch.full((64 * 96,), float("nan"), device=dev)
+    (got,) = merge_blocks_device(holey, parts)
+    max_abs_err(got, ref)
+    cases += 2
+    del want, got
     x = torch.randn((8, 8, 1024, 1024), generator=gen, device=dev)
     rm = chunked_to_rowmajor(x, chunk=(1024, 1024))
     err["chunked_to_rowmajor"] = max_abs_err(rm, chunked_to_rowmajor_ref(x))
@@ -545,11 +589,13 @@ def main_path(torch, dev, blocks, layouts) -> dict:
 
 def timings(torch, dev, layout) -> dict:
     from repro_torch.kernels import pack_blocks, relayout
+    from repro_torch.kernels.ops import pack_tables
     from repro_torch.kernels.ref import (chunked_to_rowmajor_ref,
                                          pack_rows_ref,
                                          rowmajor_to_chunked_ref)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    width, sr, dr, total, _ = slice_tables(layout)
+    tables = slice_tables(layout)
+    width, sr, dr, total, _ = tables
     src = torch.randn(total, generator=gen, device=dev)
     sr_t, dr_t = (torch.from_numpy(a).to(dev) for a in (sr, dr))
     n_dst = total // width
@@ -563,6 +609,8 @@ def timings(torch, dev, layout) -> dict:
                                                  width)),
         "wrapper_ms": time_ms(lambda: pack_blocks.pack_rows(
             src, sr_t, dr_t, n_dst_rows=n_dst, width=width)),
+        "main_path_ms": time_ms(lambda: pack_tables(src, tables,
+                                                    _covered=True)),
         "plain_ms": time_ms(lambda: pack_rows_ref(
             src, sr_t, dr_t, n_dst_rows=n_dst, width=width)),
         "library_ms": time_ms(lambda: copy_dst.copy_(src)),
@@ -615,20 +663,26 @@ def _qkv(torch, gen, dev, dtype, B, Hq, Hkv, L, D, Lk=None, qk_std=0.5,
                                     (0.5, (B, Hkv, Lk, D))))
 
 
-def _flash_case(torch, q, k, v, causal, window, softcap) -> tuple:
+def _flash_case(torch, q, k, v, causal, window, softcap,
+                route=None) -> tuple:
     """Kernel vs plain version: (max |dO|, max |dLSE|, the route that
     ran), raising beyond the tolerances and unless exactly one launch was
     counted, on the kernel of the route ``_route`` picks for these
-    inputs (``flash_kernel``), and none on any other flash kernel."""
+    inputs (``flash_kernel``), or of ``route`` named through the
+    module-private launcher, and none on any other flash kernel."""
     import repro_torch.kernels as K
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     FA = sys.modules["repro_torch.kernels.flash_attention"]
     before = K.launch_counts()
-    o, lse = flash_attention(q, k, v, None, causal, window, softcap,
-                             return_lse=True)
+    if route is None:
+        o, lse = flash_attention(q, k, v, None, causal, window, softcap,
+                                 return_lse=True)
+    else:
+        o, lse = FA._launch(q, k, v, 1.0 / math.sqrt(q.shape[-1]), causal,
+                            window, softcap, route=route)
     after = K.launch_counts()
-    route = FA._route(q.dtype, q.shape[-1])
+    route = route or FA._route(q.dtype, q.shape[-1], "fwd")
     ran = flash_deltas(before, after)
     kernel = flash_kernel("fwd", route, q.shape[-1])
     want = {n: int(n == kernel) for n in FLASH_KERNELS}
@@ -649,6 +703,7 @@ def check_flash(torch, dev) -> dict:
              "window_softcap": (False, 48, 30.0)}
     groups: dict = {}
     routes = dict.fromkeys(FLASH_ROUTES, 0)
+    expected = dict.fromkeys(FLASH_ROUTES, 0)
     cases = 0
     # lengths that are no multiple of the kernel's 64-row tiles, one case
     # with Lq != Lk, and head dims 24, 48, 136, 200 that run on zero-padded
@@ -665,40 +720,51 @@ def check_flash(torch, dev) -> dict:
                                             softcap)
                     worst = [max(a, b) for a, b in zip(worst, e)]
                     routes[route] += 1
+                    expected["sm90" if dtype == torch.bfloat16
+                             else "f32tc"] += 1
                     cases += 1
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = {
                 "o": worst[0], "lse": worst[1]}
     shapes = {}
-    # bf16 on the sm90 route (gemma2's on its head_dim-256 kernel); the f32
-    # serving prefill's shape on the CUDA-core route
-    for name, shp, dtype, want in (
-            ("serving", FLASH_MAIN, torch.bfloat16, "sm90"),
-            ("gemma2", FLASH_GEMMA2, torch.bfloat16, "sm90"),
-            ("d80", FLASH_D80, torch.bfloat16, "sm90"),
-            ("long_window", FLASH_LONG_WINDOW, torch.bfloat16, "sm90"),
-            ("serving_f32", FLASH_MAIN, torch.float32, "simt")):
+    # bf16 on the sm90 route (gemma2's on its head_dim-256 kernel); f32 at
+    # the serving prefill's and gemma2-2b's shapes on the 3xTF32 route; the
+    # CUDA-core forward, which no path runs now, named at the serving shape
+    for name, shp, dtype, want, named in (
+            ("serving", FLASH_MAIN, torch.bfloat16, "sm90", None),
+            ("gemma2", FLASH_GEMMA2, torch.bfloat16, "sm90", None),
+            ("d80", FLASH_D80, torch.bfloat16, "sm90", None),
+            ("long_window", FLASH_LONG_WINDOW, torch.bfloat16, "sm90", None),
+            ("serving_f32", FLASH_MAIN, torch.float32, "f32tc", None),
+            ("gemma2_f32", FLASH_GEMMA2, torch.float32, "f32tc", None),
+            ("serving_f32_simt", FLASH_MAIN, torch.float32, "simt",
+             "simt")):
         # as attention hands them over: (B, H, L, D) views of (B, L, H, D)
         q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                    for x in _qkv(torch, gen, dev, dtype,
                                  qk_std=math.sqrt(2.0), **shp))
         *e, route = _flash_case(torch, q, k, v, shp["causal"], shp["window"],
-                                shp["softcap"])
+                                shp["softcap"], named)
         if route != want:
             raise AssertionError(f"the {name} shape ran the {route} route")
         shapes[name] = {"shape": shp, "dtype": str(dtype).split(".")[-1],
                         "o": e[0], "lse": e[1], "route": route}
         routes[route] += 1
+        expected[want] += 1
         cases += 1
         del q, k, v
     torch.cuda.empty_cache()
+    if routes != expected:
+        raise AssertionError(f"cases by route {routes}, expected {expected}")
     return {"cases": cases, "cases_by_route": routes,
             "tolerance": {"o": FLASH_TOL, "lse": LSE_TOL,
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "main_shapes": shapes,
             "max_abs_err": {"flash_attention": shapes["serving"]["o"],
                             "flash_attention_d256": shapes["gemma2"]["o"],
+                            "flash_attention_f32tc":
+                                shapes["serving_f32"]["o"],
                             "flash_attention_simt":
-                                shapes["serving_f32"]["o"]}}
+                                shapes["serving_f32_simt"]["o"]}}
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -751,8 +817,8 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
         for lg in (flash_logits, base_logits):
             if not torch.isfinite(lg).all():
                 raise AssertionError("non-finite prefill logits")
-        # bf16 compute runs the sm90 route, f32 the CUDA-core kernel
-        route = "sm90" if dtype == torch.bfloat16 else "simt"
+        # bf16 compute runs the sm90 route, f32 the 3xTF32 kernel
+        route = "sm90" if dtype == torch.bfloat16 else "f32tc"
         kernel = flash_kernel("fwd", route, cfg.head_dim)
         ran = {n: flash_launches[n] for n in FLASH_KERNELS}
         want = {n: cfg.n_layers * (n == kernel) for n in FLASH_KERNELS}
@@ -901,16 +967,21 @@ def flash_timings(torch, dev) -> dict:
     ``ms_no_softcap``, as SDPA has none) and the CUDA-core kernel on the
     same inputs (``simt_ms``, through the wrapper's module-private launcher
     that names the route), beside the bound, the plain version and SDPA
-    (causal; gemma2-2b's window of 4096 masks nothing at L 2048).  Then the
-    CUDA-core kernel on the path it serves here, the f32 prefill's inputs
-    at the serving shape, beside its f32 bound and SDPA in f32."""
+    (causal; gemma2-2b's window of 4096 masks nothing at L 2048).  Then
+    f32 inputs at the same three shapes, the f32 prefill's and the f32
+    training comparison's: the 3xTF32 kernel (``ms``, through the
+    wrapper) beside the CUDA-core kernel on the same inputs
+    (``simt_ms``), the 3xTF32 bound (``bound_ms``: three TF32 products a
+    useful flop at the TF32 peak) and the CUDA-core one
+    (``simt_bound_ms``: f32 at 67 TFLOP/s), the plain version and SDPA in
+    f32."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     FA = sys.modules["repro_torch.kernels.flash_attention"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
 
-    def timed(shp, dtype, peak, kernels) -> dict:
+    def timed(shp, dtype, peak, kernels, simt_peak=None) -> dict:
         q, k, v = _qkv(torch, gen, dev, dtype, **shp)
         B, Hq, L, D = q.shape
         scale = 1.0 / D ** 0.5
@@ -935,6 +1006,8 @@ def flash_timings(torch, dev) -> dict:
             res[key] = res[key]["median"]
         for key in kernels:
             res[key.replace("ms", "tflops")] = flops / res[key] / 1e9
+        if simt_peak is not None:
+            res["simt_bound_ms"] = flops / simt_peak * 1e3
         return res
 
     def simt(q, k, v, scale, causal, window, softcap):
@@ -944,13 +1017,18 @@ def flash_timings(torch, dev) -> dict:
     def no_softcap(q, k, v, scale, causal, window, _):
         return flash_attention(q, k, v, scale, causal, window)
 
-    bf16 = {"ms": flash_attention, "simt_ms": simt}
-    out = {"serving": timed(FLASH_MAIN, torch.bfloat16, BF16_FLOPS, bf16),
-           "training": timed(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, bf16),
+    both = {"ms": flash_attention, "simt_ms": simt}
+    out = {"serving": timed(FLASH_MAIN, torch.bfloat16, BF16_FLOPS, both),
+           "training": timed(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, both),
            "gemma2": timed(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS,
-                           {**bf16, "ms_no_softcap": no_softcap}),
-           "simt_f32": timed(FLASH_MAIN, torch.float32, F32_FLOPS,
-                             {"ms": simt})}
+                           {**both, "ms_no_softcap": no_softcap}),
+           "f32_serving": timed(FLASH_MAIN, torch.float32, TF32X3_FLOPS,
+                                both, F32_FLOPS),
+           "f32_training": timed(FLASH_TRAIN, torch.float32, TF32X3_FLOPS,
+                                 both, F32_FLOPS),
+           "f32_gemma2": timed(FLASH_GEMMA2, torch.float32, TF32X3_FLOPS,
+                               {**both, "ms_no_softcap": no_softcap},
+                               F32_FLOPS)}
     torch.cuda.empty_cache()
     return out
 
@@ -997,7 +1075,7 @@ def _bwd_case(torch, q, k, v, causal, window, softcap, gen,
           ).to(q.dtype)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
-    want = route or FA._route(q.dtype, q.shape[-1])
+    want = route or FA._route(q.dtype, q.shape[-1], "bwd")
     before = K.launch_counts()
     dq, dk, dv = (*_bwd_kernel(torch, "dq", args, route),
                   *_bwd_kernel(torch, "dkv", args, route))
@@ -1175,7 +1253,8 @@ def check_training(trained: dict) -> None:
     route's per leaf and bf16 losses within LOSS_GAP_BF16; the bf16 route
     comparison's backward on the sm90 kernels (``flash_kernel``: the
     head_dim-256 ones above 128) and the f32 one's on the CUDA-core
-    kernels, one dq and one dkv a layer; every loss and grad norm finite
+    kernels, one dq and one dkv a layer, after the 3xTF32 forward as many
+    times as the bf16 one's sm90 forward; every loss and grad norm finite
     and positive; the last loss below the first; per step one launch a
     layer of the sm90 dq and dkv kernels for this head dim, two of its
     sm90 forward, none on any other flash kernel (the CUDA-core ones
@@ -1190,6 +1269,15 @@ def check_training(trained: dict) -> None:
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"the {dtype} route comparison's backward "
                                  f"launched {got}, expected {want}")
+    fwd = [name for name in FLASH_KERNELS if name not in bwd]
+    got = routes["float32"]["flash_launches"]
+    want = {name: 0 for name in fwd}
+    want["flash_attention_f32tc"] = \
+        routes["bfloat16"]["flash_launches"][flash_kernel("fwd", "sm90", D)]
+    if not want["flash_attention_f32tc"] or \
+            {k: got[k] for k in want} != want:
+        raise AssertionError(f"the float32 route comparison's forward "
+                             f"launched {got}, expected {want}")
     if routes["float32"]["over_limit"]:
         raise AssertionError(f"f32 gradients of the flash route differ from "
                              f"the q-chunked route's: "
@@ -1216,10 +1304,11 @@ def check_training(trained: dict) -> None:
 def check_gemma2_serving(served: dict) -> None:
     """The gemma2-2b serving run's gates beyond ``serve``'s own: its one
     bf16 prefill launched the sm90 forward once per layer, every launch on
-    the head_dim-256 kernel, and the CUDA-core forward never."""
+    the head_dim-256 kernel, and the f32 forwards never."""
     n, got = served["layers"], served["launches"]
     if not (got["flash_attention_d256"] == n and got["flash_attention"] == 0
-            and got["flash_attention_simt"] == 0):
+            and got["flash_attention_simt"] == 0
+            and got["flash_attention_f32tc"] == 0):
         raise AssertionError(f"gemma2-2b serving launched {got}, not one "
                              f"head_dim-256 sm90 forward per layer ({n})")
 
@@ -1333,7 +1422,8 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
 
     top = sorted(rows, key=lambda r: -r[1])[:10]
     # each kernel's share of the step's device time, by its own name
-    kernels = ("flash_fwd_sm90", "flash_fwd_sm90_d256", "flash_fwd",
+    kernels = ("flash_fwd_sm90", "flash_fwd_sm90_d256", "flash_fwd_f32tc",
+               "flash_fwd",
                "flash_dq_sm90", "flash_dq_sm90_d256", "flash_dq",
                "flash_dkv_sm90", "flash_dkv_sm90_d256", "flash_dkv")
     return {"wall_ms": wall * 1e3,
@@ -1509,7 +1599,7 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_times = flash_timings(torch, dev)
     emit(8, seconds=time.perf_counter() - t0, flash_attention=flash_times,
-         bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS,
+         bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS, tf32_flops=TF32_FLOPS,
          hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     serve_launches = served["launches"]
@@ -1517,12 +1607,14 @@ def main() -> int:
     n_layers = served["layers"]
     if serve_launches["flash_attention"] < n_layers or \
             serve_launches["flash_attention_simt"] or \
+            serve_launches["flash_attention_f32tc"] or \
             serve_launches["flash_attention_d256"]:
         raise AssertionError(
             f"serving launched the sm90 flash kernel "
             f"{serve_launches['flash_attention']} times for {n_layers} "
             f"layers, the CUDA-core one "
-            f"{serve_launches['flash_attention_simt']} times, the "
+            f"{serve_launches['flash_attention_simt']} times, the 3xTF32 "
+            f"one {serve_launches['flash_attention_f32tc']} times, the "
             f"head_dim-256 one {serve_launches['flash_attention_d256']} "
             f"times")
 
@@ -1561,16 +1653,18 @@ def main() -> int:
             for name, (source, replaces) in KERNELS.items()
             if not name.startswith("flash_attention")]
     # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's
-    # head_dim 128, gemma2-2b's 256); the CUDA-core forward on the f32
-    # serving prefill, the path that runs it here
+    # head_dim 128, gemma2-2b's 256); the 3xTF32 forward on the f32
+    # serving prefill, the path that runs it here.  The CUDA-core forward
+    # runs on no path, so the summary, the kernels of the paths, leaves it
+    # out: phase 6 checks it against its plain version, phase 8 times it
     for name, launched, t in (
             ("flash_attention", serve_launches["flash_attention"],
              flash_times["serving"]),
             ("flash_attention_d256", gemma2["launches"]["flash_attention_d256"],
              flash_times["gemma2"]),
-            ("flash_attention_simt", served["flash_vs_q_chunked"]["float32"]
-             ["flash_launches"]["flash_attention_simt"],
-             flash_times["simt_f32"])):
+            ("flash_attention_f32tc", served["flash_vs_q_chunked"]["float32"]
+             ["flash_launches"]["flash_attention_f32tc"],
+             flash_times["f32_serving"])):
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launched,

@@ -83,7 +83,8 @@ def _grid(shape: tuple, los: np.ndarray, his: np.ndarray):
 
 def _lower(plan):
     """Row tables of ``plan``, or None unless its destination rows are
-    covered exactly once (the sources tile the clusters)."""
+    covered exactly once (the sources tile the clusters): ``pack_tables``
+    then leaves the output unfilled."""
     tables = plan_row_tables(plan)
     width, _, dst_rows, total, _ = tables
     n = total // width
@@ -155,7 +156,8 @@ def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
     t1 = time.perf_counter()
 
     flat = pack_tables(torch.cat([data[b].reshape(-1)
-                                  for b in sorted(sources)]), tables)
+                                  for b in sorted(sources)]), tables,
+                       _covered=True)
     if grid is not None:
         flat = rowmajor_to_chunked(flat.view(tuple(shape)),
                                    chunk=grid).reshape(-1)
@@ -227,7 +229,7 @@ def read_linearized(ds, var: str, route, device: torch.device,
         n_i, n_j = shape[0] // ch, shape[1] // cw
         out = chunked_to_rowmajor(flat.view(n_i, n_j, ch, cw), chunk=grid)
     else:
-        out = pack_tables(flat, tables).view(shape)
+        out = pack_tables(flat, tables, _covered=True).view(shape)
     _sync(device)
     stats.lower_seconds = lower_seconds
     stats.h2d_seconds = t2 - t1

@@ -47,6 +47,7 @@ SOURCES = {
                   + (_I, _I, _I, _LL, _I, _F, _F, _P)},
     "flash_fwd_sm90": {"repro_flash_fwd_sm90": _FLASH_FWD_SM90},
     "flash_fwd_sm90_d256": {"repro_flash_fwd_sm90_d256": _FLASH_FWD_SM90},
+    "flash_fwd_f32tc": {"repro_flash_fwd_f32tc": _FLASH_FWD_SM90},
     "flash_bwd": {"repro_flash_dq": (_P,) * 7 + _FLASH_BWD,
                   "repro_flash_dkv": (_P,) * 8 + _FLASH_BWD},
     "flash_bwd_sm90": {"repro_flash_dq_sm90": (_P,) * 7 + _FLASH_BWD_SM90,

@@ -6,13 +6,16 @@ each score tile on chip with a running row max and sum, so attention's
 device-memory traffic is Q, K, V and O only.  The backward kernels replace
 ``_dq_kernel`` and ``_dkv_kernel``: they recompute P from the forward's
 LSE, dQ over k tiles and per-q-head dK, dV over q tiles; the GQA group sum
-follows in f32, as the reference's custom vjp does.  Forward and backward
-take one of two routes, picked by dtype and head dim (``_route``): bf16
-runs the ``"sm90"`` route (wgmma and TMA on Hopper's tensor cores),
+follows in f32, as the reference's custom vjp does.  Each pass takes
+a route picked by dtype and head dim (``_route``): bf16 runs the
+``"sm90"`` route (wgmma and TMA on Hopper's tensor cores),
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` for head_dim up
 to 128 and ``csrc/flash_fwd_sm90_d256.cu`` and
-``csrc/flash_bwd_sm90_d256.cu`` above; f32, and only f32, runs
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (f32 on the CUDA cores).
+``csrc/flash_bwd_sm90_d256.cu`` above; f32, and only f32, runs its
+forward on the ``"f32tc"`` route (``csrc/flash_fwd_f32tc.cu``: 3xTF32 on
+the tensor cores) and its backward on the ``"simt"`` route
+(``csrc/flash_bwd.cu``, f32 on the CUDA cores).  The CUDA-core forward
+(``csrc/flash_fwd.cu``) runs only when a caller names its route.
 Every kernel counts its own launches (``_COUNTERS``).
 ``flash_attention`` is differentiable through a
 ``torch.autograd.Function`` over the three.  Causal and
@@ -45,6 +48,7 @@ _SM90_NARROW_HEAD_DIM = 128
 #: forward route -> (library, C entry point); the sm90 route's wide heads
 #: take ``_FORWARD_SM90_D256``
 _FORWARD = {"sm90": ("flash_fwd_sm90", "repro_flash_fwd_sm90"),
+            "f32tc": ("flash_fwd_f32tc", "repro_flash_fwd_f32tc"),
             "simt": ("flash_fwd", "repro_flash_fwd")}
 _FORWARD_SM90_D256 = ("flash_fwd_sm90_d256", "repro_flash_fwd_sm90_d256")
 #: backward route -> (library, {kernel: C entry point}); the sm90 route's
@@ -58,16 +62,23 @@ _BACKWARD_SM90_D256 = ("flash_bwd_sm90_d256",
                         "dkv": "repro_flash_dkv_sm90_d256"})
 
 
-def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward and backward kernels for inputs of ``dtype`` and
-    ``head_dim``: ``"sm90"`` for bf16 with head_dim up to 256 (the
-    ``csrc/flash_*_sm90.cu`` kernels with it padded to 16, 32, 64, 80 or
-    128; the ``csrc/flash_*_sm90_d256.cu`` ones above, padded to 256);
-    ``"simt"`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) for f32, whose
-    tolerances bf16 tensor cores cannot meet."""
+#: the f32 route of each pass, whose tolerances bf16 tensor cores cannot
+#: meet: the forward in 3xTF32 on the tensor cores, the backward on the
+#: CUDA cores
+_F32_ROUTES = {"fwd": "f32tc", "bwd": "simt"}
+
+
+def _route(dtype: torch.dtype, head_dim: int, kind: str) -> str:
+    """The route of the ``kind`` pass (``"fwd"`` or ``"bwd"``) for inputs
+    of ``dtype`` and ``head_dim``: ``"sm90"`` for bf16 with head_dim up to
+    256 (the ``csrc/flash_*_sm90.cu`` kernels with it padded to 16, 32, 64,
+    80 or 128; the ``csrc/flash_*_sm90_d256.cu`` ones above, padded to
+    256); for f32 ``_F32_ROUTES[kind]``: the forward ``"f32tc"``
+    (``csrc/flash_fwd_f32tc.cu``), the backward ``"simt"``
+    (``csrc/flash_bwd.cu``)."""
     if dtype == torch.bfloat16 and head_dim <= _MAX_HEAD_DIM:
         return "sm90"
-    return "simt"
+    return _F32_ROUTES[kind]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -229,15 +240,17 @@ def _mask_args(causal, window, softcap) -> tuple:
 
 def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
     """Launch a forward kernel on checked CUDA tensors, on the current
-    stream: ``route`` names it (``"sm90"`` or ``"simt"``), by default
-    ``_route``'s.  Counts the launch on the kernel's own counter
+    stream: ``route`` names it (``"sm90"``, ``"f32tc"`` or ``"simt"``), by
+    default ``_route``'s.  Counts the launch on the kernel's own counter
     (``_COUNTERS``)."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    route = route or _route(q.dtype, D)
-    if route == "sm90" and _route(q.dtype, D) != "sm90":
+    route = route or _route(q.dtype, D, "fwd")
+    if route == "sm90" and _route(q.dtype, D, "fwd") != "sm90":
         raise ValueError(f"the sm90 forward takes bf16 with head_dim up to "
                          f"{_MAX_HEAD_DIM}; got {q.dtype}, {D}")
+    if route == "f32tc" and q.dtype != torch.float32:
+        raise ValueError(f"the f32tc forward takes f32; got {q.dtype}")
     wide = route == "sm90" and D > _SM90_NARROW_HEAD_DIM
     q, k, v = (_kernel_view(x) for x in (q, k, v))
     o = torch.empty((B, Hq, Lq, D), dtype=q.dtype, device=q.device)
@@ -246,8 +259,8 @@ def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
         return o, lse
     name, entry = _FORWARD_SM90_D256 if wide else _FORWARD[route]
     lib = _build.load(name)
-    # the sm90 kernel takes bf16 only; the CUDA-core one is told the dtype
-    dtype_flag = () if route == "sm90" else (int(q.dtype == torch.bfloat16),)
+    # the tensor-core kernels take one dtype; the CUDA-core one is told it
+    dtype_flag = (int(q.dtype == torch.bfloat16),) if route == "simt" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = getattr(lib, entry)(
@@ -268,8 +281,10 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
     ``_route``'s, on its head_dim-256 library above head_dim
     128.  Counts the launch on the kernel's own counter (``_COUNTERS``)."""
     D = q.shape[3]
-    route = route or _route(q.dtype, D)
-    if route == "sm90" and _route(q.dtype, D) != "sm90":
+    route = route or _route(q.dtype, D, "bwd")
+    if route not in _BACKWARD:
+        raise ValueError(f"no backward route {route!r}")
+    if route == "sm90" and _route(q.dtype, D, "bwd") != "sm90":
         raise ValueError(f"the sm90 backward takes bf16 with head_dim up to "
                          f"{_MAX_HEAD_DIM}; got {q.dtype}, {D}")
     wide = route == "sm90" and D > _SM90_NARROW_HEAD_DIM
@@ -297,20 +312,22 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
 #: kernel launches since the last reset (CPU calls never count), one
 #: counter per kernel, each added to by that kernel's launches alone: the
 #: wrappers' own count the sm90 route's first kernels (head_dim up to 128),
-#: the ``d256_*`` counters its head_dim-256 kernels, the ``simt_*`` ones the
-#: CUDA-core kernels
+#: the ``d256_*`` counters its head_dim-256 kernels, ``f32tc_forward`` the
+#: 3xTF32 forward, the ``simt_*`` ones the CUDA-core kernels
 flash_attention.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
 d256_forward = SimpleNamespace(launches=0)
 d256_dq = SimpleNamespace(launches=0)
 d256_dkv = SimpleNamespace(launches=0)
+f32tc_forward = SimpleNamespace(launches=0)
 simt_forward = SimpleNamespace(launches=0)
 simt_dq = SimpleNamespace(launches=0)
 simt_dkv = SimpleNamespace(launches=0)
 #: C entry point -> its kernel's launch counter
 _COUNTERS = {"repro_flash_fwd_sm90": flash_attention,
              "repro_flash_fwd_sm90_d256": d256_forward,
+             "repro_flash_fwd_f32tc": f32tc_forward,
              "repro_flash_fwd": simt_forward,
              "repro_flash_dq_sm90": flash_attention_dq,
              "repro_flash_dq_sm90_d256": d256_dq,

@@ -14,22 +14,25 @@ from typing import Mapping
 import torch
 
 from ..core.merge import MergePlan
-from .pack_blocks import pack_rows
+from .pack_blocks import _pack_host_tables
 from .ref import plan_row_tables
 
 __all__ = ["merge_blocks_device", "split_merged", "pack_tables"]
 
 
-def pack_tables(flat_src: torch.Tensor, tables: tuple) -> torch.Tensor:
+def pack_tables(flat_src: torch.Tensor, tables: tuple, *,
+                _covered: bool = False) -> torch.Tensor:
     """Run the row tables of :func:`~repro_torch.kernels.ref.
     plan_row_tables` over ``flat_src`` (the blocks concatenated in the
     tables' source order) in one ``pack_rows`` launch; returns the
-    destination buffers concatenated flat."""
+    destination buffers concatenated flat.  The tables are checked on the
+    host, where they are made.  ``_covered``: the caller has shown
+    (``io.device._lower``) that they name every destination row exactly
+    once, so the output is not zero-filled first."""
     width, src_rows, dst_rows, total_dst, _ = tables
-    dev = flat_src.device
-    return pack_rows(flat_src, torch.from_numpy(src_rows).to(dev),
-                     torch.from_numpy(dst_rows).to(dev),
-                     n_dst_rows=total_dst // width, width=width).reshape(-1)
+    return _pack_host_tables(flat_src, src_rows, dst_rows,
+                             n_dst_rows=total_dst // width, width=width,
+                             covered=_covered).reshape(-1)
 
 
 def merge_blocks_device(plan: MergePlan,

@@ -26,8 +26,10 @@ DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int8)
 # the package's ``flash_attention`` attribute is the function, not the module
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 #: the forward's routes, by their kernels' launch counters (the sm90
-#: route's head_dim-128 and head_dim-256 kernels)
+#: route's head_dim-128 and head_dim-256 kernels; the f32 forward's 3xTF32
+#: kernel; the CUDA-core kernel, run only when named)
 ROUTES = {"sm90": ("flash_attention", "flash_attention_d256"),
+          "f32tc": ("flash_attention_f32tc",),
           "simt": ("flash_attention_simt",)}
 #: the backward's routes, by their (dq, dkv) kernels' launch counters
 BWD_ROUTES = {"sm90": (("flash_attention_dq", "flash_attention_dq_d256"),
@@ -97,6 +99,48 @@ def test_pack_rows_kernel_matches_plain(cuda, dtype, n, width):
                                           width=width))
 
 
+@pytest.mark.parametrize("covered", [True, False],
+                         ids=["covering", "with_a_hole"])
+def test_pack_tables_makes_no_device_to_host_sync(cuda, covered):
+    """``ops.pack_tables`` as the main path calls it: the numpy tables of
+    ``plan_row_tables`` checked on the host, sent in one asynchronous copy,
+    and on tables that name every destination row the output left
+    unfilled.  Under ``torch.cuda.set_sync_debug_mode("error")`` it makes
+    no device-to-host sync; one launch, the plain version's bytes, and
+    zeros in the rows of a cluster that no block names (the output
+    allocated where NaN lay just before)."""
+    from repro_torch.core.clustering import Cluster
+    from repro_torch.core.merge import plan_from_clusters
+    from repro_torch.kernels.ops import pack_tables
+    from repro_torch.kernels.ref import plan_row_tables
+    shape = (64, 64) if covered else (64, 96)
+    second = Block((32, 0), (64, 64), block_id=1) if covered else \
+        Block((32, 32), (64, 96), block_id=1)
+    tables = plan_row_tables(plan_from_clusters([Cluster(
+        Block((0, 0), shape), (Block((0, 0), (32, 64), block_id=0),
+                               second))]))
+    width, sr, dr, total, _ = tables
+    src = torch.randn(2 * 32 * 64, device=cuda)
+    want = pack_rows_ref(src, torch.from_numpy(sr).to(cuda),
+                         torch.from_numpy(dr).to(cuda),
+                         n_dst_rows=total // width, width=width).reshape(-1)
+    before = K.pack_rows.launches
+    pack_tables(src, tables, _covered=covered)      # build and warm up
+    torch.full((total,), float("nan"), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pack_tables(src, tables, _covered=covered)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert K.pack_rows.launches == before + 2
+    assert torch.equal(got, want)
+    if not covered:
+        assert not got.view(shape)[:32, 64:].any()
+        assert not got.view(shape)[32:, :32].any()
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 @pytest.mark.parametrize("grid,chunk", [((4, 2), (8, 128)),
                                         ((2, 4), (16, 128)),
@@ -144,7 +188,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
     (48) that runs zero-padded, and q, k of std sqrt(2), so the scores
     have std 2 and the online softmax rescales across k tiles.  bf16 runs
     the sm90 route (above head_dim 128 its head_dim-256 kernel), f32 the
-    CUDA-core one."""
+    3xTF32 one."""
     gen = torch.Generator(device=cuda).manual_seed(D)
     B, Hq, Hkv, L = 2, 8, 2, 150
     q, k, v = (std * torch.randn((B, h, L, D), generator=gen, device=cuda)
@@ -154,7 +198,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, window, softcap):
         q, k, v, None, causal, window, softcap, return_lse=True))
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
-    assert _routes(ran) == {"sm90": int(bf16), "simt": int(not bf16)}
+    assert _routes(ran) == {"sm90": int(bf16), "f32tc": int(not bf16),
+                            "simt": 0}
     assert ran["flash_attention_d256"] == int(bf16 and D > 128)
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == dtype and lse.dtype == torch.float32
@@ -183,13 +228,66 @@ def test_flash_sm90_kernel_matches_plain(cuda, D, causal, window, softcap):
     (o, lse), ran = _launches(lambda: K.flash_attention(
         q, k, v, None, causal, window, softcap, return_lse=True))
     torch.cuda.synchronize()
-    assert _routes(ran) == {"sm90": 1, "simt": 0}
+    assert _routes(ran) == {"sm90": 1, "f32tc": 0, "simt": 0}
     assert ran["flash_attention_d256"] == int(D > 128)
     ro, rlse = flash_attention_ref(q, k, v, None, causal, window, softcap)
     assert o.dtype == torch.bfloat16 and o.shape == (B, Hq, L, D)
     torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
                                atol=1e-5)
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [16, 24, 32, 48, 80, 128, 136, 200, 256])
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+def test_flash_f32tc_kernel_matches_plain(cuda, D, causal, window, softcap):
+    """The 3xTF32 forward (``csrc/flash_fwd_f32tc.cu``) over the chip
+    check's f32 sweep (phase 6): the five masks, GQA groups 1, 2, 4 and 8
+    of 2 kv-heads, L 200 (Lk 136 for groups of 2), head dims that run
+    padded (24, 48, 136, 200), q and k of std 1/2 and of std sqrt(2)
+    (scores of std 2).  Each call one launch of the 3xTF32 kernel and none
+    of another; O within the reference's f32 tolerance (rtol 1e-4, atol
+    1e-5) of the plain version, LSE within 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 13)
+    for g in (1, 2, 4, 8):
+        for qk_std in (0.5, 2 ** 0.5):
+            Lk = 136 if g == 2 else 200
+            q, k, v = (std * torch.randn((2, h, n, D), generator=gen,
+                                         device=cuda)
+                       for std, h, n in ((qk_std, 2 * g, 200),
+                                         (qk_std, 2, Lk), (0.5, 2, Lk)))
+            (o, lse), ran = _launches(lambda: K.flash_attention(
+                q, k, v, None, causal, window, softcap, return_lse=True))
+            torch.cuda.synchronize()
+            assert ran == {n: int(n == "flash_attention_f32tc") for n in ran}
+            ro, rlse = flash_attention_ref(q, k, v, None, causal, window,
+                                           softcap)
+            assert o.dtype == torch.float32 and o.shape == q.shape
+            torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+def test_f32_gradients_run_the_f32tc_forward_and_cuda_core_backward(cuda):
+    """f32 ``flash_attention`` with its gradients (gemma2-2b's masks at
+    head_dim 256, ragged L 130, GQA 8:4, strided views): the forward on the
+    3xTF32 kernel, the backward on the CUDA-core dq and dkv reading its
+    LSE, no other flash kernel; the gradients within the reference's
+    (rtol 1e-3, atol 1e-4) of autograd through the plain forward."""
+    gen = torch.Generator(device=cuda).manual_seed(2560)
+    q, k, v = ((std * torch.randn((2, 130, h, 256), generator=gen,
+                                  device=cuda)).transpose(1, 2)
+               .requires_grad_()
+               for std, h in ((2 ** 0.5, 8), (2 ** 0.5, 4), (0.5, 4)))
+    do = 0.5 * torch.randn((2, 8, 130, 256), generator=gen, device=cuda)
+    got, ran = _launches(lambda: torch.autograd.grad(
+        K.flash_attention(q, k, v, None, True, 4096, 50.0), (q, k, v), do))
+    want = {n: 0 for n in ran}
+    want.update(flash_attention_f32tc=1, flash_attention_dq_simt=1,
+                flash_attention_dkv_simt=1)
+    assert ran == want
+    ref = torch.autograd.grad(flash_attention_ref(q, k, v, None, True, 4096,
+                                                  50.0)[0], (q, k, v), do)
+    for g, w in zip(got, ref):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-4)
 
 
 def test_flash_simt_route_takes_bf16_when_named(cuda):
@@ -201,7 +299,7 @@ def test_flash_simt_route_takes_bf16_when_named(cuda):
                .bfloat16() for h in (8, 2, 2))
     (simt, _), ran = _launches(lambda: FA._launch(
         q, k, v, 128 ** -0.5, True, None, None, route="simt"))
-    assert _routes(ran) == {"sm90": 0, "simt": 1}
+    assert _routes(ran) == {"sm90": 0, "f32tc": 0, "simt": 1}
     sm90 = K.flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref = flash_attention_ref(q, k, v)[0].float()
@@ -351,6 +449,7 @@ def test_bf16_d256_gradients_run_the_d256_sm90_backward(cuda):
 
     (o, lse, got), ran = _launches(run)
     assert ran == {"flash_attention": 0, "flash_attention_d256": 1,
+                   "flash_attention_f32tc": 0,
                    "flash_attention_simt": 0, "flash_attention_dq": 0,
                    "flash_attention_dq_d256": 1,
                    "flash_attention_dq_simt": 0, "flash_attention_dkv": 0,
@@ -372,9 +471,9 @@ def test_bf16_d256_gradients_run_the_d256_sm90_backward(cuda):
 def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
     """B*Hq = 65536, one past a grid's y extent: q (4096, 16, 8, D), k and
     v (4096, 2, 8, D), causal.  The forward and the backward (sm90 route
-    for bf16, at D 16 and on its head_dim-256 kernels; CUDA-core for f32)
-    against their plain versions within the tolerances of the tests
-    above."""
+    for bf16, at D 16 and on its head_dim-256 kernels; for f32 the 3xTF32
+    forward and the CUDA-core backward) against their plain versions
+    within the tolerances of the tests above."""
     gen = torch.Generator(device=cuda).manual_seed(65536 + D)
     q, k, v, do = ((std * torch.randn(shape, generator=gen, device=cuda))
                    .to(dtype) for std, shape in (
@@ -384,7 +483,8 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
     bf16 = dtype == torch.bfloat16
     (o, lse), ran = _launches(lambda: K.flash_attention(
         q, k, v, return_lse=True))
-    assert _routes(ran) == {"sm90": int(bf16), "simt": int(not bf16)}
+    assert _routes(ran) == {"sm90": int(bf16), "f32tc": int(not bf16),
+                            "simt": 0}
     assert ran["flash_attention_d256"] == int(D > 128)
     ro, rlse = flash_attention_ref(q, k, v)
     torch.testing.assert_close(o.float(), ro.float(),
@@ -396,7 +496,7 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
     args = (q, k, v, do, rlse, delta, scale, True, None, None)
     (dq, (dk, dv)), ran = _launches(
         lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
-    route = FA._route(dtype, D)
+    route = FA._route(dtype, D, "bwd")
     assert _bwd_routes(ran) == {r: (int(r == route),) * 2
                                 for r in BWD_ROUTES}
     assert ran["flash_attention_dq_d256"] == \
@@ -413,14 +513,15 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
 @pytest.mark.parametrize("dtype,D,long_q,long_k",
                          [(torch.bfloat16, 16, (1 << 23) + 100, 1 << 23),
                           (torch.bfloat16, 256, (1 << 23) + 100, 1 << 22),
-                          (torch.float32, 16, (1 << 22) + 100, 1 << 22)],
+                          (torch.float32, 16, (1 << 23) + 100, 1 << 22)],
                          ids=["sm90", "sm90_d256", "simt"])
 def test_flash_kernels_fold_long_sequences_into_grid_z(cuda, dtype, D,
                                                        long_q, long_k):
     """More tiles than a grid's y extent (65,535) holds: each kernel's tile
-    rows times 65,536 or more.  A long Lq for the forward and dQ (sm90 and
-    head_dim-256 tiles of 128 rows, CUDA-core ones of 64), a long Lk for
-    dK, dV (sm90 tiles of 128 rows, head_dim-256 and CUDA-core ones of 64),
+    rows times 65,536 or more.  A long Lq for the forward and dQ (sm90,
+    head_dim-256 and 3xTF32 tiles of 128 rows, CUDA-core ones of 64), a
+    long Lk for dK, dV (sm90 tiles of 128 rows, head_dim-256 and CUDA-core
+    ones of 64),
     against 16 keys or queries, non-causal.  Each output row depends on its
     own row and the short side alone, so the plain versions check the first
     and last 256 rows, the last ones in grid z's second slice, within the
@@ -491,6 +592,7 @@ def test_training_step_through_the_kernels(cuda):
     assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] \
         == cfg.n_layers
     assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_f32tc"] == 0
     assert counts["flash_attention_simt"] == 0
     assert counts["flash_attention_dq_simt"] == 0
     assert counts["flash_attention_dkv_simt"] == 0

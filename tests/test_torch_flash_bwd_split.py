@@ -228,7 +228,7 @@ def test_backward_route(dtype, D):
     """bf16 at every head_dim up to 256 takes the sm90 kernels (those of
     ``csrc/flash_bwd_sm90_d256.cu`` above 128); f32 the CUDA-core ones."""
     want = "sm90" if dtype == torch.bfloat16 else "simt"
-    assert FA._route(dtype, D) == want
+    assert FA._route(dtype, D, "bwd") == want
 
 
 def test_sm90_backward_route_refuses_what_it_cannot_run():
@@ -286,8 +286,9 @@ def _gemma2_training_run() -> dict:
     """The record ``chip_smoke.train`` returns for gemma2-2b, with the
     launches a right run counts: per step the head_dim-256 sm90 forward
     twice a layer (the dots recompute runs it again) and its dq and dkv
-    once; the f32 route comparison's backward on the CUDA-core kernels,
-    the bf16 one's on the head_dim-256 ones, once a layer."""
+    once; the f32 route comparison's backward on the CUDA-core kernels
+    after the 3xTF32 forward, the bf16 one's on the head_dim-256 ones,
+    once a layer."""
     cs = _chip_smoke()
     cfg = get_config("gemma2-2b")
     n = cfg.n_layers
@@ -301,7 +302,7 @@ def _gemma2_training_run() -> dict:
                     flash_attention_d256=n, flash_attention_dq_d256=n,
                     flash_attention_dkv_d256=n)},
                 "float32": {"over_limit": {}, "flash_launches": counts(
-                    flash_attention_simt=n, flash_attention_dq_simt=n,
+                    flash_attention_f32tc=n, flash_attention_dq_simt=n,
                     flash_attention_dkv_simt=n)}},
             "losses": [12.4, 11.8, 11.1], "grad_norms": [2.0, 1.7, 1.5],
             "launches_per_step": counts(flash_attention_d256=2 * n,
@@ -327,6 +328,19 @@ def test_check_training_refuses_another_backward_kernel(kernel):
     run = _gemma2_training_run()
     run["launches_per_step"][kernel] += 1
     with pytest.raises(AssertionError, match="launches per step"):
+        _chip_smoke().check_training(run)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_simt",
+                                    "flash_attention_d256"])
+def test_check_training_refuses_another_f32_forward(kernel):
+    """The f32 route comparison's forward must run the 3xTF32 kernel: on
+    the CUDA-core forward, or on an sm90 one, the gate fails."""
+    run = _gemma2_training_run()
+    got = run["flash_vs_q_chunked"]["float32"]["flash_launches"]
+    got[kernel] = got.pop("flash_attention_f32tc")
+    got["flash_attention_f32tc"] = 0
+    with pytest.raises(AssertionError, match="float32 route comparison"):
         _chip_smoke().check_training(run)
 
 

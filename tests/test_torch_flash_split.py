@@ -183,9 +183,10 @@ def test_one_bf16_p_breaks_the_tolerance_at_head_dim_256(mask):
 def test_forward_route(dtype, D):
     """bf16 at every head_dim up to 256 takes the sm90 route (padded to
     16, 32, 64, 80 or 128 on its first kernel, to 256 on its head_dim-256
-    kernel); f32 the CUDA-core kernel."""
-    want = "sm90" if dtype == torch.bfloat16 else "simt"
-    assert FA._route(dtype, D) == want
+    kernel); f32 the 3xTF32 tensor-core kernel
+    (``csrc/flash_fwd_f32tc.cu``)."""
+    want = "sm90" if dtype == torch.bfloat16 else "f32tc"
+    assert FA._route(dtype, D, "fwd") == want
 
 
 def test_sm90_route_refuses_what_it_cannot_run():
@@ -231,3 +232,41 @@ def test_d256_probe_patches_match_the_kernel_once(variant):
     for old, new in probe.VARIANTS[variant]:
         assert src.count(old) == 1, old
         assert new not in src
+
+
+def _probe(name):
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(name,
+                                                  root / "tools" / f"{name}.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return root / "src" / "repro_torch" / "kernels" / "csrc", probe
+
+
+@pytest.mark.parametrize("variant", ["d128_nw4_bk32", "d128_nw12_bk32",
+                                     "d256_nw4_bk32",
+                                     "expf", "running_accumulator",
+                                     "one_tf32_product"])
+def test_f32tc_probe_patches_match_the_kernel_once(variant):
+    """``tools/flash_f32tc_probe.py`` builds the designs the 3xTF32
+    forward was chosen over by patching a copy of its source; each patch
+    must still find its text exactly once in the committed source."""
+    csrc, probe = _probe("flash_f32tc_probe")
+    src = (csrc / f"{probe.LIB}.cu").read_text()
+    for old, new in probe.VARIANTS[variant]:
+        assert src.count(old) == 1, old
+        assert new not in src
+
+
+def test_pack_rows_probe_patches_match_the_kernel_once():
+    """``tools/pack_rows_probe.py``'s patched variant of the committed
+    ``csrc/pack_rows.cu`` still finds each text it replaces exactly once."""
+    csrc, probe = _probe("pack_rows_probe")
+    src = (csrc / f"{probe.LIB}.cu").read_text()
+    for name, source in probe.VARIANTS.items():
+        if isinstance(source, str):
+            assert "extern \"C\" int repro_pack_rows(" in source, name
+            continue
+        for old, new in source:
+            assert src.count(old) == 1, old
+            assert new not in src

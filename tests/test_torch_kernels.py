@@ -172,6 +172,7 @@ def test_cpu_tensors_never_launch():
                                  "rowmajor_to_chunked": 0,
                                  "flash_attention": 0,
                                  "flash_attention_d256": 0,
+                                 "flash_attention_f32tc": 0,
                                  "flash_attention_simt": 0,
                                  "flash_attention_dq": 0,
                                  "flash_attention_dq_d256": 0,
@@ -203,6 +204,112 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         K.chunked_to_rowmajor(torch.zeros(2, 2, 4, 8, device="meta"),
                               chunk=(4, 8))
+
+
+def _tables():
+    """Row tables of 4-element rows over a 64-element source and
+    destination, the destination in reverse."""
+    return np.arange(16, dtype=np.int32), np.arange(15, -1, -1,
+                                                    dtype=np.int32)
+
+
+@pytest.mark.parametrize("bad", ["int64", "two_dims", "src_low", "src_high",
+                                 "dst_high", "lengths"])
+def test_pack_tables_checks_host_tables_as_the_device_check(bad):
+    """``ops.pack_tables`` checks the numpy tables on the host (the main
+    path's route, which leaves no device-to-host sync) and raises what
+    ``pack_rows``'s check of the same tables as tensors raises: TypeError
+    for a dtype or shape, IndexError for a row outside the buffer it
+    indexes, ValueError for tables of two lengths."""
+    from repro_torch.kernels.ops import pack_tables
+    sr, dr = _tables()
+    if bad == "int64":
+        sr = sr.astype(np.int64)
+    elif bad == "two_dims":
+        sr, dr = sr.reshape(4, 4), dr.reshape(4, 4)
+    elif bad == "src_low":
+        sr = sr - 1
+    elif bad == "src_high":
+        sr = sr + 1
+    elif bad == "dst_high":
+        dr = dr + 1
+    else:
+        dr = dr[:-1]
+    src = torch.arange(64, dtype=torch.float32)
+    with pytest.raises((TypeError, IndexError, ValueError)) as host:
+        pack_tables(src, (4, sr, dr, 64, {}))
+    with pytest.raises((TypeError, IndexError, ValueError)) as device:
+        K.pack_rows(src, torch.from_numpy(sr), torch.from_numpy(dr),
+                    n_dst_rows=16, width=4)
+    assert host.type is device.type
+
+
+def test_pack_tables_takes_covering_tables_unfilled():
+    """On tables that name every destination row once (the main path's,
+    ``_covered=True``) ``pack_tables`` equals the Pallas ``pack_rows``."""
+    from repro_torch.kernels.ops import pack_tables
+    sr, dr = _tables()
+    src = np.random.default_rng(3).standard_normal(64).astype(np.float32)
+    got = pack_tables(torch.from_numpy(src), (4, sr, dr, 64, {}),
+                      _covered=True)
+    ref = jax_pack_rows(jnp.asarray(src), jnp.asarray(sr), jnp.asarray(dr),
+                        n_dst_rows=16, width=4, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref).reshape(-1))
+
+
+def test_merge_blocks_device_zeros_rows_no_block_names():
+    """A plan whose cluster holds rows that no block names
+    (``merge_blocks_device`` does not claim coverage, so the output is
+    zero-filled): zeros there, bit-equal to the Pallas ``pack_rows`` on the
+    same row tables."""
+    cluster = tc.Cluster(tc.Block((0, 0), (8, 12)),
+                         (tc.Block((0, 0), (4, 8), block_id=0),
+                          tc.Block((4, 4), (8, 12), block_id=1)))
+    plan = tc.plan_from_clusters([cluster])
+    rng = np.random.default_rng(4)
+    data = {b: rng.standard_normal((4, 8)).astype(np.float32)
+            for b in (0, 1)}
+    (got,) = K.merge_blocks_device(
+        plan, {b: torch.from_numpy(x) for b, x in data.items()})
+    width, sr, dr, total, _ = plan_row_tables(plan)
+    flat = np.concatenate([data[0].reshape(-1), data[1].reshape(-1)])
+    ref = jax_pack_rows(jnp.asarray(flat), jnp.asarray(sr), jnp.asarray(dr),
+                        n_dst_rows=total // width, width=width,
+                        interpret=True)
+    np.testing.assert_array_equal(got.numpy().reshape(-1),
+                                  np.asarray(ref).reshape(-1))
+    assert not got[:4, 8:].any() and not got[4:, :4].any()
+    np.testing.assert_array_equal(got[:4, :8].numpy(), data[0])
+
+
+def test_device_glue_claims_coverage_only_after_lower(monkeypatch, tmp_path):
+    """``io.device`` hands ``pack_tables`` its tables with ``_covered=True``
+    (the output unfilled) on both of its routes, each after ``_lower``
+    has shown that they cover every destination row."""
+    import repro_torch.io.device as device
+    from repro_torch.io import Dataset
+    calls = []
+    real = device.pack_tables
+
+    def spy(flat, tables, **kw):
+        calls.append(kw)
+        return real(flat, tables, **kw)
+
+    monkeypatch.setattr(device, "pack_tables", spy)
+    shape = (32, 48)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (8, 16)), num_procs=3, seed=1)
+    field = torch.arange(32 * 48, dtype=torch.float32).view(shape)
+    data = {b.block_id: field[b.slices()].contiguous() for b in blocks}
+    layout = tc.plan_layout("merged_process", blocks, num_procs=3)
+    ds = Dataset.create(str(tmp_path), device="cpu")
+    ds.write("E", layout, np.float32, data)
+    ds.close()
+    ds = Dataset.open(str(tmp_path), device="cpu")
+    got, _ = ds.read("E", tc.Block((0, 0), shape))
+    ds.close()
+    assert torch.equal(got, field)
+    assert calls and all(kw == {"_covered": True} for kw in calls)
 
 
 def test_build_keeps_each_librarys_ptxas_log(tmp_path, monkeypatch):
