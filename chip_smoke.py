@@ -58,21 +58,23 @@ Phases, each printing one JSON line:
    never;
 10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
-    forward's sweep, the training shape given as strided views (on both
-    routes) and gemma2-2b's full-length shape as strided views, and
+    forward's sweep, the training shape and gemma2-2b's full-length shape
+    given as strided views in bf16 and in f32 (the training shape's f32
+    inputs also on the CUDA-core route, named), and
     ``flash_attention``'s gradients against autograd through the plain
     forward; the launch counts show that each bf16 case ran the sm90
     kernels (``csrc/flash_bwd_sm90.cu`` up to head_dim 128,
-    ``csrc/flash_bwd_sm90_d256.cu`` above) and each f32 case the
-    CUDA-core ones (``csrc/flash_bwd.cu``), and each route's count equals
-    the cases the sweep sends it;
+    ``csrc/flash_bwd_sm90_d256.cu`` above) and each f32 case the 3xTF32
+    ones (``csrc/flash_bwd_f32tc.cu``), the named case the CUDA-core ones
+    (``csrc/flash_bwd.cu``), and each route's count equals the cases the
+    sweep sends it;
 11. the training path at full width: qwen2.5-3b (36 layers, random
     weights from a seed: see ``training_params``; ``remat="dots"``) with
     the flash route on, at
     global batch 2 x 2048 tokens from the synthetic pipeline: first the
     flash route's loss and gradients against the q-chunked route's (f32
     and bf16 compute; the bf16 route's backward runs the sm90 kernels, the
-    f32 one the CUDA-core kernels after the 3xTF32 forward), then
+    f32 one the 3xTF32 kernels after the 3xTF32 forward), then
     ``Trainer.run`` for 6 AdamW steps
     on one batch (``TRAIN_OPT``), launch counts reset just before it and
     read just after (36 sm90 dq and 36 sm90 dkv launches a step, none on
@@ -83,8 +85,9 @@ Phases, each printing one JSON line:
     CUDA-core kernels on the same bf16 inputs, their bound, the plain
     versions and the backward of ``scaled_dot_product_attention`` (its
     kernels' device time from the profiler: autograd's host work outlasts
-    them); the CUDA-core kernels on the f32 inputs of the f32 route
-    comparison;
+    them); and at both shapes on f32 inputs, those of the f32 route
+    comparisons, the 3xTF32 kernels beside the CUDA-core ones, both
+    bounds (3xTF32 and f32 on the CUDA cores) and SDPA's backward in f32;
 13. the serving path at gemma2-2b's full width (26 layers, head_dim 256,
     local and global layers, softcaps; random weights: see
     ``training_params``), as phase 7 serves qwen2.5-3b: the bf16 prefill
@@ -97,7 +100,7 @@ Phases, each printing one JSON line:
     of each head_dim-256 sm90 backward kernel
     (``csrc/flash_bwd_sm90_d256.cu``), 52 of the head_dim-256 forward,
     none on a CUDA-core route; the f32 route comparison runs the 3xTF32
-    forward and the CUDA-core backward once per layer, and the profile
+    forward and backward once per layer, and the profile
     names the flash backward's device time in a step.
 
 The last lines are the script's total seconds, the kernel summary, the
@@ -215,12 +218,18 @@ KERNELS = {
     "flash_attention_dq_d256": (
         "src/repro_torch/kernels/csrc/flash_bwd_sm90_d256.cu",
         "src/repro/kernels/flash_attention.py:146"),
+    "flash_attention_dq_f32tc": (
+        "src/repro_torch/kernels/csrc/flash_bwd_f32tc.cu",
+        "src/repro/kernels/flash_attention.py:146"),
     "flash_attention_dq_simt": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:146"),
     "flash_attention_dkv": ("src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
                             "src/repro/kernels/flash_attention.py:166"),
     "flash_attention_dkv_d256": (
         "src/repro_torch/kernels/csrc/flash_bwd_sm90_d256.cu",
+        "src/repro/kernels/flash_attention.py:166"),
+    "flash_attention_dkv_f32tc": (
+        "src/repro_torch/kernels/csrc/flash_bwd_f32tc.cu",
         "src/repro/kernels/flash_attention.py:166"),
     "flash_attention_dkv_simt": ("src/repro_torch/kernels/csrc/flash_bwd.cu",
                                  "src/repro/kernels/flash_attention.py:166"),
@@ -231,8 +240,7 @@ FLASH_KERNELS = [n for n in KERNELS if n.startswith("flash_attention")]
 def flash_kernel(kind: str, route: str, head_dim: int) -> str:
     """The launch counter of the flash kernel ``kind`` (``"fwd"``,
     ``"dq"`` or ``"dkv"``) that ``route`` runs at ``head_dim``: the sm90
-    route's head_dim-256 kernels above 128; the f32tc route has a forward
-    only."""
+    route's head_dim-256 kernels above 128."""
     name = "flash_attention" + ("" if kind == "fwd" else f"_{kind}")
     if route in ("simt", "f32tc"):
         return f"{name}_{route}"
@@ -1123,35 +1131,34 @@ def check_flash_bwd(torch, dev) -> dict:
                     worst = [max(a, b) for a, b in zip(worst, e)]
                     routes[route] += 1
                     expected["sm90" if dtype == torch.bfloat16
-                             else "simt"] += 1
+                             else "f32tc"] += 1
                     cases += 1
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = dict(
                 zip(("dq", "dk", "dv"), worst))
-    # the training shape, as attention hands it over: (B, H, L, D) views,
-    # on the route the wrappers take (sm90) and on the CUDA-core route
-    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
-               for x in _qkv(torch, gen, dev, torch.bfloat16,
-                             qk_std=math.sqrt(2.0), **FLASH_TRAIN))
-    train = {}
-    for route in ("sm90", "simt"):
-        *e, ran = _bwd_case(torch, q, k, v, True, None, None, gen,
-                            None if route == "sm90" else route)
-        train[route] = {"shape": FLASH_TRAIN,
+    # the training shape and gemma2-2b's full length, as attention hands
+    # them over: (B, H, L, D) views, bf16 and f32 on the routes the
+    # wrappers take (sm90, its head_dim-256 kernels at gemma2-2b's; f32tc),
+    # and the training shape's f32 inputs once more on the CUDA-core route,
+    # named
+    train, gemma2 = {}, {}
+    for shp, out, runs in ((FLASH_TRAIN, train,
+                            ((torch.bfloat16, None), (torch.float32, None),
+                             (torch.float32, "simt"))),
+                           (FLASH_GEMMA2, gemma2,
+                            ((torch.bfloat16, None), (torch.float32, None)))):
+        for dtype, route in runs:
+            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                       for x in _qkv(torch, gen, dev, dtype,
+                                     qk_std=math.sqrt(2.0), **shp))
+            *e, ran = _bwd_case(torch, q, k, v, shp["causal"], shp["window"],
+                                shp["softcap"], gen, route)
+            out[ran] = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
                         **dict(zip(("dq", "dk", "dv"), e))}
-        routes[ran] += 1
-        expected[route] += 1
-        cases += 1
-    # gemma2-2b's full length on the head_dim-256 kernels, as strided views
-    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
-               for x in _qkv(torch, gen, dev, torch.bfloat16,
-                             qk_std=math.sqrt(2.0), **FLASH_GEMMA2))
-    *e, ran = _bwd_case(torch, q, k, v, FLASH_GEMMA2["causal"],
-                        FLASH_GEMMA2["window"], FLASH_GEMMA2["softcap"], gen)
-    gemma2 = {"shape": FLASH_GEMMA2, **dict(zip(("dq", "dk", "dv"), e))}
-    routes[ran] += 1
-    expected["sm90"] += 1
-    cases += 1
-    del q, k, v
+            routes[ran] += 1
+            expected[route or ("sm90" if dtype == torch.bfloat16
+                               else "f32tc")] += 1
+            cases += 1
+            del q, k, v
     if routes != expected:
         raise AssertionError(f"cases by route {routes}, expected {expected}")
     # the autograd.Function (kernels) against autograd through the plain
@@ -1182,7 +1189,8 @@ def check_flash_bwd(torch, dev) -> dict:
                     case["dq"] if kind == "dq" else
                     max(case["dk"], case["dv"]))
                 for case, suffix in ((train["sm90"], ""),
-                                     (gemma2, "_d256"),
+                                     (gemma2["sm90"], "_d256"),
+                                     (train["f32tc"], "_f32tc"),
                                      (train["simt"], "_simt"))
                 for kind in ("dq", "dkv")}}
 
@@ -1252,9 +1260,10 @@ def check_training(trained: dict) -> None:
     f32 gradients of the flash route within GRAD_GAP_F32 of the q-chunked
     route's per leaf and bf16 losses within LOSS_GAP_BF16; the bf16 route
     comparison's backward on the sm90 kernels (``flash_kernel``: the
-    head_dim-256 ones above 128) and the f32 one's on the CUDA-core
-    kernels, one dq and one dkv a layer, after the 3xTF32 forward as many
-    times as the bf16 one's sm90 forward; every loss and grad norm finite
+    head_dim-256 ones above 128) and the f32 one's on the 3xTF32 kernels,
+    one dq and one dkv a layer (none on the CUDA-core ones), after the
+    3xTF32 forward as many times as the bf16 one's sm90 forward; every
+    loss and grad norm finite
     and positive; the last loss below the first; per step one launch a
     layer of the sm90 dq and dkv kernels for this head dim, two of its
     sm90 forward, none on any other flash kernel (the CUDA-core ones
@@ -1262,7 +1271,7 @@ def check_training(trained: dict) -> None:
     routes = trained["flash_vs_q_chunked"]
     n, D = trained["layers"], trained["head_dim"]
     bwd = [name for name in FLASH_KERNELS if "_dq" in name or "_dkv" in name]
-    for dtype, route in (("bfloat16", "sm90"), ("float32", "simt")):
+    for dtype, route in (("bfloat16", "sm90"), ("float32", "f32tc")):
         got = routes[dtype]["flash_launches"]
         ran = {flash_kernel(kind, route, D) for kind in ("dq", "dkv")}
         want = {name: n * (name in ran) for name in bwd}
@@ -1338,9 +1347,13 @@ def compare_train_routes(torch, model, params, batch) -> dict:
     a layer-stacked leaf (``.../wq[35]``), so a layer whose gradients are
     small is held to its own scale; ``check_training`` gates every gap.
     Reported: the largest gaps, those of the embedding, the final norm and
-    the first and last layers, and the flash route's kernel launches."""
+    the first and last layers, the flash route's kernel launches, and for
+    f32 the device time of the flash route's loss and gradients by kernel
+    family (``torch.profiler``)."""
     import dataclasses
     import repro_torch.kernels as K
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import LM
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.trainer import value_and_grad
@@ -1349,9 +1362,14 @@ def compare_train_routes(torch, model, params, batch) -> dict:
     names = _leaf_names(params)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
         with compute_dtype(dtype):
             before = K.launch_counts()
-            fl, _, fg = value_and_grad(model, params, batch)
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) if f32
+                  else contextlib.nullcontext()) as prof:
+                fl, _, fg = value_and_grad(model, params, batch)
+                torch.cuda.synchronize()
             after = K.launch_counts()
             fg = [g.cpu() for g in tree_leaves(fg)]
             bl, _, bg = value_and_grad(base, params, batch)
@@ -1368,8 +1386,15 @@ def compare_train_routes(torch, model, params, batch) -> dict:
                 gaps[key] = float(d / y.abs().max().clamp_min(1e-30))
         del fg, bg
         torch.cuda.empty_cache()
-        if dtype == torch.float32:
+        if f32:
             gaps_f32 = gaps
+            rows = [(e.key, e.self_device_time_total)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            step_profile = {
+                "device_ms": sum(t for _, t in rows) / 1e3,
+                **{f"{tag}_ms": sum(t for k, t in rows if tag in k) / 1e3
+                   for tag in ("flash_fwd", "flash_dq", "flash_dkv")}}
         last = counts[0] - 1
         shown = {k: v for k, v in gaps.items()
                  if "[" not in k or k.endswith(("[0]", f"[{last}]"))}
@@ -1383,6 +1408,7 @@ def compare_train_routes(torch, model, params, batch) -> dict:
             "first_last_layers": shown}
     out["float32"]["over_limit"] = {
         k: v for k, v in gaps_f32.items() if not v < GRAD_GAP_F32}
+    out["float32"]["profile"] = step_profile
     return out
 
 
@@ -1424,8 +1450,10 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
     # each kernel's share of the step's device time, by its own name
     kernels = ("flash_fwd_sm90", "flash_fwd_sm90_d256", "flash_fwd_f32tc",
                "flash_fwd",
-               "flash_dq_sm90", "flash_dq_sm90_d256", "flash_dq",
-               "flash_dkv_sm90", "flash_dkv_sm90_d256", "flash_dkv")
+               "flash_dq_sm90", "flash_dq_sm90_d256", "flash_dq_f32tc",
+               "flash_dq",
+               "flash_dkv_sm90", "flash_dkv_sm90_d256", "flash_dkv_f32tc",
+               "flash_dkv")
     return {"wall_ms": wall * 1e3,
             "device_ms": device_us / 1e3 if rows else None,
             "busy_share": device_us / 1e3 / (wall * 1e3) if rows else None,
@@ -1453,9 +1481,13 @@ def bwd_timings(torch, dev) -> dict:
     work.  ``gemma2``: the same at gemma2-2b's bf16 head_dim-256 shape
     (``FLASH_GEMMA2``) on the sm90 route's head_dim-256 kernels (SDPA
     causal without the softcap, which SDPA lacks; the window of 4096 masks
-    nothing at L 2048); phase 8 times its forward.  ``training_f32``: the
-    CUDA-core kernels on the f32 inputs of the f32 route comparison, the
-    path that runs them here, beside their f32 bound and SDPA in f32."""
+    nothing at L 2048); phase 8 times its forward.  ``training_f32`` and
+    ``gemma2_f32``: the same two shapes on f32 inputs, those of the f32
+    route comparisons: the 3xTF32 kernels (``ms``) beside the CUDA-core
+    ones on the same inputs (``simt_ms``), the 3xTF32 bound (``bound_ms``:
+    three TF32 products a useful flop at the TF32 peak) and the CUDA-core
+    one (``simt_bound_ms``: f32 at 67 TFLOP/s), the plain versions and
+    SDPA's backward in f32."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
@@ -1477,8 +1509,7 @@ def bwd_timings(torch, dev) -> dict:
         res[name] = r
 
     def shape(shp, dtype, peak, suffix) -> dict:
-        """Times at ``shp``, named ``flash_attention_{dq,dkv}{suffix}``:
-        the CUDA-core kernels alone for ``"_simt"``."""
+        """Times at ``shp``, named ``flash_attention_{dq,dkv}{suffix}``."""
         causal, window, softcap = shp["causal"], shp["window"], shp["softcap"]
         q, k, v = _qkv(torch, gen, dev, dtype, **shp)
         B, Hq, L, D = q.shape
@@ -1515,20 +1546,23 @@ def bwd_timings(torch, dev) -> dict:
                  8 * D * pairs, ins + 2 * per_head)):
             def simt(kind=kind):
                 return _bwd_kernel(torch, kind, args, "simt")
-            fns = {"simt_ms": simt} if suffix == "_simt" else \
-                {"ms": lambda kernel=kernel: kernel(*args), "simt_ms": simt}
-            fns["plain_ms"] = lambda plain=plain: plain(*args)
+            fns = {"ms": lambda kernel=kernel: kernel(*args), "simt_ms": simt,
+                   "plain_ms": lambda plain=plain: plain(*args)}
             name = f"flash_attention_{kind}{suffix}"
             timed(res, name, flops, nbytes, peak, fns)
             res[name]["library_ms"] = library
+            if dtype == torch.float32:
+                res[name]["simt_bound_ms"] = flops / F32_FLOPS * 1e3
         torch.cuda.empty_cache()
         return res
 
     return {"training": shape(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, ""),
-            "training_f32": shape(FLASH_TRAIN, torch.float32, F32_FLOPS,
-                                  "_simt"),
+            "training_f32": shape(FLASH_TRAIN, torch.float32, TF32X3_FLOPS,
+                                  "_f32tc"),
             "gemma2": shape(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS,
-                            "_d256")}
+                            "_d256"),
+            "gemma2_f32": shape(FLASH_GEMMA2, torch.float32, TF32X3_FLOPS,
+                                "_f32tc")}
 
 
 # -- driver --------------------------------------------------------------------
@@ -1630,7 +1664,7 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd_times = bwd_timings(torch, dev)
     emit(12, seconds=time.perf_counter() - t0, **bwd_times,
-         bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS,
+         bf16_flops=BF16_FLOPS, f32_flops=F32_FLOPS, tf32_flops=TF32_FLOPS,
          hbm_bytes_per_s=HBM_BYTES_PER_S)
 
     t0 = time.perf_counter()
@@ -1673,8 +1707,9 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
     # the sm90 backward on the training runs (qwen2.5-3b's head_dim 128,
-    # gemma2-2b's 256); the CUDA-core backward on qwen2.5-3b's f32 route
-    # comparison, the path that runs it here
+    # gemma2-2b's 256); the 3xTF32 backward on qwen2.5-3b's f32 route
+    # comparison, the path that runs it here.  The CUDA-core backward runs
+    # on no path: phase 10 checks it, phase 12 times it
     f32_launches = trained["flash_vs_q_chunked"]["float32"]["flash_launches"]
     for name, launched, t in (
             ("flash_attention_dq", trained["launches"]["flash_attention_dq"],
@@ -1682,22 +1717,22 @@ def main() -> int:
             ("flash_attention_dq_d256",
              trained_g["launches"]["flash_attention_dq_d256"],
              bwd_times["gemma2"]["flash_attention_dq_d256"]),
-            ("flash_attention_dq_simt", f32_launches["flash_attention_dq_simt"],
-             bwd_times["training_f32"]["flash_attention_dq_simt"]),
+            ("flash_attention_dq_f32tc",
+             f32_launches["flash_attention_dq_f32tc"],
+             bwd_times["training_f32"]["flash_attention_dq_f32tc"]),
             ("flash_attention_dkv", trained["launches"]["flash_attention_dkv"],
              bwd_times["training"]["flash_attention_dkv"]),
             ("flash_attention_dkv_d256",
              trained_g["launches"]["flash_attention_dkv_d256"],
              bwd_times["gemma2"]["flash_attention_dkv_d256"]),
-            ("flash_attention_dkv_simt",
-             f32_launches["flash_attention_dkv_simt"],
-             bwd_times["training_f32"]["flash_attention_dkv_simt"])):
+            ("flash_attention_dkv_f32tc",
+             f32_launches["flash_attention_dkv_f32tc"],
+             bwd_times["training_f32"]["flash_attention_dkv_f32tc"])):
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launched,
                      "max_abs_err": bwd_check["max_abs_err"][name],
-                     "ms": t["ms"] if "ms" in t else t["simt_ms"],
-                     "plain_ms": t["plain_ms"],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)

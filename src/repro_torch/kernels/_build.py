@@ -55,6 +55,8 @@ SOURCES = {
     "flash_bwd_sm90_d256": {
         "repro_flash_dq_sm90_d256": (_P,) * 7 + _FLASH_BWD_SM90,
         "repro_flash_dkv_sm90_d256": (_P,) * 8 + _FLASH_BWD_SM90},
+    "flash_bwd_f32tc": {"repro_flash_dq_f32tc": (_P,) * 7 + _FLASH_BWD_SM90,
+                        "repro_flash_dkv_f32tc": (_P,) * 8 + _FLASH_BWD_SM90},
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
 // flash_bwd: the flash-attention backward, dQ and per-q-head dK, dV.
 //
 // Replaces the Pallas kernels `_dq_kernel` and `_dkv_kernel` of
-// src/repro/kernels/flash_attention.py (launched by `_bwd`), the attention
-// backward of every layer on the flash route, for f32 inputs only: bf16
-// runs flash_bwd_sm90.cu (head_dim up to 128) and flash_bwd_sm90_d256.cu
-// (above), and this file's bf16 instantiation runs only where a caller
-// names its route (timing comparisons, tests).  Same function: the scores
+// src/repro/kernels/flash_attention.py (launched by `_bwd`) on the CUDA
+// cores, f32 or bf16, and runs only where a caller names its route
+// ("simt": timing comparisons, tests).  The flash route's backward runs
+// flash_bwd_f32tc.cu for f32 (3xTF32 on the tensor cores) and
+// flash_bwd_sm90.cu (head_dim up to 128) or flash_bwd_sm90_d256.cu
+// (above) for bf16.  Same function: the scores
 // are recomputed in f32 (scale, then softcap c*tanh(s/c), then the masks:
 // qpos >= kpos when causal, (qpos - kpos) < window whenever a window is
 // set, one-sided even when non-causal, masked scores the finite -1e30),

@@ -8,10 +8,10 @@
 // the sm90 kernels (flash_fwd_sm90.cu, flash_fwd_sm90_d256.cu);
 // flash_fwd.cu, the same function on the CUDA cores, runs only when the
 // caller names its route (a timing comparison).  The f32 backward
-// (flash_bwd.cu) reads this kernel's LSE.  Same function as flash_fwd.cu:
-// f32 accumulation; scale, then softcap c*tanh(s/c); mask qpos >= kpos
-// when causal and (qpos - kpos) < window whenever a window is set
-// (one-sided, even when non-causal); masked scores are the finite -1e30 of
+// (flash_bwd_f32tc.cu) reads this kernel's LSE.  Same function as
+// flash_fwd.cu: f32 accumulation; scale, then softcap c*tanh(s/c); mask
+// qpos >= kpos when causal and (qpos - kpos) < window whenever a window is
+// set (one-sided, even when non-causal); masked scores are the finite -1e30 of
 // the reference, not -inf; O and LSE = m + log(max(l, 1e-30)) in f32; GQA
 // q-head h of batch b reads kv-head h / (Hq / Hkv).
 //

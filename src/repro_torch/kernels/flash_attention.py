@@ -11,11 +11,11 @@ a route picked by dtype and head dim (``_route``): bf16 runs the
 ``"sm90"`` route (wgmma and TMA on Hopper's tensor cores),
 ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` for head_dim up
 to 128 and ``csrc/flash_fwd_sm90_d256.cu`` and
-``csrc/flash_bwd_sm90_d256.cu`` above; f32, and only f32, runs its
-forward on the ``"f32tc"`` route (``csrc/flash_fwd_f32tc.cu``: 3xTF32 on
-the tensor cores) and its backward on the ``"simt"`` route
-(``csrc/flash_bwd.cu``, f32 on the CUDA cores).  The CUDA-core forward
-(``csrc/flash_fwd.cu``) runs only when a caller names its route.
+``csrc/flash_bwd_sm90_d256.cu`` above; f32, and only f32, runs both
+passes on the ``"f32tc"`` route (``csrc/flash_fwd_f32tc.cu`` and
+``csrc/flash_bwd_f32tc.cu``: 3xTF32 on the tensor cores).  The CUDA-core
+kernels of the ``"simt"`` route (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``) run only when a caller names their route.
 Every kernel counts its own launches (``_COUNTERS``).
 ``flash_attention`` is differentiable through a
 ``torch.autograd.Function`` over the three.  Causal and
@@ -55,6 +55,8 @@ _FORWARD_SM90_D256 = ("flash_fwd_sm90_d256", "repro_flash_fwd_sm90_d256")
 #: wide heads take ``_BACKWARD_SM90_D256``
 _BACKWARD = {"sm90": ("flash_bwd_sm90", {"dq": "repro_flash_dq_sm90",
                                          "dkv": "repro_flash_dkv_sm90"}),
+             "f32tc": ("flash_bwd_f32tc", {"dq": "repro_flash_dq_f32tc",
+                                           "dkv": "repro_flash_dkv_f32tc"}),
              "simt": ("flash_bwd", {"dq": "repro_flash_dq",
                                     "dkv": "repro_flash_dkv"})}
 _BACKWARD_SM90_D256 = ("flash_bwd_sm90_d256",
@@ -63,9 +65,8 @@ _BACKWARD_SM90_D256 = ("flash_bwd_sm90_d256",
 
 
 #: the f32 route of each pass, whose tolerances bf16 tensor cores cannot
-#: meet: the forward in 3xTF32 on the tensor cores, the backward on the
-#: CUDA cores
-_F32_ROUTES = {"fwd": "f32tc", "bwd": "simt"}
+#: meet: both in 3xTF32 on the tensor cores
+_F32_ROUTES = {"fwd": "f32tc", "bwd": "f32tc"}
 
 
 def _route(dtype: torch.dtype, head_dim: int, kind: str) -> str:
@@ -73,9 +74,8 @@ def _route(dtype: torch.dtype, head_dim: int, kind: str) -> str:
     of ``dtype`` and ``head_dim``: ``"sm90"`` for bf16 with head_dim up to
     256 (the ``csrc/flash_*_sm90.cu`` kernels with it padded to 16, 32, 64,
     80 or 128; the ``csrc/flash_*_sm90_d256.cu`` ones above, padded to
-    256); for f32 ``_F32_ROUTES[kind]``: the forward ``"f32tc"``
-    (``csrc/flash_fwd_f32tc.cu``), the backward ``"simt"``
-    (``csrc/flash_bwd.cu``)."""
+    256); for f32 ``_F32_ROUTES[kind]``, ``"f32tc"`` for both
+    (``csrc/flash_fwd_f32tc.cu``, ``csrc/flash_bwd_f32tc.cu``)."""
     if dtype == torch.bfloat16 and head_dim <= _MAX_HEAD_DIM:
         return "sm90"
     return _F32_ROUTES[kind]
@@ -277,7 +277,7 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
                 window, softcap, route=None) -> None:
     """Launch the backward kernel ``kernel`` (``"dq"`` or ``"dkv"``) into
     ``outs`` on checked CUDA tensors, on the current stream: ``route``
-    names its library (``"sm90"`` or ``"simt"``), by default
+    names its library (``"sm90"``, ``"f32tc"`` or ``"simt"``), by default
     ``_route``'s, on its head_dim-256 library above head_dim
     128.  Counts the launch on the kernel's own counter (``_COUNTERS``)."""
     D = q.shape[3]
@@ -287,6 +287,8 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
     if route == "sm90" and _route(q.dtype, D, "bwd") != "sm90":
         raise ValueError(f"the sm90 backward takes bf16 with head_dim up to "
                          f"{_MAX_HEAD_DIM}; got {q.dtype}, {D}")
+    if route == "f32tc" and q.dtype != torch.float32:
+        raise ValueError(f"the f32tc backward takes f32; got {q.dtype}")
     wide = route == "sm90" and D > _SM90_NARROW_HEAD_DIM
     if outs[0].numel() == 0:
         return
@@ -295,8 +297,8 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
     B, Hq, Lq, _ = q.shape
     name, entries = _BACKWARD_SM90_D256 if wide else _BACKWARD[route]
     lib = _build.load(name)
-    # the sm90 kernels take bf16 only; the CUDA-core ones are told the dtype
-    dtype_flag = () if route == "sm90" else (int(q.dtype == torch.bfloat16),)
+    # the tensor-core kernels take one dtype; the CUDA-core ones are told it
+    dtype_flag = (int(q.dtype == torch.bfloat16),) if route == "simt" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = getattr(lib, entries[kernel])(
@@ -312,8 +314,8 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
 #: kernel launches since the last reset (CPU calls never count), one
 #: counter per kernel, each added to by that kernel's launches alone: the
 #: wrappers' own count the sm90 route's first kernels (head_dim up to 128),
-#: the ``d256_*`` counters its head_dim-256 kernels, ``f32tc_forward`` the
-#: 3xTF32 forward, the ``simt_*`` ones the CUDA-core kernels
+#: the ``d256_*`` counters its head_dim-256 kernels, the ``f32tc_*`` ones
+#: the 3xTF32 kernels, the ``simt_*`` ones the CUDA-core kernels
 flash_attention.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
@@ -321,6 +323,8 @@ d256_forward = SimpleNamespace(launches=0)
 d256_dq = SimpleNamespace(launches=0)
 d256_dkv = SimpleNamespace(launches=0)
 f32tc_forward = SimpleNamespace(launches=0)
+f32tc_dq = SimpleNamespace(launches=0)
+f32tc_dkv = SimpleNamespace(launches=0)
 simt_forward = SimpleNamespace(launches=0)
 simt_dq = SimpleNamespace(launches=0)
 simt_dkv = SimpleNamespace(launches=0)
@@ -331,7 +335,9 @@ _COUNTERS = {"repro_flash_fwd_sm90": flash_attention,
              "repro_flash_fwd": simt_forward,
              "repro_flash_dq_sm90": flash_attention_dq,
              "repro_flash_dq_sm90_d256": d256_dq,
+             "repro_flash_dq_f32tc": f32tc_dq,
              "repro_flash_dq": simt_dq,
              "repro_flash_dkv_sm90": flash_attention_dkv,
              "repro_flash_dkv_sm90_d256": d256_dkv,
+             "repro_flash_dkv_f32tc": f32tc_dkv,
              "repro_flash_dkv": simt_dkv}

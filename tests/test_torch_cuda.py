@@ -34,6 +34,8 @@ ROUTES = {"sm90": ("flash_attention", "flash_attention_d256"),
 #: the backward's routes, by their (dq, dkv) kernels' launch counters
 BWD_ROUTES = {"sm90": (("flash_attention_dq", "flash_attention_dq_d256"),
                        ("flash_attention_dkv", "flash_attention_dkv_d256")),
+              "f32tc": (("flash_attention_dq_f32tc",),
+                        ("flash_attention_dkv_f32tc",)),
               "simt": (("flash_attention_dq_simt",),
                        ("flash_attention_dkv_simt",))}
 MASKS = [(True, None, None), (False, None, None), (True, 48, None),
@@ -266,12 +268,12 @@ def test_flash_f32tc_kernel_matches_plain(cuda, D, causal, window, softcap):
             torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
 
 
-def test_f32_gradients_run_the_f32tc_forward_and_cuda_core_backward(cuda):
+def test_f32_gradients_run_the_f32tc_forward_and_backward(cuda):
     """f32 ``flash_attention`` with its gradients (gemma2-2b's masks at
     head_dim 256, ragged L 130, GQA 8:4, strided views): the forward on the
-    3xTF32 kernel, the backward on the CUDA-core dq and dkv reading its
-    LSE, no other flash kernel; the gradients within the reference's
-    (rtol 1e-3, atol 1e-4) of autograd through the plain forward."""
+    3xTF32 kernel, the backward on the 3xTF32 dq and dkv reading its LSE,
+    no other flash kernel; the gradients within the reference's (rtol
+    1e-3, atol 1e-4) of autograd through the plain forward."""
     gen = torch.Generator(device=cuda).manual_seed(2560)
     q, k, v = ((std * torch.randn((2, 130, h, 256), generator=gen,
                                   device=cuda)).transpose(1, 2)
@@ -281,8 +283,8 @@ def test_f32_gradients_run_the_f32tc_forward_and_cuda_core_backward(cuda):
     got, ran = _launches(lambda: torch.autograd.grad(
         K.flash_attention(q, k, v, None, True, 4096, 50.0), (q, k, v), do))
     want = {n: 0 for n in ran}
-    want.update(flash_attention_f32tc=1, flash_attention_dq_simt=1,
-                flash_attention_dkv_simt=1)
+    want.update(flash_attention_f32tc=1, flash_attention_dq_f32tc=1,
+                flash_attention_dkv_f32tc=1)
     assert ran == want
     ref = torch.autograd.grad(flash_attention_ref(q, k, v, None, True, 4096,
                                                   50.0)[0], (q, k, v), do)
@@ -330,7 +332,8 @@ def test_flash_kernel_reads_strided_views(cuda):
 def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
                                        softcap):
     """The CUDA-core backward kernels (``csrc/flash_bwd.cu``, the route
-    named, so bf16 at D <= 128 runs them too): dQ and the per-q-head dK,
+    named, so f32, whose own route is f32tc, and bf16 run them): dQ and
+    the per-q-head dK,
     dV against their plain versions on the same inputs: f32 at the
     reference's gradient tolerance (rtol 1e-3, atol 1e-4); bf16 dQ within
     one bf16 step (both round one f32 sum: rtol 2^-7, atol 1e-4), dK and
@@ -349,7 +352,8 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
     args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
     (dq, dk, dv), ran = _launches(lambda: _bwd_on_route(args, "simt"))
     torch.cuda.synchronize()
-    assert _bwd_routes(ran) == {"sm90": (0, 0), "simt": (1, 1)}
+    assert _bwd_routes(ran) == {"sm90": (0, 0), "f32tc": (0, 0),
+                                "simt": (1, 1)}
     rdk, rdv = flash_attention_dkv_ref(*args)
     f32 = dict(rtol=1e-3, atol=1e-4)
     assert dq.dtype == dtype and dk.dtype == dv.dtype == torch.float32
@@ -358,6 +362,53 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, window,
         **(f32 if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-4)))
     torch.testing.assert_close(dk, rdk, **f32)
     torch.testing.assert_close(dv, rdv, **f32)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 136, 200, 256])
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+@pytest.mark.parametrize("g,strided", [(1, False), (2, True), (4, True)],
+                         ids=["mha", "gqa2_strided", "gqa4_strided"])
+def test_flash_f32tc_bwd_kernels_match_plain(cuda, D, causal, window,
+                                             softcap, g, strided):
+    """The 3xTF32 backward kernels (``csrc/flash_bwd_f32tc.cu``; f32, every
+    width they are built for, with 136 and 200 zero-padded to 256; the
+    five masks) against their plain versions, dQ and the per-q-head dK, dV
+    within the reference's gradient tolerance (``BWD_TOL["float32"]``: rtol
+    1e-3, atol 1e-4).  Ragged Lq 150 and Lk 100 (no multiple of the 64-row
+    CTA tiles or the 32- and 16-row k and q tiles), GQA groups of 1, 2 and
+    4, q and k of std sqrt(2), and q, k, v, dO as (B, H, L, D) views of
+    (B, L, H, D) tensors read in place; the wrappers' calls counted once
+    each on the f32tc route and on no other."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 17 * g)
+    B, Hkv, L, Lk = 2, 2, 150, 100
+    Hq = g * Hkv
+    shapes = ((2 ** 0.5, Hq, L), (2 ** 0.5, Hkv, Lk), (0.5, Hkv, Lk),
+              (0.5, Hq, L))
+    if strided:
+        q, k, v, do = ((std * torch.randn((B, n, h, D), generator=gen,
+                                          device=cuda)).transpose(1, 2)
+                       for std, h, n in shapes)
+    else:
+        q, k, v, do = (std * torch.randn((B, h, n, D), generator=gen,
+                                         device=cuda)
+                       for std, h, n in shapes)
+    scale = D ** -0.5
+    o, lse = flash_attention_ref(q, k, v, scale, causal, window, softcap)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal, window, softcap)
+    (dq, (dk, dv)), ran = _launches(
+        lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
+    torch.cuda.synchronize()
+    assert ran == {n: int(n in ("flash_attention_dq_f32tc",
+                                "flash_attention_dkv_f32tc")) for n in ran}
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    assert dq.shape == (B, Hq, L, D) and dk.shape == dv.shape == \
+        (B, Hq, Lk, D)
+    torch.testing.assert_close(dq, flash_attention_dq_ref(*args),
+                               rtol=1e-3, atol=1e-4)
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    torch.testing.assert_close(dk, rdk, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(dv, rdv, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 136, 200, 256])
@@ -396,7 +447,8 @@ def test_flash_bwd_sm90_kernels_match_plain(cuda, D, causal, window, softcap,
     (dq, (dk, dv)), ran = _launches(
         lambda: (K.flash_attention_dq(*args), K.flash_attention_dkv(*args)))
     torch.cuda.synchronize()
-    assert _bwd_routes(ran) == {"sm90": (1, 1), "simt": (0, 0)}
+    assert _bwd_routes(ran) == {"sm90": (1, 1), "f32tc": (0, 0),
+                                "simt": (0, 0)}
     assert ran["flash_attention_dq_d256"] == \
         ran["flash_attention_dkv_d256"] == int(D > 128)
     assert dq.dtype == torch.bfloat16 and dq.shape == (B, Hq, L, D)
@@ -452,8 +504,10 @@ def test_bf16_d256_gradients_run_the_d256_sm90_backward(cuda):
                    "flash_attention_f32tc": 0,
                    "flash_attention_simt": 0, "flash_attention_dq": 0,
                    "flash_attention_dq_d256": 1,
+                   "flash_attention_dq_f32tc": 0,
                    "flash_attention_dq_simt": 0, "flash_attention_dkv": 0,
                    "flash_attention_dkv_d256": 1,
+                   "flash_attention_dkv_f32tc": 0,
                    "flash_attention_dkv_simt": 0}
     want = FA.flash_attention_bwd(*(x.detach().cpu() for x in (q, k, v, o,
                                                               lse, do)),
@@ -467,12 +521,12 @@ def test_bf16_d256_gradients_run_the_d256_sm90_backward(cuda):
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 16),
                                      (torch.bfloat16, 256),
                                      (torch.float32, 16)],
-                         ids=["sm90", "sm90_d256", "simt"])
+                         ids=["sm90", "sm90_d256", "f32tc"])
 def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
     """B*Hq = 65536, one past a grid's y extent: q (4096, 16, 8, D), k and
     v (4096, 2, 8, D), causal.  The forward and the backward (sm90 route
     for bf16, at D 16 and on its head_dim-256 kernels; for f32 the 3xTF32
-    forward and the CUDA-core backward) against their plain versions
+    forward and backward) against their plain versions
     within the tolerances of the tests above."""
     gen = torch.Generator(device=cuda).manual_seed(65536 + D)
     q, k, v, do = ((std * torch.randn(shape, generator=gen, device=cuda))
@@ -514,14 +568,14 @@ def test_flash_kernels_take_65536_batch_heads(cuda, dtype, D):
                          [(torch.bfloat16, 16, (1 << 23) + 100, 1 << 23),
                           (torch.bfloat16, 256, (1 << 23) + 100, 1 << 22),
                           (torch.float32, 16, (1 << 23) + 100, 1 << 22)],
-                         ids=["sm90", "sm90_d256", "simt"])
+                         ids=["sm90", "sm90_d256", "f32tc"])
 def test_flash_kernels_fold_long_sequences_into_grid_z(cuda, dtype, D,
                                                        long_q, long_k):
     """More tiles than a grid's y extent (65,535) holds: each kernel's tile
     rows times 65,536 or more.  A long Lq for the forward and dQ (sm90,
-    head_dim-256 and 3xTF32 tiles of 128 rows, CUDA-core ones of 64), a
-    long Lk for dK, dV (sm90 tiles of 128 rows, head_dim-256 and CUDA-core
-    ones of 64),
+    head_dim-256 and 3xTF32 forward tiles of 128 rows, 3xTF32 dQ ones of
+    64), a long Lk for dK, dV (sm90 tiles of 128 rows, head_dim-256 and
+    3xTF32 ones of 64),
     against 16 keys or queries, non-causal.  Each output row depends on its
     own row and the short side alone, so the plain versions check the first
     and last 256 rows, the last ones in grid z's second slice, within the

@@ -226,8 +226,9 @@ def test_one_bf16_p_and_ds_break_the_tolerance(mask):
                                136, 200, 256])
 def test_backward_route(dtype, D):
     """bf16 at every head_dim up to 256 takes the sm90 kernels (those of
-    ``csrc/flash_bwd_sm90_d256.cu`` above 128); f32 the CUDA-core ones."""
-    want = "sm90" if dtype == torch.bfloat16 else "simt"
+    ``csrc/flash_bwd_sm90_d256.cu`` above 128); f32 the 3xTF32 ones
+    (``csrc/flash_bwd_f32tc.cu``)."""
+    want = "sm90" if dtype == torch.bfloat16 else "f32tc"
     assert FA._route(dtype, D, "bwd") == want
 
 
@@ -286,9 +287,9 @@ def _gemma2_training_run() -> dict:
     """The record ``chip_smoke.train`` returns for gemma2-2b, with the
     launches a right run counts: per step the head_dim-256 sm90 forward
     twice a layer (the dots recompute runs it again) and its dq and dkv
-    once; the f32 route comparison's backward on the CUDA-core kernels
-    after the 3xTF32 forward, the bf16 one's on the head_dim-256 ones,
-    once a layer."""
+    once; the f32 route comparison's backward on the 3xTF32 kernels after
+    the 3xTF32 forward, the bf16 one's on the head_dim-256 ones, once a
+    layer."""
     cs = _chip_smoke()
     cfg = get_config("gemma2-2b")
     n = cfg.n_layers
@@ -302,8 +303,8 @@ def _gemma2_training_run() -> dict:
                     flash_attention_d256=n, flash_attention_dq_d256=n,
                     flash_attention_dkv_d256=n)},
                 "float32": {"over_limit": {}, "flash_launches": counts(
-                    flash_attention_f32tc=n, flash_attention_dq_simt=n,
-                    flash_attention_dkv_simt=n)}},
+                    flash_attention_f32tc=n, flash_attention_dq_f32tc=n,
+                    flash_attention_dkv_f32tc=n)}},
             "losses": [12.4, 11.8, 11.1], "grad_norms": [2.0, 1.7, 1.5],
             "launches_per_step": counts(flash_attention_d256=2 * n,
                                         flash_attention_dq_d256=n,
@@ -320,11 +321,13 @@ def test_check_training_accepts_gemma2_launch_counts():
 
 @pytest.mark.parametrize("kernel", ["flash_attention_dq_simt",
                                     "flash_attention_dkv_simt",
+                                    "flash_attention_dq_f32tc",
+                                    "flash_attention_dkv_f32tc",
                                     "flash_attention_dq",
                                     "flash_attention_dkv"])
 def test_check_training_refuses_another_backward_kernel(kernel):
-    """One launch a step of a CUDA-core backward kernel, or of the sm90
-    route's head_dim-128 one, fails gemma2-2b's training gate."""
+    """One launch a step of a CUDA-core or 3xTF32 backward kernel, or of
+    the sm90 route's head_dim-128 one, fails gemma2-2b's training gate."""
     run = _gemma2_training_run()
     run["launches_per_step"][kernel] += 1
     with pytest.raises(AssertionError, match="launches per step"):
@@ -354,4 +357,17 @@ def test_check_training_refuses_a_cuda_core_bf16_comparison():
             f"flash_attention_{kind}_d256")
         got[f"flash_attention_{kind}_d256"] = 0
     with pytest.raises(AssertionError, match="bfloat16 route comparison"):
+        _chip_smoke().check_training(run)
+
+
+def test_check_training_refuses_a_cuda_core_f32_comparison():
+    """The f32 route comparison's backward must run the 3xTF32 kernels: on
+    the CUDA-core ones the gate fails."""
+    run = _gemma2_training_run()
+    got = run["flash_vs_q_chunked"]["float32"]["flash_launches"]
+    for kind in ("dq", "dkv"):
+        got[f"flash_attention_{kind}_simt"] = got.pop(
+            f"flash_attention_{kind}_f32tc")
+        got[f"flash_attention_{kind}_f32tc"] = 0
+    with pytest.raises(AssertionError, match="float32 route comparison"):
         _chip_smoke().check_training(run)

@@ -1,6 +1,7 @@
 """The numerics of the f32 flash forward on the tensor cores
 (``csrc/flash_fwd_f32tc.cu``, 3xTF32), emulated on the CPU, and the routes
-of the f32 passes.
+of the f32 passes (the backward's numerics:
+``tests/test_torch_flash_bwd_f32tc.py``).
 
 The kernel splits every operand x of both products, S = Q.K^T and O +=
 P.V, into hi = tf32(x) and lo = tf32(x - hi), TF32 by truncation (the low
@@ -164,16 +165,21 @@ def test_one_tf32_product_breaks_the_tolerance(mask, D):
 
 @pytest.mark.parametrize("D", [8, 16, 24, 64, 80, 128, 136, 200, 256])
 def test_routes_of_the_f32_and_bf16_passes(D):
-    """f32: the forward on the 3xTF32 kernel (library ``flash_fwd_f32tc``,
-    its own launch counter), the backward on the CUDA-core kernels; bf16:
+    """f32: both passes on the 3xTF32 kernels (libraries ``flash_fwd_f32tc``
+    and ``flash_bwd_f32tc``, each kernel its own launch counter); bf16:
     both passes on the sm90 route."""
     assert FA._route(torch.float32, D, "fwd") == "f32tc"
-    assert FA._route(torch.float32, D, "bwd") == "simt"
+    assert FA._route(torch.float32, D, "bwd") == "f32tc"
     assert FA._route(torch.bfloat16, D, "fwd") == "sm90"
     assert FA._route(torch.bfloat16, D, "bwd") == "sm90"
     lib, entry = FA._FORWARD["f32tc"]
     assert entry in _build.SOURCES[lib]
     assert FA._COUNTERS[entry] is FA.f32tc_forward
+    lib, entries = FA._BACKWARD["f32tc"]
+    assert lib == "flash_bwd_f32tc" and set(entries.values()) == \
+        set(_build.SOURCES[lib])
+    assert FA._COUNTERS[entries["dq"]] is FA.f32tc_dq
+    assert FA._COUNTERS[entries["dkv"]] is FA.f32tc_dkv
 
 
 def test_f32_forward_goes_to_the_3xtf32_library():
@@ -193,14 +199,40 @@ def test_f32_forward_goes_to_the_3xtf32_library():
     assert seen == ["flash_fwd_f32tc"]
 
 
-def test_f32tc_route_takes_f32_alone_and_has_no_backward():
-    """Naming the f32tc route for bf16, or for a backward kernel, raises
-    before anything is built or launched."""
-    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="f32tc"):
-        FA._launch(x, x, x, 0.125, True, None, None, route="f32tc")
-    y = torch.zeros(1, 2, 8, 64)
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_f32_backward_goes_to_the_3xtf32_library(kernel):
+    """An f32 backward kernel on the default route loads
+    ``flash_bwd_f32tc``; on a machine without nvcc or a card that is where
+    it stops."""
+    x = torch.zeros(1, 2, 8, 64)
     rows = torch.zeros(1, 2, 8)
-    with pytest.raises(ValueError, match="f32tc"):
-        FA._launch_bwd("dq", (y,), y, y, y, y, rows, rows, 0.125, True,
-                       None, None, route="f32tc")
+    outs = (x.clone(),) if kernel == "dq" else (x.clone(), x.clone())
+    seen = []
+
+    def load(name):
+        seen.append(name)
+        raise RuntimeError("no build here")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(FA._build, "load", load)
+        with pytest.raises(RuntimeError, match="no build here"):
+            FA._launch_bwd(kernel, outs, x, x, x, x, rows, rows, 0.125, True,
+                           None, None)
+    assert seen == ["flash_bwd_f32tc"]
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_f32tc_route_refuses_bf16(kernel):
+    """Naming the f32tc route for bf16 raises, for the forward and for
+    each backward kernel, before anything is built or launched."""
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    rows = torch.zeros(1, 2, 8)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(FA._build, "load", pytest.fail)
+        with pytest.raises(ValueError, match="f32tc"):
+            if kernel == "fwd":
+                FA._launch(x, x, x, 0.125, True, None, None, route="f32tc")
+            else:
+                FA._launch_bwd(kernel, (x.float(),) * (1 + (kernel == "dkv")),
+                               x, x, x, x, rows, rows, 0.125, True, None,
+                               None, route="f32tc")

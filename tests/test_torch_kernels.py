@@ -176,9 +176,11 @@ def test_cpu_tensors_never_launch():
                                  "flash_attention_simt": 0,
                                  "flash_attention_dq": 0,
                                  "flash_attention_dq_d256": 0,
+                                 "flash_attention_dq_f32tc": 0,
                                  "flash_attention_dq_simt": 0,
                                  "flash_attention_dkv": 0,
                                  "flash_attention_dkv_d256": 0,
+                                 "flash_attention_dkv_f32tc": 0,
                                  "flash_attention_dkv_simt": 0}
 
 
