@@ -18,13 +18,16 @@ Phases, each printing one JSON line:
    8192 x 8192 f32 components in 256 x 256 blocks over 48 load-balanced
    processes) written through ``Dataset.write`` and read back through
    ``Dataset.read`` under ``merged_process`` and ``reorganized``, each
-   component compared with its source, plus one partial-region read;
+   component compared with its source, plus one partial-region read on
+   the region route (one ``pack_rows`` launch) and, for its stages, on
+   the host route it replaced;
 4. kernel times at the main path's shapes (CUDA events around runs of
    20 back-to-back calls, median of 5 runs),
    beside the memory-bandwidth bound, the plain version and one PyTorch
    call computing the same function; ``pack_rows`` as its kernel, its
    public wrapper and ``pack_tables`` as the main path calls it;
-5. launch counts of the main-path run; every kernel must have run;
+5. launch counts of the main-path run; every kernel must have run (the
+   summary's copy-kernel rows add phase 15's launches);
 6. the flash-attention forward's kernels against their plain version on
    the card, within tolerance: masks, GQA groups, head dims 16-256
    (padded ones too), ragged lengths, f32 and bf16, the serving paths'
@@ -101,7 +104,23 @@ Phases, each printing one JSON line:
     (``csrc/flash_bwd_sm90_d256.cu``), 52 of the head_dim-256 forward,
     none on a CUDA-core route; the f32 route comparison runs the 3xTF32
     forward and backward once per layer, and the profile
-    names the flash backward's device time in a step.
+    names the flash backward's device time in a step;
+15. (run right after phase 11, on its trained tree: the later phases have
+    no room for it beside their own) the checkpoint path at full width:
+    qwen2.5-3b's params and AdamW state (42 f32 leaves, 37 GB, and the
+    int32 step count) saved by ``CheckpointManager`` under
+    ``merged_process`` into ``build/chip_smoke/ckpt`` from
+    ``MeshSharding``s of 2 simulated hosts x 4 devices (each leaf split 8
+    ways, the blocks from ``blocks_from_sharding``: 2 chunks a leaf, one
+    ``pack_rows`` launch a leaf at least), restored whole onto the card
+    (every leaf ``torch.equal``, the count 0-d), restored elastically (the
+    embedding and one MLP weight 4 ways on another axis, through the
+    region route: one launch a variable, every shard ``torch.equal``, with
+    ``reshard_cost_report``'s chunks, runs and amplification), and the
+    embedding alone saved and restored under ``reorganized`` (8, 1)
+    through ``rowmajor_to_chunked`` and ``chunked_to_rowmajor``; each
+    step's launch counts reset just before it and read just after, the
+    peak device memory, the free disk, and the directory removed.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -581,16 +600,47 @@ def main_path(torch, dev, blocks, layouts) -> dict:
                 st["h2d"] += rs.h2d_seconds
                 st["linearize"] += rs.linearize_seconds
                 del got
-            got, _ = ds.read("Ez", part)
-            if not torch.equal(got, fields["Ez"][part.slices()]):
-                raise AssertionError(f"{name}: partial read differs")
+            out[name] = {"part_read": part_read(torch, dev, ds, part,
+                                                fields["Ez"])}
             ds.close()
             nbytes = sum(p.stat().st_size for p in Path(d).iterdir())
         finally:
             shutil.rmtree(d)
-        out[name] = {"chunks": len(layout["plan"].chunks),
-                     "stored_bytes": nbytes, "seconds": st}
+        out[name].update(chunks=len(layout["plan"].chunks),
+                         stored_bytes=nbytes, seconds=st)
     return out
+
+
+def part_read(torch, dev, ds, part, field) -> dict:
+    """A part of one component read onto the card on the region route
+    (``Dataset.read``: each touched extent once, one copy, one
+    ``pack_rows`` launch), then on the host route it replaced (the host
+    plan, then one copy of the result); both held to the source."""
+    t0 = time.perf_counter()
+    got, rs = ds.read("Ez", part)
+    torch.cuda.synchronize()
+    region_s = time.perf_counter() - t0
+    if not torch.equal(got, field[part.slices()]):
+        raise AssertionError("partial read differs (region route)")
+    t0 = time.perf_counter()
+    arr, hs = ds.read_planned(ds.plan_read("Ez", part))
+    t1 = time.perf_counter()
+    got = torch.from_numpy(arr).to(dev)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t1
+    host_s = time.perf_counter() - t0
+    if not torch.equal(got, field[part.slices()]):
+        raise AssertionError("partial read differs (host route)")
+    return {"region": [list(part.lo), list(part.hi)],
+            "chunks_touched": rs.chunks_touched, "bytes": rs.bytes_read,
+            "region_route": {"seconds": region_s, "engine_read": rs.seconds,
+                             "lower": rs.lower_seconds,
+                             "h2d": rs.h2d_seconds,
+                             "linearize": rs.linearize_seconds,
+                             "bytes_read": rs.bytes_read},
+            "host_route": {"seconds": host_s, "engine_read": hs.seconds,
+                           "plan": hs.probe_seconds + hs.plan_seconds,
+                           "h2d": h2d}}
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -1197,10 +1247,12 @@ def check_flash_bwd(torch, dev) -> dict:
 
 # -- phase 11 ------------------------------------------------------------------
 
-def train(torch, dev, K, arch=SERVE_ARCH) -> dict:
+def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None) -> dict:
     """The training path at ``arch``'s full width: the flash route's
     gradients against the q-chunked route's, then ``Trainer.run`` with the
-    launch counts of that one call, then a profile of one more step."""
+    launch counts of that one call, then a profile of one more step.  With
+    a ``hand_over`` dict, the trained params and AdamW state go into it
+    (the checkpoint phase saves them) instead of being freed."""
     import dataclasses
     import itertools
     from repro_torch.configs import get_config
@@ -1239,6 +1291,8 @@ def train(torch, dev, K, arch=SERVE_ARCH) -> dict:
     steps = [m["step_seconds"] for _, m in hist]
     steady = statistics.median(steps[1:])
     profile = profile_train_step(torch, trainer, params, opt, K)
+    if hand_over is not None:
+        hand_over.update(params=params, opt=opt)
     del params, opt, trainer
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.n_layers,
@@ -1567,6 +1621,190 @@ def bwd_timings(torch, dev) -> dict:
 
 # -- driver --------------------------------------------------------------------
 
+# -- phase 15 ------------------------------------------------------------------
+
+#: the checkpoint phase's decomposition: 2 simulated hosts of 4 devices (the
+#: manager's devices_per_host), each leaf split 8 ways on its first axis
+#: that 8 divides (replicated where none does); the elastic restore splits
+#: CKPT_ELASTIC 4 ways on their last other axis that 4 divides, and the
+#: relayout check saves the embedding under ``reorganized`` (8, 1)
+CKPT_MESH, CKPT_AXES = (2, 4), ("host", "device")
+CKPT_ELASTIC = ("params/embed", "params/segments/0/mlp/w_up")
+CKPT_TARGETS = 4
+CKPT_REORG = (8, 1)
+COPY_KERNELS = ("pack_rows", "chunked_to_rowmajor", "rowmajor_to_chunked")
+
+
+def _split_axis(shape, ways, skip=None, last=False):
+    """The first (or last) axis of ``shape`` other than ``skip`` that
+    ``ways`` divides, or None."""
+    axes = [d for d, n in enumerate(shape) if d != skip and n % ways == 0]
+    return (axes[-1] if last else axes[0]) if axes else None
+
+
+def checkpoint(torch, dev, K, state: dict) -> dict:
+    """The checkpoint path at full width on phase 11's trained tree (its
+    params and AdamW state, popped from ``state``): ``save`` under
+    ``merged_process`` from ``MeshSharding``s, the whole restore onto the
+    card, an elastic restore of two leaves onto another axis, and the
+    embedding alone under ``reorganized`` through the relayout kernels.
+    Each step's launch counts are reset just before it and read just
+    after; every check raises."""
+    from repro_torch.checkpoint import (CheckpointManager, MeshSharding,
+                                        blocks_from_sharding, flatten_pytree,
+                                        reshard_cost_report, unflatten_like)
+    from repro_torch.core import plan_layout, regular_decomposition
+    tree = {"params": state.pop("params"), "opt_state": state.pop("opt")}
+    flat = flatten_pytree(tree)
+    ids = np.arange(math.prod(CKPT_MESH)).reshape(CKPT_MESH)
+    axis = {n: _split_axis(t.shape, ids.size) for n, t in flat.items()
+            if t.dim()}
+    sh = {n: MeshSharding(ids, CKPT_AXES, () if d is None
+                          else (None,) * d + (CKPT_AXES,))
+          for n, d in axis.items()}
+    shardings = unflatten_like(tree, {n: sh.get(n) for n in flat})
+    root = ROOT / "build" / "chip_smoke" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = dict.fromkeys(COPY_KERNELS, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: K.launch_counts()[k] for k in COPY_KERNELS}
+        for k, n in got.items():
+            launches[k] += n
+        return out, seconds, got
+
+    def stages(rs):
+        return {"engine_read": rs.seconds, "lower": rs.lower_seconds,
+                "h2d": rs.h2d_seconds, "linearize": rs.linearize_seconds}
+
+    out = {"leaves": len(axis), "scalars": len(flat) - len(axis),
+           "bytes": sum(t.numel() * t.element_size() for t in flat.values()),
+           "hosts": CKPT_MESH[0], "devices_per_host": CKPT_MESH[1],
+           "split_axes": {n: d for n, d in axis.items()
+                          if n.startswith("params/")}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["disk_free_before"] = shutil.disk_usage(root).free
+    need = out["bytes"] + flat["params/embed"].numel() * 4
+    if out["disk_free_before"] < need:
+        raise RuntimeError(f"{root} has {out['disk_free_before']} bytes "
+                           f"free; the checkpoints take {need}")
+    try:
+        mgr = CheckpointManager(str(root / "merged"), keep=1,
+                                devices_per_host=CKPT_MESH[1])
+        step = TRAIN_STEPS + 1
+        st, secs, ran = counted(lambda: mgr.save(step, tree,
+                                                 shardings=shardings))
+        out["disk_free_after_save"] = shutil.disk_usage(root).free
+        fpp = sum(plan_layout("subfiled_fpp", blocks_from_sharding(
+            tuple(flat[n].shape), sh[n], CKPT_MESH[1]),
+            num_procs=CKPT_MESH[0]).num_chunks for n in axis)
+        out["save"] = {
+            "seconds": secs, "bytes": st.bytes, "chunks": st.num_chunks,
+            "subfiled_fpp_chunks": fpp, "blocks": st.num_original_blocks,
+            "stored_bytes": sum(p.stat().st_size for p in
+                                Path(mgr.step_dir(step)).iterdir()),
+            "stages": {"lower": st.lower_seconds,
+                       "kernel": st.kernel_seconds, "d2h": st.d2h_seconds,
+                       "engine_write": st.write_seconds,
+                       "checksum_and_index": st.commit_seconds},
+            "launches": ran}
+        if ran["pack_rows"] < len(axis):
+            raise AssertionError(f"save launched pack_rows {ran['pack_rows']}"
+                                 f" times for {len(axis)} leaves")
+
+        (got, rs), secs, ran = counted(lambda: mgr.restore(step,
+                                                           template=tree))
+        gflat = flatten_pytree(got)
+        bad = [n for n, t in flat.items()
+               if gflat[n].device != t.device or gflat[n].dtype != t.dtype
+               or gflat[n].shape != t.shape or not torch.equal(gflat[n], t)]
+        if bad:
+            raise AssertionError(f"whole restore differs: {bad}")
+        out["restore"] = {"seconds": secs, "bytes_read": rs.bytes_read,
+                          "chunks_touched": rs.chunks_touched,
+                          "stages": stages(rs), "launches": ran,
+                          "tolerance": "bit-exact: torch.equal every leaf"}
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del got, gflat
+        torch.cuda.empty_cache()
+
+        targets, target_axis = {}, {}
+        for n in CKPT_ELASTIC:
+            d = target_axis[n] = _split_axis(flat[n].shape, CKPT_TARGETS,
+                                             skip=axis[n], last=True)
+            scheme = [1] * flat[n].dim()
+            scheme[d] = CKPT_TARGETS
+            targets[n] = regular_decomposition(tuple(flat[n].shape), scheme)
+        (got, rs), secs, ran = counted(lambda: mgr.restore(
+            step, target_blocks=targets))
+        for n, blocks in targets.items():
+            for b in blocks:
+                if not torch.equal(got[n][b.block_id], flat[n][b.slices()]):
+                    raise AssertionError(f"elastic restore of {n} differs "
+                                         f"in {b}")
+        # one launch a variable: the region route's pack_rows for the
+        # targets, the whole route's pack_rows or, on an even 2-D chunk
+        # grid, chunked_to_rowmajor for the rest
+        if ran["pack_rows"] + ran["chunked_to_rowmajor"] != len(axis) or \
+                ran["pack_rows"] < len(targets):
+            raise AssertionError(f"elastic restore of {len(axis)} "
+                                 f"variables launched {ran}")
+        out["elastic"] = {
+            "seconds": secs, "launches": ran,
+            "vars": {n: {"shape": list(flat[n].shape),
+                         "saved_axis": axis[n],
+                         "target_axis": target_axis[n],
+                         "stages": stages(rs.per_var[n]),
+                         "bytes_read": rs.per_var[n].bytes_read,
+                         "chunks_touched": rs.per_var[n].chunks_touched,
+                         "report": reshard_cost_report(mgr.step_dir(step),
+                                                       n, targets[n])}
+                     for n in targets}}
+        out["peak_memory_bytes"] = max(out["peak_memory_bytes"],
+                                       torch.cuda.max_memory_allocated())
+        del got
+        torch.cuda.empty_cache()
+
+        emb = flat["params/embed"]
+        reorg = CheckpointManager(str(root / "reorganized"),
+                                  strategy="reorganized",
+                                  reorg_scheme=CKPT_REORG, keep=1,
+                                  devices_per_host=CKPT_MESH[1])
+        st, save_s, save_ran = counted(lambda: reorg.save(
+            step, {"embed": emb}, shardings={"embed": sh["params/embed"]}))
+        (got, rs), secs, ran = counted(lambda: reorg.restore(step))
+        if save_ran["rowmajor_to_chunked"] < 1 or \
+                ran["chunked_to_rowmajor"] < 1 or \
+                not torch.equal(got["embed"], emb):
+            raise AssertionError(f"reorganized embedding: save {save_ran}, "
+                                 f"restore {ran}")
+        out["reorganized"] = {"scheme": list(CKPT_REORG),
+                              "chunks": st.num_chunks,
+                              "save_seconds": save_s,
+                              "save_launches": save_ran,
+                              "restore_seconds": secs,
+                              "restore_stages": stages(rs),
+                              "restore_launches": ran}
+        del got
+        out["peak_memory_bytes"] = max(out["peak_memory_bytes"],
+                                       torch.cuda.max_memory_allocated())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the checkpoint path never launched {missing}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1657,9 +1895,17 @@ def main() -> int:
     emit(10, seconds=time.perf_counter() - t0, **bwd_check)
 
     t0 = time.perf_counter()
-    trained = train(torch, dev, K)
+    state = {}
+    trained = train(torch, dev, K, hand_over=state)
     emit(11, seconds=time.perf_counter() - t0, **trained)
     check_training(trained)
+
+    # phase 15 runs here, on phase 11's trained tree, which the later
+    # phases have no room for beside their own
+    t0 = time.perf_counter()
+    ckpt = checkpoint(torch, dev, K, state)
+    torch.cuda.empty_cache()
+    emit(15, seconds=time.perf_counter() - t0, **ckpt)
 
     t0 = time.perf_counter()
     bwd_times = bwd_timings(torch, dev)
@@ -1678,8 +1924,11 @@ def main() -> int:
     check_training(trained_g)
     emit("total", seconds=time.perf_counter() - t_start)
 
+    # the copy kernels' launches on their two paths: the slice-1 step
+    # (phase 3) and the checkpoint path (phase 15)
     rows = [{"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": launches[name],
+             "replaces": replaces,
+             "launches": launches[name] + ckpt["launches"][name],
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

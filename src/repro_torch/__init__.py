@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of the layout-reorganization data path and the
-model stack: serving and training.
+model stack: serving, training and checkpoints.
 
 A package of its own beside the JAX package ``repro``: it imports
 ``torch``, ``numpy`` and the standard library, never ``jax`` or ``repro``,
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["configs", "core", "data", "device", "interop", "io", "kernels",
-           "launch", "models", "serve", "train"]
+__all__ = ["checkpoint", "configs", "core", "data", "device", "interop",
+           "io", "kernels", "launch", "models", "serve", "train"]
 
 
 def __getattr__(name):

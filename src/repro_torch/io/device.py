@@ -26,8 +26,16 @@ variable): the engine reads every stored extent into one pinned flat
 buffer (a span plan), which is copied to the card once; a 2-D even chunk
 grid is then linearized with ``chunked_to_rowmajor``, any other layout
 whose chunks tile the domain with ``pack_rows`` (the stored chunks as the
-blocks of one whole-domain cluster).  Partial regions, compressed chunks
-and layouts that do not tile the domain take the host ``read_planned``
+blocks of one whole-domain cluster).
+
+**Region read** (:func:`read_regions`, for ``Dataset.read`` of a part of
+a variable, any other whole-variable read of raw chunks, and the
+checkpoint manager's restore onto a new decomposition): the read plans of
+all target regions are lowered together to one set of row tables
+(:func:`~repro_torch.kernels.ref.region_row_tables`); the engine reads
+each touched extent's needed bytes once, into one pinned flat buffer,
+which crosses to the card in one copy, and ONE ``pack_rows`` launch
+gathers every target.  Compressed chunks take the host ``read_planned``
 followed by one copy to the device.
 
 The route depends only on the layout and the region — never on a failure:
@@ -49,13 +57,14 @@ from ..core.layouts import LayoutPlan
 from ..core.merge import plan_from_clusters
 from ..interop import to_numpy
 from ..kernels.ops import pack_tables
-from ..kernels.ref import plan_row_tables
+from ..kernels.ref import plan_row_tables, region_row_tables
 from ..kernels.relayout import chunked_to_rowmajor, rowmajor_to_chunked
 from .engine import assemble_chunk
 from .format import DatasetIndex
-from .planner import build_span_plan
+from .planner import build_read_plan, build_span_plan
 
-__all__ = ["assemble_chunks", "read_route", "read_linearized"]
+__all__ = ["assemble_chunks", "read_route", "read_linearized",
+           "read_regions"]
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -173,18 +182,19 @@ def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
 def read_route(index: DatasetIndex, var: str, region: Block):
     """How a read of ``region`` reaches the card: ``("relayout", (ch,
     cw))`` or ``("pack", None)`` for a whole-variable read of raw chunks
-    that tile the domain, else None (host read, then one copy)."""
-    shape = index.var_shape(var)
-    if tuple(region.lo) != (0,) * len(shape) or tuple(region.hi) != shape:
-        return None
+    that tile the domain, ``("region", None)`` for any other read of raw
+    chunks, else None (compressed chunks: host read, then one copy)."""
     rows = index.var_rows(var)
     if rows.n == 0 or rows.codecs.any():
         return None
+    shape = index.var_shape(var)
+    if tuple(region.lo) != (0,) * len(shape) or tuple(region.hi) != shape:
+        return ("region", None)
     vol = np.prod(rows.his - rows.los, axis=1)
     if (rows.los < 0).any() or (rows.his > np.asarray(shape)).any() \
             or int(vol.sum()) != int(np.prod(shape)) \
             or (rows.nbytes != vol * index.var_dtype(var).itemsize).any():
-        return None
+        return ("region", None)
     grid = _grid(shape, rows.los, rows.his)
     return ("relayout", grid) if grid is not None else ("pack", None)
 
@@ -235,3 +245,52 @@ def read_linearized(ds, var: str, route, device: torch.device,
     stats.h2d_seconds = t2 - t1
     stats.linearize_seconds = time.perf_counter() - t2
     return out, stats
+
+
+def read_regions(ds, var: str, regions, device: torch.device, engine=None,
+                 candidates: np.ndarray | None = None):
+    """Read ``regions`` of ``var`` (raw chunks) onto ``device`` through one
+    engine read, one copy to the device and one ``pack_rows`` launch.
+    Returns ``([tensor per region], ReadStats)``, the tensors views of one
+    output buffer, or None when stored chunks overlap (a destination row
+    named twice: the host plan decides which bytes win).
+
+    ``bytes_read`` and ``chunks_touched`` are the host plans' (summed over
+    the regions); ``runs`` and ``groups`` are this route's own: the span
+    plan's extents, each read once.  Output rows no stored chunk covers
+    are zero (``pack_tables`` fills the output unless every row is
+    covered)."""
+    t0 = time.perf_counter()
+    index = ds.index
+    dtype = index.var_dtype(var)
+    plans = [build_read_plan(index, var, r, candidates=candidates)
+             for r in regions]
+    tables = region_row_tables(plans)
+    width, _, dst_rows, total, (subf, file_lo, file_hi) = tables
+    n = total // width
+    distinct = np.unique(dst_rows).size
+    if distinct != len(dst_rows):
+        return None
+    span = build_span_plan(var, subf, file_lo, file_hi)
+    lower_seconds = time.perf_counter() - t0
+
+    host = torch.empty(int((file_hi - file_lo).sum()), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    _, stats = ds.read_planned(span, out=host.numpy(), engine=engine)
+    stats.bytes_read = sum(p.bytes_needed for p in plans)
+    stats.chunks_touched = sum(p.num_chunks for p in plans)
+    stats.probe_seconds = sum(p.probe_seconds for p in plans)
+    stats.plan_seconds = sum(p.plan_seconds for p in plans)
+    t1 = time.perf_counter()
+    flat = host.to(device).view(_torch_dtype(dtype))
+    t2 = time.perf_counter()
+    out = pack_tables(flat, tables, _covered=distinct == n)
+    _sync(device)
+    stats.lower_seconds = lower_seconds
+    stats.h2d_seconds = t2 - t1
+    stats.linearize_seconds = time.perf_counter() - t2
+    views, pos = [], 0
+    for r in regions:
+        views.append(out[pos:pos + r.volume].view(r.shape))
+        pos += r.volume
+    return views, stats

@@ -15,7 +15,8 @@ format (a directory either package wrote opens under the other):
   after every extent landed.
 * **read** — ``plan_read`` + ``read_planned`` replay a region plan through
   the engine into a host array; ``read`` returns the region as a tensor on
-  the session's device, linearizing whole variables on the card.
+  the session's device, linearizing whole variables and gathering parts
+  of them on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from ..core.blocks import Block
 from ..core.codecs import encode
 from ..core.layouts import LayoutPlan
 from ..device import resolve_device
-from .device import assemble_chunks, read_linearized, read_route
+from .device import (assemble_chunks, read_linearized, read_regions,
+                     read_route)
 from .engine import IOEngine, SubfileStore, WriteStats, assemble_chunk, \
     get_engine
 from .format import ChunkRecord, DatasetIndex, extent_checksum
@@ -52,11 +54,43 @@ class ReadStats:
     probe_seconds: float = 0.0    # spatial-index lookup time
     plan_seconds: float = 0.0     # extent planning time
     engine: str = ""              # engine that executed the plan
+    #: why that engine: ``"pinned"`` when the caller named it; an
+    #: ``engine="auto"`` decision record waits for the cost model (S1)
+    engine_reason: str = ""
     #: ``Dataset.read`` only: lowering to row tables (device route), the
     #: one copy to the device, and the linearizing kernel
     lower_seconds: float = 0.0
     h2d_seconds: float = 0.0
     linearize_seconds: float = 0.0
+
+    def merge(self, other: "ReadStats") -> None:
+        """Add ``other``'s counts and stage seconds (not ``seconds``, which
+        the caller sums, as the JAX package's callers do); engines that
+        differ merge to ``"mixed"`` with both reasons kept."""
+        self.bytes_read += other.bytes_read
+        self.chunks_touched += other.chunks_touched
+        self.runs += other.runs
+        self.groups += other.groups
+        self.probe_seconds += other.probe_seconds
+        self.plan_seconds += other.plan_seconds
+        self.lower_seconds += other.lower_seconds
+        self.h2d_seconds += other.h2d_seconds
+        self.linearize_seconds += other.linearize_seconds
+        if not self.engine:
+            self.engine = other.engine
+            self.engine_reason = other.engine_reason
+        elif other.engine:
+            if other.engine != self.engine:
+                self.engine = "mixed"
+                self._merge_reason("per-plan auto decisions diverged")
+            self._merge_reason(other.engine_reason)
+
+    def _merge_reason(self, other_reason: str) -> None:
+        parts = [p for p in self.engine_reason.split("; ") if p]
+        for p in other_reason.split("; "):
+            if p and p not in parts:
+                parts.append(p)
+        self.engine_reason = "; ".join(parts)
 
     @property
     def read_gbps(self) -> float:
@@ -278,7 +312,8 @@ class Dataset:
                           groups=plan.num_groups,
                           bytes_read=plan.bytes_needed,
                           probe_seconds=plan.probe_seconds,
-                          plan_seconds=plan.plan_seconds, engine=eng.name)
+                          plan_seconds=plan.plan_seconds, engine=eng.name,
+                          engine_reason="pinned")
         t0 = time.perf_counter()
         eng.read_plan(plan, self._store, out)
         stats.seconds = time.perf_counter() - t0
@@ -293,16 +328,24 @@ class Dataset:
 
         A whole-variable read of raw chunks that tile the domain reads the
         stored extents flat, copies them to the device once and linearizes
-        them there with the copy kernels; any other read runs the host plan
-        and copies the result once (see :mod:`repro_torch.io.device`).
+        them there with the copy kernels; any other read of raw chunks (a
+        part of the variable) reads each touched extent's needed bytes
+        once, copies them to the device once and gathers the region with
+        one ``pack_rows`` launch.  Compressed chunks take the host plan and
+        one copy of the result (see :mod:`repro_torch.io.device`).
         """
         dev = self.device if device is None else resolve_device(device)
         route = read_route(self.index, var, region) if candidates is None \
             else None
         if route is not None:
-            got = read_linearized(self, var, route, dev, engine=engine)
-            if got is not None:
-                return got
+            if route[0] == "region":
+                got = read_regions(self, var, [region], dev, engine=engine)
+                if got is not None:
+                    return got[0][0], got[1]
+            else:
+                got = read_linearized(self, var, route, dev, engine=engine)
+                if got is not None:
+                    return got
         plan = self.plan_read(var, region, candidates=candidates)
         arr, stats = self.read_planned(plan, engine=engine)
         t0 = time.perf_counter()

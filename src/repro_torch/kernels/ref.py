@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (the three copies, the flash
-attention forward and its two backward kernels), and the lowering of a
-:class:`~repro_torch.core.merge.MergePlan` to the row tables the copies
-take.
+attention forward and its two backward kernels), and the lowerings to the
+row tables ``pack_rows`` takes: of a :class:`~repro_torch.core.merge.
+MergePlan` (the merge, the whole-variable read) and of a region read's
+plans (the region read, the elastic restore).
 
 The plain versions are the oracles: the CPU tests run them against the JAX
 package's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds each
@@ -22,7 +23,7 @@ __all__ = ["pack_rows_ref", "chunked_to_rowmajor_ref",
            "rowmajor_to_chunked_ref", "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref",
-           "plan_row_tables"]
+           "plan_row_tables", "region_row_tables"]
 
 
 def pack_rows_ref(src: torch.Tensor, src_rows: torch.Tensor,
@@ -224,7 +225,17 @@ def plan_row_tables(plan: MergePlan, block_order=None,
     s = np.concatenate(starts_s) if starts_s else np.empty(0, np.int64)
     d = np.concatenate(starts_d) if starts_d else np.empty(0, np.int64)
     ln = np.concatenate(lengths) if lengths else np.empty(0, np.int64)
+    width, src_rows, dst_rows = _tables_from_runs(s, d, ln, total_src,
+                                                  total_dst, max_width)
+    return width, src_rows, dst_rows, total_dst, src_off
 
+
+def _tables_from_runs(s: np.ndarray, d: np.ndarray, ln: np.ndarray,
+                      total_src: int, total_dst: int,
+                      max_width: int) -> tuple:
+    """``(width, src_rows, dst_rows)`` for the contiguous runs ``s[i] ->
+    d[i]`` of ``ln[i]`` elements: width is the gcd of every start, length
+    and both totals, capped at ``max_width``."""
     g = math.gcd(total_src, total_dst)
     for arr in (s, d, ln):
         if arr.size:
@@ -248,4 +259,79 @@ def plan_row_tables(plan: MergePlan, block_order=None,
         - np.repeat(first, per_run)
     src_rows = (np.repeat(s // width, per_run) + k).astype(np.int32)
     dst_rows = (np.repeat(d // width, per_run) + k).astype(np.int32)
-    return width, src_rows, dst_rows, total_dst, src_off
+    return width, src_rows, dst_rows
+
+
+def region_row_tables(plans, max_width: int = 4096) -> tuple:
+    """Lower the read plans of target regions of one variable of raw
+    chunks (:class:`~repro_torch.io.planner.ReadPlan`, one a region) to
+    ``(width, src_rows, dst_rows, dst_elems, spans)`` for one ``pack_rows``
+    launch.
+
+    Source: each touched stored extent's needed bytes — the hull of its
+    ``[file_lo, file_hi)`` over every plan that touches it — back to back
+    in ``(subfile, offset)`` order, each extent once however many targets
+    intersect it; ``spans`` is ``(subfiles, file_lo, file_hi)`` of those
+    byte spans, in that order, for the engine to read.  Destination: the
+    target regions row-major, concatenated in plan order.  Each run is one
+    intersection row along the last axis; width is the gcd of every run's
+    start and length and of both totals, capped at ``max_width``, as
+    :func:`plan_row_tables` takes it.  An intersection one element wide
+    gives width 1: correct, but one element a row, so slow.  Rows of a
+    target that no stored chunk covers are named by no table entry.
+    """
+    if any(p.codecs is not None for p in plans):
+        raise ValueError("compressed chunks cannot be gathered from their "
+                         "stored bytes")
+    itemsize = plans[0].dtype.itemsize
+
+    def cat(field):
+        return np.concatenate([getattr(p, field) for p in plans])
+
+    rec = cat("rec_ids")
+    uniq, first, inv = np.unique(rec, return_index=True, return_inverse=True)
+    lo = np.full(len(uniq), np.iinfo(np.int64).max, dtype=np.int64)
+    hi = np.zeros(len(uniq), dtype=np.int64)
+    np.minimum.at(lo, inv, cat("file_lo"))
+    np.maximum.at(hi, inv, cat("file_hi"))
+    sub = cat("subfiles")[first]
+    order = np.lexsort((lo, sub))
+    size = hi - lo
+    base = np.empty(len(uniq), dtype=np.int64)
+    base[order] = np.cumsum(size[order]) - size[order]
+    # element index, in the source, of each extent's first stored element
+    # (before the span when the span starts inside the extent)
+    origin = (base - (lo - cat("extent_offsets")[first])) // itemsize
+    total_src = int(size.sum()) // itemsize
+
+    starts_s, starts_d, lengths = [], [], []
+    dst_base = 0
+    k = 0
+    for p in plans:
+        rlo = np.asarray(p.region.lo, dtype=np.int64)
+        rstr = np.asarray(_row_major_strides(p.region.shape), dtype=np.int64)
+        for r in range(p.num_chunks):
+            ilo = p.inter_los[r]
+            ish = p.inter_his[r] - ilo
+            cst = p.strides[r]
+            lead_s = np.zeros(1, dtype=np.int64)
+            lead_d = np.zeros(1, dtype=np.int64)
+            for n, ss, ds in zip(ish[:-1], cst[:-1], rstr[:-1]):
+                a = np.arange(n, dtype=np.int64)
+                lead_s = (lead_s[:, None] + a[None, :] * ss).reshape(-1)
+                lead_d = (lead_d[:, None] + a[None, :] * ds).reshape(-1)
+            starts_s.append(origin[inv[k]]
+                            + int(((ilo - p.chunk_los[r]) * cst).sum())
+                            + lead_s)
+            starts_d.append(dst_base + int(((ilo - rlo) * rstr).sum())
+                            + lead_d)
+            lengths.append(np.full(lead_s.size, ish[-1], dtype=np.int64))
+            k += 1
+        dst_base += p.region.volume
+    s = np.concatenate(starts_s) if starts_s else np.empty(0, np.int64)
+    d = np.concatenate(starts_d) if starts_d else np.empty(0, np.int64)
+    ln = np.concatenate(lengths) if lengths else np.empty(0, np.int64)
+    width, src_rows, dst_rows = _tables_from_runs(s, d, ln, total_src,
+                                                  dst_base, max_width)
+    return width, src_rows, dst_rows, dst_base, (sub[order], lo[order],
+                                                  hi[order])

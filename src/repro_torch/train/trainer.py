@@ -92,10 +92,12 @@ class Trainer:
     """Single-controller training loop with fault-tolerance hooks.
 
     * every ``ckpt_every`` steps calls ``ckpt_manager.save(step, params)``
-      on any manager given (the port's layout-aware ``CheckpointManager``
-      comes with the checkpoint slice);
+      (a :class:`~repro_torch.checkpoint.CheckpointManager`, which merges
+      each host's shards on the card before it writes);
     * records per-step wall times; ``straggler_report`` flags outliers;
-    * ``resume()`` restores the manager's latest checkpoint.
+    * ``resume()`` restores the manager's latest checkpoint: it sets the
+      step and returns the flat ``name -> tensor`` map, as the reference
+      does.
 
     Batches come from ``data_iter`` as dicts of numpy arrays and are moved
     to the model's device; a step's time ends with its metrics on the host.

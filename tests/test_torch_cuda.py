@@ -177,6 +177,68 @@ def test_slice_through_the_kernels(cuda, tmp_path, strategy):
     ds.close()
 
 
+@pytest.mark.parametrize("strategy", ["merged_process", "reorganized"])
+def test_region_route_matches_the_host_route(cuda, tmp_path, strategy):
+    """Regions that cut chunks, several sharing a chunk, and a one-column
+    region (width 1) in one ``read_regions`` call: one ``pack_rows``
+    launch, the host route's bytes on the card."""
+    from repro_torch.io.device import read_regions
+    shape = (256, 192)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (32, 32)), num_procs=8, seed=1)
+    field = torch.randn(shape, device=cuda)
+    layout = tc.plan_layout(strategy, blocks, num_procs=8)
+    ds = Dataset.create(str(tmp_path), device=cuda)
+    ds.write("E", layout, np.float32,
+             {b.block_id: field[b.slices()] for b in blocks})
+    regions = [Block((5, 17), (200, 150)), Block((100, 0), (256, 192)),
+               Block((0, 33), (256, 34))]
+    K.reset_launch_counts()
+    got, st = read_regions(ds, "E", regions, cuda)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["pack_rows"] == 1
+    for r, t in zip(regions, got):
+        host, hs = ds.read_planned(ds.plan_read("E", r))
+        assert t.device == cuda and torch.equal(t.cpu(),
+                                                torch.from_numpy(host))
+        assert torch.equal(t, field[r.slices()])
+    assert st.bytes_read == sum(ds.plan_read("E", r).bytes_needed
+                                for r in regions)
+    ds.close()
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A tree of CUDA tensors saved from MeshShardings (2 hosts x 4
+    devices) under merged_process: one ``pack_rows`` launch a leaf on the
+    save; the whole restore, bit-exact, on the card; an elastic restore
+    onto another axis, one launch a variable; the int32 scalar 0-d."""
+    from repro_torch.checkpoint import CheckpointManager, MeshSharding
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"embed": torch.randn((512, 64), generator=gen, device=cuda),
+            "w": torch.randn((3, 64, 40), generator=gen, device=cuda),
+            "count": torch.tensor(5, dtype=torch.int32, device=cuda)}
+    ids = np.arange(8).reshape(2, 4)
+    sh = {"embed": MeshSharding(ids, ("host", "dev"), (("host", "dev"),)),
+          "w": MeshSharding(ids, ("host", "dev"),
+                            (None, ("host", "dev")))}
+    mgr = CheckpointManager(str(tmp_path), device=cuda)
+    K.reset_launch_counts()
+    st = mgr.save(1, tree, shardings=sh)
+    assert K.launch_counts()["pack_rows"] == 2 and st.num_chunks == 4
+    got, _ = mgr.restore(1, template=tree)
+    for k, t in tree.items():
+        assert got[k].device == cuda and torch.equal(got[k], t)
+    assert got["count"].shape == () and got["count"].dtype == torch.int32
+    targets = {"embed": tc.regular_decomposition((512, 64), (1, 4)),
+               "w": tc.regular_decomposition((3, 64, 40), (1, 1, 4))}
+    K.reset_launch_counts()
+    flat, _ = mgr.restore(1, target_blocks=targets)
+    assert K.launch_counts()["pack_rows"] == 2
+    for k, blocks in targets.items():
+        for b in blocks:
+            assert torch.equal(flat[k][b.block_id], tree[k][b.slices()])
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 @pytest.mark.parametrize("D", [16, 48, 80, 128, 256])
 @pytest.mark.parametrize("causal,window,softcap",

@@ -67,9 +67,10 @@ def test_no_forbidden_import_statement(path):
 
 
 def test_package_is_lazy():
-    assert set(repro_torch.__all__) == {"configs", "core", "data", "device",
-                                        "interop", "io", "kernels", "launch",
-                                        "models", "serve", "train"}
+    assert set(repro_torch.__all__) == {"checkpoint", "configs", "core",
+                                        "data", "device", "interop", "io",
+                                        "kernels", "launch", "models",
+                                        "serve", "train"}
     with pytest.raises(AttributeError):
         repro_torch.no_such_module
 

@@ -178,8 +178,10 @@ def test_host_routes_and_nd_match_jax(tmp_path, case):
 
 
 def test_device_routes_on_cpu_tensors(tmp_path, world):
-    """The port's write and whole read go through the kernels' plain
-    versions for CPU tensors and record their stages; nothing launches."""
+    """The port's write, whole read and partial read go through the
+    kernels' plain versions for CPU tensors and record their stages (the
+    partial read on the region route, with the host plan's bytes and
+    chunks); nothing launches."""
     jb, tb, field, data = world
     K.reset_launch_counts()
     for strategy in ("merged_process", "reorganized", "chunked"):
@@ -192,7 +194,11 @@ def test_device_routes_on_cpu_tensors(tmp_path, world):
         assert rs.linearize_seconds > 0 and rs.bytes_read == field.nbytes
         assert torch.equal(got, torch.from_numpy(field))
         got, rs = ds.read("E", Block(*SUB))
-        assert rs.linearize_seconds == 0.0
+        plan = ds.plan_read("E", Block(*SUB))
+        assert rs.linearize_seconds > 0 and rs.h2d_seconds > 0
+        assert (rs.bytes_read, rs.chunks_touched) == (plan.bytes_needed,
+                                                      plan.num_chunks)
+        assert torch.equal(got, torch.from_numpy(field[Block(*SUB).slices()]))
         ds.close()
     assert set(K.launch_counts().values()) == {0}
 

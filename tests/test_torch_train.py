@@ -25,6 +25,7 @@ from repro.train import make_train_step as jmake_train_step
 import repro_torch.configs as tcfg
 import repro_torch.models.layers as tlayers
 import repro_torch.train.optimizer as topt
+from repro_torch.checkpoint import CheckpointManager, flatten_pytree
 from repro_torch.data import PipelineConfig, Prefetcher, SyntheticTokens
 from repro_torch.interop import (opt_state_from_numpy, opt_state_to_numpy,
                                  params_from_numpy)
@@ -387,6 +388,31 @@ def test_trainer_loss_decreases():
         Trainer(model, OptimizerConfig(), data).resume()
 
 
+def test_trainer_checkpoints_and_resumes(tmp_path):
+    """The trainer's hook saves through a CPU ``CheckpointManager`` every
+    ``ckpt_every`` steps; ``resume()`` sets the saved step and returns the
+    saved params bit-exact, by name."""
+    cfg = tcfg.get_smoke_config("qwen2.5-3b")
+    model = LM(cfg, device="cpu")
+    data = SyntheticTokens(PipelineConfig(global_batch=2, seq_len=16,
+                                          vocab=cfg.vocab, seed=1))
+    mgr = CheckpointManager(str(tmp_path), keep=2, device="cpu")
+    tr = Trainer(model, OptimizerConfig(peak_lr=3e-3, warmup_steps=2,
+                                        total_steps=10), data,
+                 ckpt_manager=mgr, ckpt_every=2)
+    params, opt = tr.init(torch.Generator().manual_seed(0))
+    params, opt, _ = tr.run(params, opt, num_steps=5, log_every=0)
+    assert mgr.steps() == [2, 4]
+    tr.run(params, opt, num_steps=1, log_every=0)
+    assert mgr.steps() == [4, 6]
+    tr2 = Trainer(model, OptimizerConfig(), data, ckpt_manager=mgr)
+    flat = tr2.resume()
+    want = flatten_pytree(params)
+    assert tr2.state.step == 6 and sorted(flat) == sorted(want)
+    for name, t in flat.items():
+        assert t.dtype == want[name].dtype and torch.equal(t, want[name])
+
+
 # -- data pipeline and launcher ------------------------------------------------
 
 @pytest.mark.parametrize("cfg", [
@@ -411,9 +437,11 @@ def test_pipeline_copy_is_bit_equal(cfg):
                                       JPipelineConfig(**cfg)))["labels"])
 
 
-def test_train_launcher(monkeypatch, capsys):
+def test_train_launcher(monkeypatch, capsys, tmp_path):
     """``launch.train`` trains the smoke config on the CPU when asked, and
-    otherwise needs a GPU; the options of later slices name their item."""
+    otherwise needs a GPU; with ``--ckpt-dir`` it saves every
+    ``--ckpt-every`` steps and at the end, and ``--resume`` carries on from
+    the latest step; ``--mesh`` names the item it waits for."""
     train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "3",
                     "--global-batch", "2", "--seq-len", "16",
                     "--device", "cpu"])
@@ -422,9 +450,20 @@ def test_train_launcher(monkeypatch, capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--mesh", "host",
                         "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--ckpt-dir",
-                        "x", "--device", "cpu"])
+    ckpt = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
+            "--steps", "2", "--global-batch", "2", "--seq-len", "16",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    train_cli.main(ckpt)
+    out = capsys.readouterr().out
+    assert "resumed" not in out and "blocks ->" in out
+    mgr = CheckpointManager(str(tmp_path), device="cpu")
+    assert mgr.steps() == [1, 2]
+    saved, _ = mgr.restore(2)
+    train_cli.main(ckpt + ["--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out
+    assert mgr.steps() == [3, 4]
+    assert sorted(saved) == sorted(mgr.restore(4)[0])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--arch", "qwen2.5-3b", "--smoke"])
