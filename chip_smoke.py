@@ -27,7 +27,7 @@ Phases, each printing one JSON line:
    call computing the same function; ``pack_rows`` as its kernel, its
    public wrapper and ``pack_tables`` as the main path calls it;
 5. launch counts of the main-path run; every kernel must have run (the
-   summary's copy-kernel rows add phase 15's launches);
+   summary's copy-kernel rows add phase 15's and phase 16's launches);
 6. the flash-attention forward's kernels against their plain version on
    the card, within tolerance: masks, GQA groups, head dims 16-256
    (padded ones too), ragged lengths, f32 and bf16, the serving paths'
@@ -120,7 +120,24 @@ Phases, each printing one JSON line:
     embedding alone saved and restored under ``reorganized`` (8, 1)
     through ``rowmajor_to_chunked`` and ``chunked_to_rowmajor``; each
     step's launch counts reset just before it and read just after, the
-    peak device memory, the free disk, and the directory removed.
+    peak device memory, the free disk, and the directory removed;
+16. (after phase 14) post-hoc reorganization on the card (paper §5):
+    slice 1's component (8192 x 8192 f32 from ``merged_process``)
+    reorganized by ``reorganize`` to ``reorganized`` 8 x 8 (generation 1,
+    one ``pack_rows`` launch for the gather, the whole read-back through
+    ``chunked_to_rowmajor``, ``verify_checksums`` clean); then a
+    WarpX-style 3-D component at the paper's aspect (512 x 1024 x 1024
+    f32, 64 x 64 x 128 boxes over the 48 ranks) written under
+    ``merged_process``, reorganized out of place to the default 4 x 4 x 4
+    (one ``pack_rows`` launch a gather batch), its six Fig.-6 patterns
+    read under both layouts by ``Dataset.read`` (``torch.equal`` to the
+    source) and by ``read_pattern`` with 8 readers and
+    ``engine="auto"`` (best scheme, seconds, bytes, chunks, the engine and
+    its reason; the calibration's terms), and reorganized in place to 2 x
+    8 x 4 (generation up by one, seen by a session opened before the
+    commit after ``refresh``); every whole read-back ``torch.equal``, each
+    step's launch counts reset just before it and read just after, the
+    directory removed.  Reads come from the page cache.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -1805,6 +1822,248 @@ def checkpoint(torch, dev, K, state: dict) -> dict:
     return out
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+#: the reorganization phase's 3-D cell: a WarpX-style component at the
+#: paper's aspect, §5.2's 2048 x 4096 x 4096 f32 cut 64 ways in volume (2
+#: GiB), in 64 x 64 x 128 boxes over the slice-1 ranks; reorganized out of
+#: place to the default 4 x 4 x 4 scheme (64 chunks of 32 MiB), then in
+#: place to 2 x 8 x 4; the Fig.-6 patterns read by 8 readers.  The 2-D cell
+#: is slice 1's component reorganized to 8 x 8
+REORG_FIELD = (512, 1024, 1024)
+REORG_BOX = (64, 64, 128)
+REORG_SCHEMES = ((4, 4, 4), (2, 8, 4))
+REORG_2D = (8, 8)
+PATTERN_READERS = 8
+
+
+def _reorg_stages(rs: float, ws) -> dict:
+    """``reorganize``'s stages: the gather's (engine read, lowering, copy
+    to the card, the ``pack_rows`` launch), its copy back, the engine
+    write, and the checksums and index."""
+    g = ws.gather
+    return {"gather": rs, "engine_read": g.seconds, "lower": g.lower_seconds,
+            "h2d": g.h2d_seconds, "kernel": g.linearize_seconds,
+            "d2h": ws.d2h_seconds, "engine_write": ws.write_seconds,
+            "checksum_and_index": ws.total_seconds - ws.assemble_seconds
+            - ws.write_seconds}
+
+
+def reorg(torch, dev, K, blocks2d) -> dict:
+    """Post-hoc reorganization on the card (paper §5): slice 1's component
+    and a WarpX-style 3-D component, each written under
+    ``merged_process`` and reorganized through ``reorganize`` (every new
+    chunk gathered by one ``pack_rows`` launch a batch), read back whole
+    and held to the source; the 3-D one also in place, and its six Fig.-6
+    patterns read by ``Dataset.read`` and ``read_pattern`` under both
+    layouts with ``engine="auto"``.  Each reorganize's and read-back's
+    launch counts are reset just before it and read just after; every
+    check raises.  The reads come from the page cache."""
+    from repro_torch.core import (PATTERNS, pattern_region, plan_layout,
+                                  plan_reorganization, simulate_load_balance,
+                                  uniform_grid_blocks)
+    from repro_torch.core.blocks import Block
+    from repro_torch.io import Dataset, reorganize
+    from repro_torch.io.device import GATHER_BATCH_BYTES, gather_batches
+    work = ROOT / "build" / "chip_smoke" / "reorg"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = dict.fromkeys(COPY_KERNELS, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: K.launch_counts()[k] for k in COPY_KERNELS}
+        for k, n in got.items():
+            launches[k] += n
+        return out, seconds, got
+
+    def batches(layout) -> int:
+        return len(gather_batches(layout, 4))
+
+    def read_back(d, var, field, want):
+        ds = Dataset.open(str(d))
+        whole = Block((0,) * field.dim(), tuple(field.shape))
+        (got, rs), secs, ran = counted(lambda: ds.read(var, whole))
+        if not torch.equal(got, field):
+            raise AssertionError(f"{d.name}: read-back differs")
+        if any(ran[k] < n for k, n in want.items()):
+            raise AssertionError(f"{d.name}: read-back launched {ran}")
+        checked = ds.verify_checksums(var)
+        ds.close()
+        del got
+        return {"seconds": secs, "launches": ran, "checksums": checked,
+                "engine": rs.engine}
+
+    out = {"gather_batch_bytes": GATHER_BATCH_BYTES,
+           "tolerance": "bit-exact: torch.equal"}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    try:
+        # 16a: slice 1's reorganization, 8192^2 f32 from merged_process
+        field = torch.randn(FIELD, generator=gen, device=dev)
+        src = work / "slice1_merged"
+        ds = Dataset.create(str(src))
+        data = {b.block_id: field[b.slices()].contiguous() for b in blocks2d}
+        _, _, src_ran = counted(lambda: ds.write(
+            "Ez", plan_layout("merged_process", blocks2d, num_procs=NPROCS,
+                              procs_per_node=PPN), np.float32, data))
+        ds.close()
+        del data
+        target = plan_reorganization(blocks2d, FIELD, REORG_2D,
+                                     num_stagers=NPROCS // PPN)
+        dst = work / "slice1_reorganized"
+        (rs, dds, ws), secs, ran = counted(
+            lambda: reorganize(str(src), str(dst), "Ez", target))
+        dds.close()
+        gen_on_disk = json.loads((dst / "index.json").read_text())[
+            "generation"]
+        if ran["pack_rows"] != batches(target) or gen_on_disk != 1:
+            raise AssertionError(f"2-D reorganize: launches {ran}, "
+                                 f"generation {gen_on_disk}")
+        back = read_back(dst, "Ez", field, {"chunked_to_rowmajor": 1})
+        if back["checksums"] != (len(target.chunks), []):
+            raise AssertionError(f"2-D checksums: {back['checksums']}")
+        out["slice1"] = {"field": list(FIELD), "scheme": list(REORG_2D),
+                         "chunks": len(target.chunks), "seconds": secs,
+                         "launches": ran, "source_write_launches": src_ran,
+                         "generation": gen_on_disk,
+                         "bytes": ws.bytes_written,
+                         "stages": _reorg_stages(rs, ws),
+                         "engine_write": ws.engine, "read_back": back}
+        del field
+        torch.cuda.empty_cache()
+
+        # 16b: the 3-D component, the paper's patterns, in-place republish
+        field = torch.randn(REORG_FIELD, generator=gen, device=dev)
+        blocks = simulate_load_balance(
+            uniform_grid_blocks(REORG_FIELD, REORG_BOX), num_procs=NPROCS,
+            seed=SEED)
+        src = work / "warpx_merged"
+        ds = Dataset.create(str(src))
+        merged = plan_layout("merged_process", blocks, num_procs=NPROCS,
+                             procs_per_node=PPN)
+        data = {b.block_id: field[b.slices()].contiguous() for b in blocks}
+        wst, write_s, src_ran = counted(lambda: ds.write(
+            "Ez", merged, np.float32, data))
+        ds.close()
+        del data
+        torch.cuda.empty_cache()
+        cube = {"field": list(REORG_FIELD), "box": list(REORG_BOX),
+                "blocks": len(blocks), "procs": NPROCS,
+                "merged_chunks": len(merged.chunks),
+                "write_seconds": write_s, "write_launches": src_ran,
+                "write_stages": {"lower": wst.lower_seconds,
+                                 "kernel": wst.kernel_seconds,
+                                 "d2h": wst.d2h_seconds,
+                                 "engine_write": wst.write_seconds,
+                                 "checksum_and_index": wst.total_seconds
+                                 - wst.assemble_seconds - wst.write_seconds},
+                "write_engine": wst.engine}
+        layouts = {}
+        for scheme in REORG_SCHEMES:
+            layouts[scheme] = plan_reorganization(
+                blocks, REORG_FIELD, scheme, num_stagers=NPROCS // PPN)
+        dst = work / "warpx_reorganized"
+        first = layouts[REORG_SCHEMES[0]]
+        (rs, dds, ws), secs, ran = counted(lambda: reorganize(
+            str(src), str(dst), "Ez", first, engine="auto"))
+        dds.close()
+        if ran["pack_rows"] != batches(first):
+            raise AssertionError(f"3-D reorganize launched {ran} for "
+                                 f"{batches(first)} batches")
+        cube["reorganize"] = {
+            "scheme": list(REORG_SCHEMES[0]), "chunks": len(first.chunks),
+            "batches": batches(first), "seconds": secs, "launches": ran,
+            "bytes": ws.bytes_written, "stages": _reorg_stages(rs, ws),
+            "engine_write": ws.engine, "engine_read": ws.gather.engine,
+            "read_back": read_back(dst, "Ez", field, {"pack_rows": 1})}
+
+        patterns = {}
+        for name, d in (("merged_process", src),
+                        ("reorganized", dst)):
+            ds = Dataset.open(str(d), engine="auto")
+            if name == "merged_process":
+                cube["calibration"] = ds.calibration().to_json()
+            per = patterns[name] = {}
+            for pat in PATTERNS:
+                region = pattern_region(pat, REORG_FIELD)
+                (got, _), read_s, read_ran = counted(
+                    lambda: ds.read("Ez", region))
+                if not torch.equal(got, field[region.slices()]):
+                    raise AssertionError(f"{name}/{pat}: read differs")
+                del got
+                (scheme, st), pat_s, pat_ran = counted(
+                    lambda: ds.read_pattern("Ez", pat,
+                                            num_readers=PATTERN_READERS,
+                                            engine="auto"))
+                per[pat] = {"region": [list(region.lo), list(region.hi)],
+                            "read_seconds": read_s,
+                            "read_launches": read_ran,
+                            "best_scheme": list(scheme),
+                            "seconds": st.seconds,
+                            "sweep_seconds": pat_s,
+                            "sweep_launches": pat_ran,
+                            "bytes_read": st.bytes_read,
+                            "chunks_touched": st.chunks_touched,
+                            "runs": st.runs, "groups": st.groups,
+                            "engine": st.engine,
+                            "engine_reason": st.engine_reason,
+                            "predicted_seconds": st.predicted_seconds,
+                            "stages": {"engine_read_and_wait": st.seconds
+                                       - st.lower_seconds - st.h2d_seconds
+                                       - st.linearize_seconds,
+                                       "lower": st.lower_seconds,
+                                       "h2d": st.h2d_seconds,
+                                       "kernel": st.linearize_seconds}}
+                torch.cuda.empty_cache()
+            ds.close()
+        cube["patterns"] = patterns
+        cube["num_readers"] = PATTERN_READERS
+
+        # in place: a session opened before the commit refreshes onto it
+        second = layouts[REORG_SCHEMES[1]]
+        before = Dataset.open(str(dst))
+        g0 = before.generation
+        (rs, dds, ws), secs, ran = counted(lambda: reorganize(
+            str(dst), str(dst), "Ez", second, engine="auto"))
+        dds.close()
+        refreshed = before.refresh()
+        if not refreshed or before.generation != g0 + 1 or \
+                ran["pack_rows"] != batches(second):
+            raise AssertionError(f"in-place reorganize: refreshed "
+                                 f"{refreshed}, generation {g0} -> "
+                                 f"{before.generation}, launches {ran}")
+        (got, _), _, _ = counted(lambda: before.read(
+            "Ez", Block((0, 0, 0), REORG_FIELD)))
+        if not torch.equal(got, field):
+            raise AssertionError("in-place read-back after refresh differs")
+        del got
+        before.close()
+        cube["in_place"] = {
+            "scheme": list(REORG_SCHEMES[1]), "chunks": len(second.chunks),
+            "batches": batches(second), "seconds": secs, "launches": ran,
+            "generation": [g0, g0 + 1], "refreshed": refreshed,
+            "stages": _reorg_stages(rs, ws),
+            "read_back": read_back(dst, "Ez", field, {"pack_rows": 1}),
+            "stored_bytes": sum(f.stat().st_size for f in dst.iterdir())}
+        out["warpx"] = cube
+        del field
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    missing = [k for k in ("pack_rows", "chunked_to_rowmajor")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the reorganization path never launched "
+                             f"{missing}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1922,13 +2181,20 @@ def main() -> int:
     trained_g = train(torch, dev, K, GEMMA2_ARCH)
     emit(14, seconds=time.perf_counter() - t0, **trained_g)
     check_training(trained_g)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reorganized = reorg(torch, dev, K, blocks)
+    emit(16, seconds=time.perf_counter() - t0, **reorganized)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    # the copy kernels' launches on their two paths: the slice-1 step
-    # (phase 3) and the checkpoint path (phase 15)
+    # the copy kernels' launches on their three paths: the slice-1 step
+    # (phase 3), the checkpoint path (phase 15) and the reorganization
+    # path (phase 16)
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
-             "launches": launches[name] + ckpt["launches"][name],
+             "launches": launches[name] + ckpt["launches"][name]
+             + reorganized["launches"][name],
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

@@ -1,5 +1,7 @@
-"""Core: index-space blocks, Berger–Rigoutsos clustering, merge plans and
-the seven layout strategies — copies of the JAX package's numpy modules."""
+"""Core: index-space blocks, Berger–Rigoutsos clustering, merge plans, the
+seven layout strategies, the six Fig.-6 read patterns, the cost model
+behind ``engine="auto"`` and the reorganization decision — copies of the
+JAX package's numpy modules (the layout policy waits for S2)."""
 
 from .blocks import (Block, blocks_disjoint, bounding_box,
                      regular_decomposition, simulate_load_balance,
@@ -7,7 +9,17 @@ from .blocks import (Block, blocks_disjoint, bounding_box,
 from .clustering import Cluster, cluster_blocks, cluster_blocks_many
 from .layouts import (STRATEGIES, ChunkPlan, LayoutPlan,
                       default_reorg_scheme, plan_layout)
-from .merge import (CopyOp, MergePlan, build_merge_plan, execute_merge_numpy,
-                    plan_from_clusters)
+from .cost_model import (PAPER_TIMINGS, CalibrationDrift, EngineCalibration,
+                         EngineChoice, StagingTimings, breakeven_outputs,
+                         choose_engine, invalidate_calibration,
+                         load_calibration, onthefly_utilization,
+                         posthoc_utilization, predict_best_seconds,
+                         predict_seconds, probe_storage, recommend,
+                         save_calibration, storage_calibration)
+from .merge import (CopyOp, MergePlan, MergeStats, build_merge_plan,
+                    execute_merge_numpy, merge_blocks, plan_from_clusters)
+from .read_patterns import (PATTERNS, best_decompositions, decompose_region,
+                            pattern_region)
+from .reorg import ReorgDecision, decide, plan_reorganization
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -6,19 +6,23 @@ contiguous buffer ("Copy [b_i0..b_ik-1] into memory allocated to B_i").  A
 :class:`MergePlan` is the device-agnostic description of those copies; it is
 executed on the host (:func:`execute_merge_numpy`) or on the card by the
 ``pack_rows`` kernel (:func:`repro_torch.kernels.ops.merge_blocks_device`).
+:func:`merge_blocks` does both with the paper's timing breakdown, by where
+the data lie.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+import time
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 
 from .blocks import Block
 from .clustering import cluster_blocks
 
-__all__ = ["CopyOp", "MergePlan", "build_merge_plan", "execute_merge_numpy"]
+__all__ = ["CopyOp", "MergePlan", "build_merge_plan", "execute_merge_numpy",
+           "MergeStats", "merge_blocks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +46,18 @@ class MergePlan:
 
     def buffers_nbytes(self, itemsize: int) -> int:
         return sum(c.volume * itemsize for c in self.clusters)
+
+
+@dataclasses.dataclass
+class MergeStats:
+    """The paper's §4.3 accounting: clustering vs. merging (copy) time."""
+
+    n_original: int = 0
+    n_merged: int = 0
+    cluster_seconds: float = 0.0
+    merge_seconds: float = 0.0
+    gather_seconds: float = 0.0     # intra-node gather overhead, if any
+    bytes_moved: int = 0
 
 
 def plan_from_clusters(clusters: Sequence) -> MergePlan:
@@ -81,3 +97,43 @@ def execute_merge_numpy(plan: MergePlan,
                 f"block shape {op.src_block.shape}")
         buffers[op.dst_index][op.dst_slices] = src
     return buffers
+
+
+def merge_blocks(blocks: Sequence[Block], data: Mapping,
+                 max_clusters: int | None = None,
+                 gather: Callable[[Mapping], Mapping] | None = None
+                 ) -> tuple:
+    """Cluster + merge with the paper's timing breakdown.
+
+    ``data`` maps block_id -> the block's tensor or ndarray.  Tensors are
+    merged on their device in one ``pack_rows`` launch over the plan's row
+    tables (:func:`repro_torch.kernels.ops.merge_blocks_device`; the plain
+    version for CPU tensors), ndarrays on the host.  ``gather`` optionally
+    simulates the intra-node MPI gather (paper: 0.25 s extra for intra-node
+    merging): callable that relocates the block data to the merging process
+    and returns it.  Returns (merged_blocks, buffers, stats) where
+    merged_blocks[i] is the cuboid for buffers[i].
+    """
+    import torch
+    stats = MergeStats(n_original=len(blocks))
+    t0 = time.perf_counter()
+    plan = build_merge_plan(blocks, max_clusters=max_clusters)
+    stats.cluster_seconds = time.perf_counter() - t0
+    stats.n_merged = len(plan.clusters)
+    if gather is not None:
+        t0 = time.perf_counter()
+        data = gather(data)
+        stats.gather_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if any(isinstance(v, torch.Tensor) for v in data.values()):
+        from ..kernels.ops import merge_blocks_device
+        buffers = merge_blocks_device(plan, data)
+        if buffers and buffers[0].device.type == "cuda":
+            torch.cuda.synchronize(buffers[0].device)
+        stats.bytes_moved = sum(b.numel() * b.element_size()
+                                for b in buffers)
+    else:
+        buffers = execute_merge_numpy(plan, data)
+        stats.bytes_moved = sum(b.nbytes for b in buffers)
+    stats.merge_seconds = time.perf_counter() - t0
+    return plan.merged_blocks, buffers, stats

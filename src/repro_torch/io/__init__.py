@@ -1,15 +1,19 @@
 """I/O: the log-structured container (format, spatial index, planners,
-engines) copied from the JAX package, and the :class:`Dataset` session
-whose write and whole-variable read run through the copy kernels on the
+engines, ``engine="auto"``, the pattern helpers) copied from the JAX
+package, and the :class:`Dataset` session whose writes, reads, decomposed
+pattern reads and :func:`reorganize` run through the copy kernels on the
 card (:mod:`.device`)."""
 
 from .engine import (ENGINES, IOEngine, MemmapEngine, OverlappedPreadEngine,
                      PreadEngine, SubfileStore, WriteStats, assemble_chunk,
-                     get_engine, scatter_row)
+                     get_engine, resolve_engine, scatter_row,
+                     validate_engine_spec)
 from .format import ChunkRecord, DatasetIndex, VarRows, extent_checksum
+from .patterns import (drive_pattern_mix, measure_pattern_mix, normalize_mix,
+                       resolve_pattern)
 from .planner import (ReadPlan, WritePlan, build_read_plan, build_span_plan,
-                      build_write_plan)
-from .reader import Dataset, ReadStats
+                      build_write_plan, linear_candidates, subset_write_plan)
+from .reader import Dataset, ReadStats, reorganize
 from .spatial import SpatialChunkIndex
 
 __all__ = [n for n in dir() if not n.startswith("_")]

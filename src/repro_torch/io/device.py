@@ -29,14 +29,22 @@ whose chunks tile the domain with ``pack_rows`` (the stored chunks as the
 blocks of one whole-domain cluster).
 
 **Region read** (:func:`read_regions`, for ``Dataset.read`` of a part of
-a variable, any other whole-variable read of raw chunks, and the
-checkpoint manager's restore onto a new decomposition): the read plans of
-all target regions are lowered together to one set of row tables
+a variable, any other whole-variable read of raw chunks, the checkpoint
+manager's restore onto a new decomposition, ``Dataset.read_decomposed``'s
+readers and ``reorganize``'s new chunks): the read plans of all target
+regions are lowered together to one set of row tables
 (:func:`~repro_torch.kernels.ref.region_row_tables`); the engine reads
 each touched extent's needed bytes once, into one pinned flat buffer,
 which crosses to the card in one copy, and ONE ``pack_rows`` launch
 gathers every target.  Compressed chunks take the host ``read_planned``
 followed by one copy to the device.
+
+**Staging.** Every copy between the host and the card passes through the
+session's :class:`PinnedStaging`: one grow-only pinned buffer, of which
+each call takes a view.  Each copy through it is synchronous, so the view
+is free again when the call returns; a write's view is handed to the
+engine and the checksums, and the session takes no other view before
+``write_planned`` returns.
 
 The route depends only on the layout and the region — never on a failure:
 a kernel that fails raises.  Tensors on the CPU take the same route, with
@@ -63,8 +71,66 @@ from .engine import assemble_chunk
 from .format import DatasetIndex
 from .planner import build_read_plan, build_span_plan
 
-__all__ = ["assemble_chunks", "read_route", "read_linearized",
-           "read_regions"]
+__all__ = ["PinnedStaging", "GATHER_BATCH_BYTES", "assemble_chunks",
+           "read_route", "read_linearized", "read_regions", "gather_regions",
+           "gather_batches", "to_host"]
+
+#: the most bytes of target chunks ``reorganize`` gathers in one
+#: :func:`gather_regions` call.  A batch holds its engine span and its
+#: gathered chunks on the card and in two sessions' pinned staging buffers
+#: at once, so this bounds the pinned host memory (which the allocator
+#: rounds up to a power of two) and the card memory a reorganization takes
+#: whatever the variable's size; at 1 GiB each batch's fixed costs (one
+#: engine call, one copy each way, one launch: milliseconds) stay well
+#: under 1% of its transfers.
+GATHER_BATCH_BYTES = 1 << 30
+
+
+def gather_batches(layout: LayoutPlan, itemsize: int) -> list:
+    """``layout.chunks`` positions in order, cut into runs of whole chunks
+    of at most :data:`GATHER_BATCH_BYTES` each (a larger chunk alone): the
+    batches ``reorganize`` gathers, one :func:`gather_regions` call each."""
+    out, cur, size = [], [], 0
+    for i, cp in enumerate(layout.chunks):
+        nbytes = cp.chunk.volume * itemsize
+        if cur and size + nbytes > GATHER_BATCH_BYTES:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += nbytes
+    return out + [cur] if cur else out
+
+
+class PinnedStaging:
+    """A session's one grow-only pinned host buffer, through which its
+    copies between the host and the card pass (pinned memory is slow to
+    allocate: tens of milliseconds for tens of MB).  :meth:`take` hands out
+    a view of its first ``nbytes``; the view is valid until the next
+    :meth:`take`."""
+
+    def __init__(self):
+        self._buf: torch.Tensor | None = None
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = None                  # free before growing
+            self._buf = torch.empty(nbytes, dtype=torch.uint8,
+                                    pin_memory=True)
+        return self._buf[:nbytes]
+
+    def release(self) -> None:
+        self._buf = None
+
+
+def _host_bytes(nbytes: int, device: torch.device,
+                staging: PinnedStaging | None) -> torch.Tensor:
+    """``nbytes`` of host memory for a copy to ``device``: a view of the
+    session's pinned staging buffer for a CUDA device, else fresh memory
+    (on the CPU no copy follows)."""
+    if device.type == "cuda" and staging is not None:
+        return staging.take(nbytes)
+    return torch.empty(nbytes, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -108,21 +174,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _to_host(flat: torch.Tensor) -> np.ndarray:
-    """One copy of ``flat`` to (pinned, for CUDA) host memory."""
+def to_host(flat: torch.Tensor,
+            staging: PinnedStaging | None = None) -> np.ndarray:
+    """One synchronous copy of the 1-D ``flat`` to host memory (for CUDA,
+    ``staging``'s pinned buffer, or fresh pinned memory without one);
+    a CPU tensor's own memory."""
     if flat.device.type == "cpu":
         return to_numpy(flat)
-    host = torch.empty(flat.numel(), dtype=flat.dtype, pin_memory=True)
+    host = _host_bytes(flat.numel() * flat.element_size(), flat.device,
+                       staging).view(flat.dtype)
     host.copy_(flat)
     return host.numpy()
 
 
 def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
-                    dtype) -> tuple:
+                    dtype, staging: PinnedStaging | None = None) -> tuple:
     """The chunk buffers of ``layout`` (host ndarrays, ``layout.chunks``
-    order) from block tensors, and the stage times
-    ``{"lower", "kernel", "d2h"}`` of the device route ({} on the host
-    route)."""
+    order; views of ``staging`` on the device route) from block tensors,
+    and the stage times ``{"lower", "kernel", "d2h"}`` of the device route
+    ({} on the host route)."""
     dtype = np.dtype(dtype)
     want = _torch_dtype(dtype)
     sources = {s.block_id: s for cp in layout.chunks for s in cp.sources}
@@ -172,7 +242,7 @@ def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
                                    chunk=grid).reshape(-1)
     _sync(dev)
     t2 = time.perf_counter()
-    host = _to_host(flat)
+    host = to_host(flat, staging)
     t3 = time.perf_counter()
     bufs = [host[int(o):int(o) + cp.chunk.volume].reshape(cp.chunk.shape)
             for o, cp in zip(offsets, layout.chunks)]
@@ -203,7 +273,9 @@ def read_linearized(ds, var: str, route, device: torch.device,
                     engine=None):
     """Read ``var`` whole onto ``device`` along ``route`` (from
     :func:`read_route`).  Returns ``(tensor, ReadStats)``, or None when
-    the stored chunks turn out not to tile the domain exactly."""
+    the stored chunks turn out not to tile the domain exactly.  The engine
+    read is ``ds.read_planned`` of the span plan, so ``engine="auto"`` is
+    resolved on the shape of that plan, the one executed."""
     t0 = time.perf_counter()
     index = ds.index
     shape = index.var_shape(var)
@@ -229,8 +301,7 @@ def read_linearized(ds, var: str, route, device: torch.device,
                            file_lo + rows.nbytes[order])
     lower_seconds = time.perf_counter() - t0
 
-    host = torch.empty(int(rows.nbytes.sum()), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
+    host = _host_bytes(int(rows.nbytes.sum()), device, ds._staging)
     _, stats = ds.read_planned(span, out=host.numpy(), engine=engine)
     t1 = time.perf_counter()
     flat = host.to(device).view(_torch_dtype(dtype))
@@ -250,16 +321,36 @@ def read_linearized(ds, var: str, route, device: torch.device,
 def read_regions(ds, var: str, regions, device: torch.device, engine=None,
                  candidates: np.ndarray | None = None):
     """Read ``regions`` of ``var`` (raw chunks) onto ``device`` through one
-    engine read, one copy to the device and one ``pack_rows`` launch.
-    Returns ``([tensor per region], ReadStats)``, the tensors views of one
-    output buffer, or None when stored chunks overlap (a destination row
-    named twice: the host plan decides which bytes win).
+    engine read, one copy to the device and one ``pack_rows`` launch
+    (:func:`gather_regions`).  Returns ``([tensor per region],
+    ReadStats)``, the tensors views of one output buffer, or None when
+    stored chunks overlap (a destination row named twice: the host plan
+    decides which bytes win)."""
+    got = gather_regions(ds, var, regions, device, engine=engine,
+                         candidates=candidates)
+    if got is None:
+        return None
+    out, stats = got
+    views, pos = [], 0
+    for r in regions:
+        views.append(out[pos:pos + r.volume].view(r.shape))
+        pos += r.volume
+    return views, stats
 
-    ``bytes_read`` and ``chunks_touched`` are the host plans' (summed over
-    the regions); ``runs`` and ``groups`` are this route's own: the span
-    plan's extents, each read once.  Output rows no stored chunk covers
-    are zero (``pack_tables`` fills the output unless every row is
-    covered)."""
+
+def gather_regions(ds, var: str, regions, device: torch.device,
+                   engine=None, candidates: np.ndarray | None = None):
+    """:func:`read_regions`' gather: ``(flat, ReadStats)`` with ``flat``
+    the regions row-major, back to back in ``regions`` order, on
+    ``device``; or None when stored chunks overlap.
+
+    The engine read is ``ds.read_planned`` of the span plan of the touched
+    extents, so ``engine="auto"`` is resolved on the shape of that plan,
+    the one executed.  ``bytes_read`` and ``chunks_touched`` are the host
+    plans' (summed over the regions); ``runs`` and ``groups`` are this
+    route's own: the span plan's extents, each read once.  Output rows no
+    stored chunk covers are zero (``pack_tables`` fills the output unless
+    every row is covered).  ``seconds`` is the engine's."""
     t0 = time.perf_counter()
     index = ds.index
     dtype = index.var_dtype(var)
@@ -274,8 +365,7 @@ def read_regions(ds, var: str, regions, device: torch.device, engine=None,
     span = build_span_plan(var, subf, file_lo, file_hi)
     lower_seconds = time.perf_counter() - t0
 
-    host = torch.empty(int((file_hi - file_lo).sum()), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
+    host = _host_bytes(int((file_hi - file_lo).sum()), device, ds._staging)
     _, stats = ds.read_planned(span, out=host.numpy(), engine=engine)
     stats.bytes_read = sum(p.bytes_needed for p in plans)
     stats.chunks_touched = sum(p.num_chunks for p in plans)
@@ -289,8 +379,4 @@ def read_regions(ds, var: str, regions, device: torch.device, engine=None,
     stats.lower_seconds = lower_seconds
     stats.h2d_seconds = t2 - t1
     stats.linearize_seconds = time.perf_counter() - t2
-    views, pos = [], 0
-    for r in regions:
-        views.append(out[pos:pos + r.volume].view(r.shape))
-        pos += r.volume
-    return views, stats
+    return out, stats

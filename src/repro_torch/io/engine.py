@@ -5,8 +5,8 @@ planner.ReadPlan` or :class:`~repro_torch.io.planner.WritePlan` — against a
 dataset directory's subfiles.  Plans carry every byte offset; engines are
 pure mechanism and never do offset arithmetic.
 
-Engines (copied from the JAX package; the kernel-bypass engines and
-``engine="auto"`` are not ported yet):
+Engines (copied from the JAX package; ``engine="auto"`` is resolved per
+plan by the :class:`~repro_torch.io.reader.Dataset` session):
 
 * ``memmap``     — zero-copy strided gathers/scatters through per-subfile
   memory maps (default; hot page cache);
@@ -14,6 +14,13 @@ Engines (copied from the JAX package; the kernel-bypass engines and
   one per coalesced group, issued serially in ``(subfile, offset)`` order;
 * ``overlapped`` — the ``pread`` mechanism with up to ``depth`` group
   transfers in flight at once on a persistent submission pool.
+
+The kernel-bypass engines ``uring`` and ``odirect`` are not ported yet (S6
+in ``ROADMAP.md`` queue 1): :func:`validate_engine_spec` accepts their
+spellings, :func:`get_engine` refuses them, and :func:`resolve_engine`
+degrades them as the reference does on a host without io_uring or
+O_DIRECT — ``uring[:d]`` to ``overlapped[:d]``, ``odirect`` to ``pread`` —
+with a reason every stats record carries.
 
 File handles live in a :class:`SubfileStore` (per-``Dataset`` session):
 read-mostly fd/memmap caches, growth via ``ftruncate`` with map
@@ -37,7 +44,8 @@ from .planner import ReadPlan, WritePlan
 
 __all__ = ["IOEngine", "MemmapEngine", "PreadEngine",
            "OverlappedPreadEngine", "SubfileStore", "WriteStats",
-           "ENGINES", "get_engine", "assemble_chunk", "scatter_row"]
+           "ENGINES", "get_engine", "resolve_engine", "validate_engine_spec",
+           "assemble_chunk", "scatter_row"]
 
 #: Linux caps one preadv/pwritev at IOV_MAX iovecs
 _IOV_MAX = 1024
@@ -56,12 +64,17 @@ class WriteStats:
     num_subfiles: int = 0
     groups: int = 0                   # coalesced vectored writes issued
     plan_seconds: float = 0.0
-    engine: str = ""                  # engine that executed the plan
+    engine: str = ""                  # engine spec that executed the plan
+    engine_reason: str = ""           # why (auto decision record / "pinned")
+    predicted_seconds: float = 0.0    # cost-model prediction (engine="auto")
     #: device route only (``repro_torch.io.device``): lowering the layout
     #: to row tables, the kernels, and the one copy to pinned host memory
     lower_seconds: float = 0.0
     kernel_seconds: float = 0.0
     d2h_seconds: float = 0.0
+    #: ``reorganize`` only: its gather's merged ``ReadStats`` (engine read,
+    #: lowering, copy to the card, the ``pack_rows`` launch)
+    gather: object = None
 
     @property
     def write_gbps(self) -> float:
@@ -147,6 +160,14 @@ class SubfileStore:
         """Drop cached read maps after out-of-band writes to ``k``."""
         with self._lock:
             self._maps.pop(k, None)
+
+    def invalidate_all(self) -> None:
+        """Drop every cached map — used by ``Dataset.refresh`` after another
+        session republished the index (subfiles may have grown past the
+        cached map lengths)."""
+        with self._lock:
+            self._maps.clear()
+            self._wmaps.clear()
 
     def fsync(self) -> None:
         with self._lock:
@@ -438,14 +459,52 @@ ENGINES = {
     "overlapped": OverlappedPreadEngine,
 }
 
+#: engines whose spec accepts a ":<depth>" queue-depth suffix
+_DEPTH_ENGINES = {"overlapped", "uring"}
+#: the reference's kernel-bypass engines, not ported yet: each degrades to
+#: the engine the reference falls back to without kernel support, and why
+_NOT_PORTED = {"uring": ("overlapped", "io_uring engine not ported yet (S6)"),
+               "odirect": ("pread", "O_DIRECT engine not ported yet (S6)")}
+
 _instances: dict = {}
 _instances_lock = threading.Lock()
+
+
+def validate_engine_spec(engine) -> str:
+    """Validate an engine spec *including* ``"auto"`` and the reference's
+    kernel-bypass spellings (``"uring[:<depth>]"``, ``"odirect"``), and
+    return it normalized to a string.  Raises ``ValueError`` on anything
+    unknown — callers use this to fail loudly instead of silently falling
+    back to a default engine.
+    """
+    if isinstance(engine, IOEngine):
+        return engine.name
+    name = str(engine)
+    base, sep, arg = name.partition(":")
+    if sep:
+        if base not in _DEPTH_ENGINES:
+            raise ValueError(f"engine {engine!r} takes no ':<depth>' "
+                             f"argument")
+        try:
+            depth = int(arg)
+        except ValueError:
+            raise ValueError(f"bad queue depth in engine spec {engine!r}")
+        if depth < 1:
+            raise ValueError(f"queue depth must be >= 1, got {depth}")
+    if base != "auto" and base not in ENGINES and base not in _NOT_PORTED:
+        raise ValueError(f"unknown engine {engine!r}; one of "
+                         f"{sorted([*ENGINES, *_NOT_PORTED]) + ['auto']} or "
+                         f"an IOEngine instance")
+    return name
 
 
 def get_engine(engine, **kwargs) -> IOEngine:
     """Resolve an engine spec: an :class:`IOEngine` instance (returned
     as-is), or a registry name — ``"memmap"``, ``"pread"``, ``"overlapped"``
-    (``"overlapped:<depth>"`` sets the queue depth).
+    (``"overlapped:<depth>"`` sets the queue depth).  ``"auto"`` is the
+    session's to resolve, per plan; ``"uring"`` and ``"odirect"`` raise
+    ``NotImplementedError`` (S6: use :func:`resolve_engine`, which
+    degrades them).
 
     Named engines are process-wide singletons keyed on the resolved
     ``(name, kwargs)`` pair, so ``"overlapped"`` and ``"overlapped:8"``
@@ -455,6 +514,16 @@ def get_engine(engine, **kwargs) -> IOEngine:
     if isinstance(engine, IOEngine):
         return engine
     name = str(engine)
+    base = name.partition(":")[0]
+    if base == "auto":
+        raise ValueError("engine 'auto' is resolved per plan by Dataset "
+                         "(pass engine='auto' to Dataset.create/open or to "
+                         "read_planned/write_planned), not by get_engine")
+    if base in _NOT_PORTED:
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported yet: it waits for the "
+            f"kernel-bypass engines (S6 in ROADMAP.md queue 1); "
+            f"resolve_engine degrades it to {_NOT_PORTED[base][0]!r}")
     if ":" in name:
         name, arg = name.split(":", 1)
         if name != "overlapped":
@@ -481,3 +550,27 @@ def get_engine(engine, **kwargs) -> IOEngine:
         if inst is None:
             inst = _instances[key] = cls(**kwargs)
         return inst
+
+
+def resolve_engine(engine, dirpath: str | None = None,
+                   **kwargs) -> tuple:
+    """:func:`get_engine` plus the reference's degrade path: returns
+    ``(engine, fallback_reason)``, ``fallback_reason`` ``""`` when the spec
+    resolved as requested.
+
+    ``uring[:<depth>]`` degrades to ``overlapped[:<depth>]`` and
+    ``odirect`` to ``pread`` — what the reference does on a host without
+    io_uring or O_DIRECT — because neither engine is ported yet (S6); the
+    reason names it.  ``dirpath`` is accepted for the reference's
+    signature (its O_DIRECT probe is per filesystem)."""
+    if isinstance(engine, IOEngine):
+        return engine, ""
+    name = str(engine)
+    base, sep, arg = name.partition(":")
+    if base in _NOT_PORTED:
+        validate_engine_spec(name)
+        fallback, why = _NOT_PORTED[base]
+        kw = {k: v for k, v in kwargs.items() if k == "depth"}
+        return get_engine(fallback + (f":{arg}" if sep else ""), **kw), \
+            f"{base} -> {fallback}: {why}"
+    return get_engine(engine, **kwargs), ""

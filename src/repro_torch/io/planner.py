@@ -21,7 +21,10 @@ arrays, alignment padding folded in at plan time, rows sorted by
 A copy of the JAX package's planner: the same inputs give the same plans,
 so both packages lay out and find the same bytes.  All byte-offset
 arithmetic of the container lives in this module; the engines in
-:mod:`repro_torch.io.engine` execute plans verbatim.
+:mod:`repro_torch.io.engine` execute plans verbatim.  A plan's shape —
+coalesced groups, contiguous runs, payload and span bytes — is what
+``engine="auto"`` prices (:func:`repro_torch.core.cost_model.
+choose_engine`).
 """
 
 from __future__ import annotations
@@ -33,11 +36,21 @@ import numpy as np
 
 from ..core.blocks import Block
 from ..core.layouts import LayoutPlan
-from .format import DatasetIndex, align_up
+from .format import DatasetIndex, VarRows, align_up
 from .spatial import aabb_mask
 
 __all__ = ["ReadPlan", "WritePlan", "build_read_plan", "build_write_plan",
-           "build_span_plan"]
+           "build_span_plan", "subset_write_plan", "linear_candidates"]
+
+
+def linear_candidates(rows: VarRows, region: Block) -> np.ndarray:
+    """Brute-force O(n) candidate scan — the pre-index behaviour, kept as the
+    oracle for property tests and as the benchmark baseline."""
+    if rows.n == 0:
+        return np.empty(0, dtype=np.int64)
+    m = aabb_mask(rows.los, rows.his, np.asarray(region.lo, dtype=np.int64),
+                  np.asarray(region.hi, dtype=np.int64))
+    return np.flatnonzero(m).astype(np.int64)
 
 
 @dataclasses.dataclass
@@ -396,4 +409,53 @@ def build_write_plan(layout: LayoutPlan, var: str, dtype,
         subfiles=subf_o, file_lo=lo_o, file_hi=hi_o, nbytes=nbytes[order],
         group_bounds=group_bounds, file_sizes=file_sizes, align=align,
         bytes_total=int(nbytes.sum()), span_bytes=span_bytes,
+        plan_seconds=time.perf_counter() - t0)
+
+
+def subset_write_plan(plan: WritePlan, rows) -> WritePlan:
+    """A :class:`WritePlan` covering only plan rows ``rows`` of ``plan``.
+
+    Every extent keeps the byte offsets the full plan assigned it — the
+    subset executes a *slice* of the same on-disk layout, which is what lets
+    independent workers write disjoint parts of one destination and still
+    converge bit-identically to a single-process write.  Group bounds are
+    recomputed over the selected rows (two extents adjacent in the full plan
+    stay coalesced only if both are selected); ``file_sizes`` shrinks to
+    what the selected extents need, so executing a subset never truncates or
+    grows a subfile past its own rows' requirements.
+    """
+    t0 = time.perf_counter()
+    rows = np.unique(np.asarray(rows, dtype=np.int64))
+    if rows.size and (rows[0] < 0 or rows[-1] >= plan.num_chunks):
+        raise IndexError(f"subset rows out of range for a "
+                         f"{plan.num_chunks}-extent plan")
+    subf = plan.subfiles[rows]
+    lo = plan.file_lo[rows]
+    hi = plan.file_hi[rows]
+    m = len(rows)
+    if m == 0:
+        group_bounds = np.zeros(1, dtype=np.int64)
+        span_bytes = 0
+        file_sizes: dict = {}
+    else:
+        new_group = np.empty(m, dtype=bool)
+        new_group[0] = True
+        if m > 1:
+            new_group[1:] = (subf[1:] != subf[:-1]) | (lo[1:] > hi[:-1])
+        group_bounds = np.concatenate(
+            (np.flatnonzero(new_group), [m])).astype(np.int64)
+        span_bytes = int((hi[group_bounds[1:] - 1]
+                          - lo[group_bounds[:-1]]).sum())
+        file_sizes = {}
+        for g in range(len(group_bounds) - 1):
+            sf = int(subf[group_bounds[g]])
+            file_sizes[sf] = max(file_sizes.get(sf, 0),
+                                 int(hi[group_bounds[g + 1] - 1]))
+    return WritePlan(
+        var=plan.var, layout=plan.layout, dtype=plan.dtype,
+        chunk_ids=plan.chunk_ids[rows], chunk_los=plan.chunk_los[rows],
+        chunk_his=plan.chunk_his[rows], writers=plan.writers[rows],
+        subfiles=subf, file_lo=lo, file_hi=hi, nbytes=plan.nbytes[rows],
+        group_bounds=group_bounds, file_sizes=file_sizes, align=plan.align,
+        bytes_total=int(plan.nbytes[rows].sum()), span_bytes=span_bytes,
         plan_seconds=time.perf_counter() - t0)

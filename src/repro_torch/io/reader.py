@@ -16,7 +16,29 @@ format (a directory either package wrote opens under the other):
 * **read** — ``plan_read`` + ``read_planned`` replay a region plan through
   the engine into a host array; ``read`` returns the region as a tensor on
   the session's device, linearizing whole variables and gathering parts
-  of them on the card.
+  of them on the card; ``read_decomposed`` / ``read_pattern`` read the
+  paper's Fig.-6 patterns split over N readers, all readers' sub-regions
+  in one gather on the card.
+* **reorganize** — :func:`reorganize` gathers every chunk of a new layout
+  on the card and writes them as the reference's post-hoc reorganization
+  does (paper §5.1), out of place or in place.
+
+Engines are interchangeable per session or per call, and ``engine="auto"``
+defers the choice to plan-execution time: the session loads (or
+micro-probes and persists, as ``calibration.json``) an
+:class:`~repro_torch.core.cost_model.EngineCalibration` and asks
+:func:`~repro_torch.core.cost_model.choose_engine` for an engine and queue
+depth from the shape of the plan it executes.  The decision is recorded in
+``ReadStats``/``WriteStats`` (``engine``, ``engine_reason``,
+``predicted_seconds``); after persistently divergent auto plans the
+calibration is dropped and re-probed (recalibrate-on-drift).
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+``ROADMAP.md`` item: the access log and ``reorganize``'s ``layout="auto"``,
+``policy=``, ``prior=``, ``expected_reads=`` and ``now=`` (the layout
+policy, S2); ``trace=`` (trace capture, S3).  ``telemetry=`` and
+``clock=`` are accepted for the reference's signature; the access log (S2)
+is what reads them.
 """
 
 from __future__ import annotations
@@ -31,32 +53,48 @@ import numpy as np
 import torch
 
 from ..core.blocks import Block
-from ..core.codecs import encode
-from ..core.layouts import LayoutPlan
+from ..core.codecs import available_codecs, encode
+from ..core.cost_model import (CalibrationDrift, EngineCalibration,
+                               EngineChoice, choose_engine,
+                               invalidate_calibration, observe_reorg_overhead,
+                               storage_calibration)
+from ..core.layouts import ChunkPlan, LayoutPlan
+from ..core.read_patterns import best_decompositions, decompose_region
 from ..device import resolve_device
-from .device import (assemble_chunks, read_linearized, read_regions,
-                     read_route)
-from .engine import IOEngine, SubfileStore, WriteStats, assemble_chunk, \
-    get_engine
-from .format import ChunkRecord, DatasetIndex, extent_checksum
-from .planner import ReadPlan, WritePlan, build_read_plan, build_write_plan
+from ..interop import to_numpy
+from .device import (PinnedStaging, assemble_chunks, gather_batches,
+                     gather_regions, read_linearized, read_regions,
+                     read_route, to_host)
+from .engine import (IOEngine, SubfileStore, WriteStats, assemble_chunk,
+                     resolve_engine)
+from .format import ChunkRecord, DatasetIndex, INDEX_NAME, extent_checksum
+from .patterns import resolve_pattern
+from .planner import (ReadPlan, WritePlan, build_read_plan, build_write_plan,
+                      subset_write_plan)
 
-__all__ = ["ReadStats", "Dataset"]
+__all__ = ["ReadStats", "Dataset", "reorganize"]
+
+_S2 = "the layout policy (S2 in ROADMAP.md queue 1)"
+_S3 = "trace capture and replay (S3 in ROADMAP.md queue 1)"
+
+
+def _waits(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: it waits for "
+                               f"{item}")
 
 
 @dataclasses.dataclass
 class ReadStats:
-    seconds: float = 0.0          # engine time
+    seconds: float = 0.0          # engine time (decomposed reads: wall)
     bytes_read: int = 0
     chunks_touched: int = 0
     runs: int = 0                 # contiguous byte runs (cold-cache seeks)
     groups: int = 0               # coalesced grouped reads actually issued
     probe_seconds: float = 0.0    # spatial-index lookup time
     plan_seconds: float = 0.0     # extent planning time
-    engine: str = ""              # engine that executed the plan
-    #: why that engine: ``"pinned"`` when the caller named it; an
-    #: ``engine="auto"`` decision record waits for the cost model (S1)
-    engine_reason: str = ""
+    engine: str = ""              # engine spec that executed the plan
+    engine_reason: str = ""       # auto decision record, or "pinned"
+    predicted_seconds: float = 0.0  # cost-model prediction (engine="auto")
     #: ``Dataset.read`` only: lowering to row tables (device route), the
     #: one copy to the device, and the linearizing kernel
     lower_seconds: float = 0.0
@@ -73,6 +111,7 @@ class ReadStats:
         self.groups += other.groups
         self.probe_seconds += other.probe_seconds
         self.plan_seconds += other.plan_seconds
+        self.predicted_seconds += other.predicted_seconds
         self.lower_seconds += other.lower_seconds
         self.h2d_seconds += other.h2d_seconds
         self.linearize_seconds += other.linearize_seconds
@@ -103,43 +142,168 @@ class Dataset:
     ``Dataset(dir)`` attaches to an existing dataset (read paths work
     immediately, writes append); ``Dataset.create(dir)`` starts an empty
     one.  ``engine`` is ``"memmap"``, ``"pread"``,
-    ``"overlapped"``/``"overlapped:<depth>"`` or an
-    :class:`~repro_torch.io.engine.IOEngine` instance.  ``device`` is where
-    :meth:`read` returns tensors: ``"cuda"`` unless ``"cpu"`` is asked for.
+    ``"overlapped"``/``"overlapped:<depth>"``, ``"auto"`` or an
+    :class:`~repro_torch.io.engine.IOEngine` instance (``"uring[:<depth>]"``
+    and ``"odirect"`` degrade, as :func:`~repro_torch.io.engine.
+    resolve_engine` says).  With ``"auto"`` the session picks an engine
+    *per plan* from the plan's shape and a storage calibration
+    (``calibration.json`` next to ``index.json``, micro-probed and
+    persisted on first use; ``calibration`` injects one, which drift never
+    drops).  ``index`` starts the session on an in-memory index, which it
+    never refreshes.  ``device`` is where :meth:`read` returns tensors:
+    ``"cuda"`` unless ``"cpu"`` is asked for.  ``telemetry`` and ``clock``
+    are the reference's signature; the access log that reads them waits
+    for S2.
     """
 
     def __init__(self, dirpath: str, engine: str | IOEngine = "memmap", *,
-                 create: bool = False, device="cuda"):
+                 create: bool = False, index: DatasetIndex | None = None,
+                 calibration: EngineCalibration | None = None,
+                 telemetry: bool = True, clock=None, device="cuda"):
         self.device = resolve_device(device)
         self.dirpath = dirpath
-        self._engine = get_engine(engine)
-        if create:
+        self._auto = isinstance(engine, str) and engine == "auto"
+        self._engine = None
+        self._fallback_reason = ""
+        self._calibration = calibration
+        # drift tracking only applies to calibrations this session loaded or
+        # probed itself — an explicitly injected calibration is pinned
+        self._drift_enabled = calibration is None
+        self._drift = CalibrationDrift()
+        self._drift_lock = threading.Lock()
+        self._index_stat = None
+        if index is not None:
+            self.index = index
+        elif create:
             self.index = DatasetIndex()
-            os.makedirs(dirpath, exist_ok=True)
         else:
             self.index = DatasetIndex.load(dirpath)
+            self._index_stat = self._stat_index()
+        if create or index is not None:
+            os.makedirs(dirpath, exist_ok=True)
+        if not self._auto:
+            self._engine, self._fallback_reason = \
+                resolve_engine(engine, dirpath=dirpath)
         self._store = SubfileStore(dirpath)
         self._lock = threading.Lock()     # index mutation + append cursor
+        self._cal_lock = threading.Lock()  # one probe even with many workers
         self._cursor: dict | None = None  # subfile -> first free byte
+        self._staging = PinnedStaging()   # copies to and from the card
 
     # -- session management --------------------------------------------------
     @classmethod
     def create(cls, dirpath: str, engine: str | IOEngine = "memmap",
+               calibration: EngineCalibration | None = None,
+               telemetry: bool = True, clock=None,
                device="cuda") -> "Dataset":
         """Start a new (empty) dataset. ``index.json`` is not written until
         the first successful :meth:`write_planned` commit."""
-        return cls(dirpath, engine, create=True, device=device)
+        return cls(dirpath, engine, create=True, calibration=calibration,
+                   telemetry=telemetry, clock=clock, device=device)
 
     @classmethod
     def open(cls, dirpath: str, engine: str | IOEngine = "memmap",
+             calibration: EngineCalibration | None = None,
+             telemetry: bool = True, clock=None,
              device="cuda") -> "Dataset":
         """Attach to an existing dataset directory."""
-        return cls(dirpath, engine, device=device)
+        return cls(dirpath, engine, calibration=calibration,
+                   telemetry=telemetry, clock=clock, device=device)
 
     @property
     def engine(self) -> str:
-        """Name of the session's default engine."""
-        return self._engine.name
+        """Name of the session's default engine (``"auto"`` when the choice
+        is deferred to plan-execution time)."""
+        return "auto" if self._auto else self._engine.name
+
+    @property
+    def generation(self) -> int:
+        """The index's layout generation — bumped every time a
+        reorganization republishes relocated extents."""
+        return self.index.generation
+
+    def _stat_index(self):
+        """Cheap identity of the on-disk ``index.json`` (atomic replace
+        changes the inode, appends change mtime/size)."""
+        try:
+            st = os.stat(os.path.join(self.dirpath, INDEX_NAME))
+        except OSError:
+            return None
+        return (st.st_ino, st.st_mtime_ns, st.st_size)
+
+    def refresh(self) -> bool:
+        """Reload ``index.json`` iff another session republished it (a
+        reorganization commit, or a writer's append flush).  Returns True
+        when the index was reloaded.  Sessions created around an in-memory
+        index never refresh: their index IS the truth."""
+        if self._index_stat is None:
+            return False
+        st = self._stat_index()
+        if st is None or st == self._index_stat:
+            return False
+        with self._lock:
+            self.index = DatasetIndex.load(self.dirpath)
+            self._index_stat = st
+            self._cursor = None
+        # subfiles may have grown past any cached memmap's length, and an
+        # in-place reorganization appended extents the old maps cannot see
+        self._store.invalidate_all()
+        return True
+
+    def calibration(self) -> EngineCalibration:
+        """The session's storage calibration (lazy: ``calibration.json`` if
+        fresh, the per-device cache, else a micro-probe that is persisted
+        next to ``index.json``).  Thread-safe: concurrent first users share
+        one probe."""
+        if self._calibration is None:
+            with self._cal_lock:
+                if self._calibration is None:
+                    self._calibration = storage_calibration(self.dirpath)
+        return self._calibration
+
+    def _note_drift(self, choice: EngineChoice | None,
+                    measured_seconds: float) -> None:
+        """Recalibrate-on-drift: after persistently divergent auto plans,
+        drop the calibration so the next auto decision re-probes."""
+        if choice is None or not self._drift_enabled:
+            return
+        with self._drift_lock:
+            tripped = self._drift.note(choice.predicted_seconds,
+                                       measured_seconds)
+        if tripped:
+            invalidate_calibration(self.dirpath)
+            with self._cal_lock:
+                self._calibration = None
+
+    def _resolve_engine(self, override, *, groups: int, runs: int,
+                        bytes_moved: int, span_bytes: int,
+                        direction: str) -> tuple:
+        """Resolve a per-call ``engine`` override (or the session default)
+        to an engine instance; returns ``(engine, EngineChoice | None,
+        pinned_reason)``.  ``"auto"`` — per call or as the session default
+        — consults the cost model with this plan's shape.  Specs that are
+        not ported degrade through :func:`~repro_torch.io.engine.
+        resolve_engine`, and the reason enters the stats record."""
+        spec = override if override is not None else \
+            ("auto" if self._auto else self._engine)
+        if isinstance(spec, str) and spec == "auto":
+            choice = choose_engine(self.calibration(), groups=groups,
+                                   runs=runs, bytes_moved=bytes_moved,
+                                   span_bytes=span_bytes,
+                                   direction=direction)
+            eng, fb = resolve_engine(choice.engine, dirpath=self.dirpath)
+            if fb:
+                # a calibration that carries kernel-bypass terms (injected,
+                # or copied from another host) priced an engine this port
+                # lacks: degrade, and keep the record honest about what ran
+                choice = dataclasses.replace(choice, engine=eng.name,
+                                             reason=f"{choice.reason}; "
+                                                    f"{fb}")
+            return eng, choice, ""
+        if override is not None:
+            eng, fb = resolve_engine(spec, dirpath=self.dirpath)
+            return eng, None, fb or "pinned"
+        return self._engine, None, self._fallback_reason or "pinned"
 
     def flush(self) -> None:
         """Persist ``index.json`` (atomic replace)."""
@@ -147,6 +311,7 @@ class Dataset:
 
     def close(self) -> None:
         self._store.close()
+        self._staging.release()
 
     # -- write path ----------------------------------------------------------
     def _cursor_dict(self) -> dict:
@@ -175,12 +340,13 @@ class Dataset:
                     cursor[sf] = end
         return plan
 
-    @staticmethod
-    def _assemble(layout: LayoutPlan, data: Mapping, dtype) -> tuple:
+    def _assemble(self, layout: LayoutPlan, data: Mapping, dtype) -> tuple:
         """Chunk buffers in ``layout.chunks`` order, and the device stage
-        times: on the card when the data are tensors, else on the host."""
+        times: on the card when the data are tensors (the buffers then
+        views of the session's pinned staging buffer), else on the
+        host."""
         if any(isinstance(v, torch.Tensor) for v in data.values()):
-            return assemble_chunks(layout, data, dtype)
+            return assemble_chunks(layout, data, dtype, self._staging)
         return [assemble_chunk(cp, data, dtype) for cp in layout.chunks], {}
 
     def write_planned(self, plan: WritePlan, data: Mapping, *,
@@ -194,13 +360,18 @@ class Dataset:
         extent groups, then commit the records.
 
         ``codec``/``encoded`` is the compressed-write contract: the caller
-        passes the pre-encoded extent buffers (``layout.chunks`` order) and
-        the codec they carry, and the plan was built with their sizes.
+        passes the pre-encoded extent buffers (indexed by ``layout.chunks``
+        position) and the codec they carry, and the plan was built with
+        their sizes.  ``codec="none"`` with ``encoded`` writes buffers
+        assembled already (``reorganize``'s gathered chunks).
         """
         if codec != "none" and encoded is None:
             raise ValueError("codec != 'none' requires pre-encoded buffers "
                              "(use Dataset.write(..., codec=...))")
-        eng = get_engine(engine) if engine is not None else self._engine
+        eng, choice, pinned_reason = self._resolve_engine(
+            engine, groups=plan.num_groups, runs=plan.num_chunks,
+            bytes_moved=plan.bytes_total, span_bytes=plan.span_bytes,
+            direction="write")
         t_start = time.perf_counter()
 
         t0 = time.perf_counter()
@@ -247,6 +418,7 @@ class Dataset:
             if flush:
                 self.flush()
 
+        self._note_drift(choice, write_seconds)
         return WriteStats(assemble_seconds=assemble_seconds,
                           write_seconds=write_seconds,
                           total_seconds=time.perf_counter() - t_start,
@@ -254,7 +426,12 @@ class Dataset:
                           num_extents=plan.num_chunks,
                           num_subfiles=len(plan.file_sizes),
                           groups=plan.num_groups,
-                          plan_seconds=plan.plan_seconds, engine=eng.name,
+                          plan_seconds=plan.plan_seconds,
+                          engine=choice.engine if choice else eng.name,
+                          engine_reason=choice.reason if choice
+                          else pinned_reason,
+                          predicted_seconds=choice.predicted_seconds
+                          if choice else 0.0,
                           lower_seconds=stages.get("lower", 0.0),
                           kernel_seconds=stages.get("kernel", 0.0),
                           d2h_seconds=stages.get("d2h", 0.0))
@@ -302,21 +479,33 @@ class Dataset:
                                coalesce_gap=coalesce_gap)
 
     def read_planned(self, plan: ReadPlan, out: np.ndarray | None = None,
-                     engine: str | IOEngine | None = None) -> tuple:
+                     engine: str | IOEngine | None = None,
+                     note_drift: bool = True) -> tuple:
         """Execute a read plan into a host array.  Returns (array,
-        ReadStats)."""
+        ReadStats); the stats record which engine ran and — under
+        ``"auto"`` — the decision rationale.  ``note_drift=False`` keeps
+        this plan out of recalibrate-on-drift accounting."""
         if out is None:
             out = np.empty(plan.region.shape, dtype=plan.dtype)
-        eng = get_engine(engine) if engine is not None else self._engine
+        eng, choice, pinned_reason = self._resolve_engine(
+            engine, groups=plan.num_groups, runs=plan.runs,
+            bytes_moved=plan.bytes_needed, span_bytes=plan.span_bytes,
+            direction="read")
         stats = ReadStats(chunks_touched=plan.num_chunks, runs=plan.runs,
                           groups=plan.num_groups,
                           bytes_read=plan.bytes_needed,
                           probe_seconds=plan.probe_seconds,
-                          plan_seconds=plan.plan_seconds, engine=eng.name,
-                          engine_reason="pinned")
+                          plan_seconds=plan.plan_seconds,
+                          engine=choice.engine if choice else eng.name,
+                          engine_reason=choice.reason if choice
+                          else pinned_reason,
+                          predicted_seconds=choice.predicted_seconds
+                          if choice else 0.0)
         t0 = time.perf_counter()
         eng.read_plan(plan, self._store, out)
         stats.seconds = time.perf_counter() - t0
+        if note_drift:
+            self._note_drift(choice, stats.seconds)
         return out, stats
 
     def read(self, var: str, region: Block,
@@ -352,3 +541,305 @@ class Dataset:
         out = torch.from_numpy(arr).to(dev)
         stats.h2d_seconds = time.perf_counter() - t0
         return out, stats
+
+    def read_decomposed(self, var: str, region: Block,
+                        scheme: Sequence[int],
+                        materialize: bool = True,
+                        candidates: np.ndarray | None = None,
+                        engine: str | IOEngine | None = None,
+                        log_access: bool = True) -> ReadStats:
+        """Read of ``region`` split over ``prod(scheme)`` readers (paper
+        Fig. 5).  Returns aggregated stats; ``seconds`` is wall time, ended
+        by a device synchronize.
+
+        The spatial index is probed once for the whole region, and every
+        reader's sub-region is gathered in ONE :func:`~repro_torch.io.
+        device.gather_regions` call on the session's device: one engine
+        read of each touched extent, however many readers share it, one
+        copy, one ``pack_rows`` launch.  ``bytes_read`` and
+        ``chunks_touched`` are the reference's (the sub-plans' sums);
+        ``runs`` and ``groups`` are the gather's own.  Compressed or
+        overlapping chunks take the host plan a reader, each result copied
+        to the device, as :meth:`read` does.  ``materialize`` and
+        ``log_access`` are the reference's signature (the access log waits
+        for S2).
+        """
+        parts = decompose_region(region, scheme)
+        agg = ReadStats()
+        t0 = time.perf_counter()
+        if candidates is None:
+            tp = time.perf_counter()
+            candidates = self.index.spatial_index(var).query(region.lo,
+                                                             region.hi)
+            agg.probe_seconds += time.perf_counter() - tp
+        got = None
+        if read_route(self.index, var, region) is not None:
+            got = gather_regions(self, var, parts, self.device,
+                                 engine=engine, candidates=candidates)
+        if got is None:
+            for p in parts:
+                _, st = self.read(var, p, candidates=candidates,
+                                  engine=engine)
+                agg.merge(st)
+        else:
+            agg.merge(got[1])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        agg.seconds = time.perf_counter() - t0
+        return agg
+
+    def read_pattern(self, var: str, pattern: str,
+                     num_readers: int = 1,
+                     slab_thickness: int | None = None,
+                     engine: str | IOEngine | None = None) -> tuple:
+        """Read a Fig.-6 pattern with the best decomposition for
+        ``num_readers`` (the paper reports best-of over schemes).
+        Returns (best_scheme, ReadStats of best).
+
+        One index probe serves the whole best-of-schemes sweep: every scheme
+        shares the region's candidate set.
+        """
+        shape = self.index.var_shape(var)
+        region = resolve_pattern(shape, pattern, slab_thickness)
+        tp = time.perf_counter()
+        candidates = self.index.spatial_index(var).query(region.lo, region.hi)
+        probe_seconds = time.perf_counter() - tp
+        best = None
+        for scheme in best_decompositions(num_readers, ndim=len(shape)):
+            st = self.read_decomposed(var, region, scheme,
+                                      candidates=candidates, engine=engine,
+                                      log_access=False)
+            if best is None or st.seconds < best[1].seconds:
+                best = (scheme, st)
+        # the one shared index probe is attributed to the reported best
+        best[1].probe_seconds += probe_seconds
+        return best
+
+    # -- integrity -----------------------------------------------------------
+    def verify_checksums(self, var: str | None = None) -> tuple:
+        """Re-read every stored extent that carries a CRC and validate it.
+        Returns ``(checked, bad)`` — the number of records validated and
+        the list of record positions (rows into ``index.chunks``) whose
+        stored bytes no longer match.  Records without a checksum are
+        skipped."""
+        checked = 0
+        bad = []
+        for i, rec in enumerate(self.index.chunks):
+            if rec.checksum is None or (var is not None and rec.var != var):
+                continue
+            fd = self._store.fd(rec.subfile)
+            buf = os.pread(fd, rec.nbytes, rec.offset)
+            checked += 1
+            if len(buf) != rec.nbytes or extent_checksum(buf) != rec.checksum:
+                bad.append(i)
+        return checked, bad
+
+
+def sample_codec_ratios(src: Dataset, var: str, *,
+                        max_bytes: int = 4 << 20) -> dict:
+    """Measure each available codec's stored/logical size ratio on a sample
+    of ``var``'s actual data (the first stored chunk, capped at
+    ``max_bytes`` along its leading axis) — what the layout policy (S2)
+    scores compressibility with.  Returns ``{}`` when the variable has no
+    extents or every codec fails."""
+    rows = src.index.var_rows(var)
+    if rows.n == 0:
+        return {}
+    lo = np.array(rows.los[0], dtype=np.int64)
+    hi = np.array(rows.his[0], dtype=np.int64)
+    itemsize = np.dtype(src.index.var_dtype(var)).itemsize
+    vol = int((hi - lo).prod()) * itemsize
+    if vol > max_bytes and hi[0] - lo[0] > 1:
+        keep = max(1, int((hi[0] - lo[0]) * max_bytes // vol))
+        hi = hi.copy()
+        hi[0] = lo[0] + keep
+    try:
+        arr, _ = src.read(var, Block(tuple(int(v) for v in lo),
+                                     tuple(int(v) for v in hi)))
+    except (OSError, ValueError, KeyError):
+        return {}
+    raw = np.ascontiguousarray(to_numpy(arr.cpu()))
+    if raw.nbytes == 0:
+        return {}
+    ratios = {}
+    for name in available_codecs():
+        if name == "none":
+            continue
+        try:
+            ratios[name] = len(encode(name, raw)) / raw.nbytes
+        except Exception:
+            continue
+    return ratios
+
+
+def _gather(src: Dataset, var: str, regions: list, dtype,
+            staging: PinnedStaging) -> tuple:
+    """The ``regions`` of ``var`` as host arrays, the gather's ReadStats
+    and the seconds of its copy back to the host: raw chunks gathered on
+    ``src``'s device by :func:`~repro_torch.io.device.gather_regions` and
+    copied to the host once, through ``staging``; compressed or
+    overlapping ones by the host plans, straight into host memory (the
+    data are bound for the disk)."""
+    got = None
+    if read_route(src.index, var, regions[0]) is not None:
+        got = gather_regions(src, var, regions, src.device)
+    d2h = 0.0
+    if got is None:
+        host = np.empty(sum(r.volume for r in regions), dtype=dtype)
+        st, pos = ReadStats(), 0
+        for r in regions:
+            _, s = src.read_planned(
+                src.plan_read(var, r),
+                out=host[pos:pos + r.volume].reshape(r.shape))
+            st.merge(s)
+            st.seconds += s.seconds
+            pos += r.volume
+    else:
+        flat, st = got
+        t0 = time.perf_counter()
+        host = to_host(flat, staging)
+        d2h = time.perf_counter() - t0
+    bufs, pos = [], 0
+    for r in regions:
+        bufs.append(host[pos:pos + r.volume].reshape(r.shape))
+        pos += r.volume
+    return bufs, st, d2h
+
+
+def reorganize(src_dir: str, dst_dir: str, var: str,
+               layout: LayoutPlan | str = "auto", *,
+               engine: str | IOEngine = "memmap",
+               align: int | None = None,
+               policy=None, prior: str | None = None,
+               expected_reads: float | None = None,
+               now: float | None = None,
+               clock=None, trace=None, device="cuda") -> tuple:
+    """Post-hoc reorganization (paper §5.1) on the card: gather every chunk
+    of the new ``layout`` out of ``src_dir`` and write the reorganized
+    dataset to ``dst_dir`` — the same subfiles and ``index.json`` as the
+    JAX package's ``reorganize`` with the same ``LayoutPlan``.
+
+    The new chunks, in ``layout.chunks`` order, are the target regions of
+    :func:`~repro_torch.io.device.gather_regions` on ``device`` (``"cuda"``
+    unless ``"cpu"`` is asked for): one engine read of each touched stored
+    extent, once, one copy to the card and ONE ``pack_rows`` launch — a
+    call per batch of whole chunks of at most :data:`~repro_torch.io.
+    device.GATHER_BATCH_BYTES`.  Its output is the new chunks, row-major,
+    back to back, so it crosses to the host once and is written as it is:
+    ``write_planned`` of the identity plan's rows with the chunk views as
+    ``encoded`` and ``codec="none"``, no second kernel pass.  The index is
+    committed once, after the last batch.
+
+    With ``dst_dir == src_dir`` the reorganization happens **in place,
+    online**: the new extents are appended past the live ones, and the
+    index is republished in one atomic replace with its generation bumped
+    and the other variables' records carried over.  A concurrent reader
+    holds either the old index (whose extents are intact) or the new one;
+    :meth:`Dataset.refresh` picks up the new one.
+
+    Returns ``(read_seconds, Dataset, WriteStats)`` — the gather's wall
+    seconds, a session open on the destination, and the write's stats,
+    whose ``gather`` is the gather's merged ``ReadStats`` (engine read,
+    lowering, copy to the card, kernel) and ``d2h_seconds`` its copy back.
+    The measured per-chunk overhead (gather minus engine seconds) is
+    folded into the source's ``reorg_stats.json``.
+
+    ``layout="auto"``, ``policy``, ``prior``, ``expected_reads`` and
+    ``now`` wait for the layout policy (S2), ``trace`` for trace capture
+    (S3): each raises ``NotImplementedError``.  ``clock`` is accepted.
+    """
+    if isinstance(layout, str) and layout != "auto":
+        raise ValueError(f"layout must be a LayoutPlan or 'auto', "
+                         f"got {layout!r}")
+    if isinstance(layout, str):
+        raise _waits("reorganize(layout='auto')", _S2)
+    for name, value in (("policy", policy), ("prior", prior),
+                        ("expected_reads", expected_reads), ("now", now)):
+        if value is not None:
+            raise _waits(f"reorganize({name}=...)", _S2)
+    if trace is not None:
+        raise _waits("reorganize(trace=...)", _S3)
+    dev = resolve_device(device)
+    in_place = os.path.abspath(src_dir) == os.path.abspath(dst_dir)
+    src = Dataset.open(src_dir, engine=engine, telemetry=False, clock=clock,
+                       device=dev)
+    # rewrite with chunk == source identity
+    synth = [Block(cp.chunk.lo, cp.chunk.hi, owner=cp.writer, block_id=i)
+             for i, cp in enumerate(layout.chunks)]
+    ident = LayoutPlan(
+        strategy=layout.strategy, global_shape=layout.global_shape,
+        chunks=tuple(ChunkPlan(chunk=b, sources=(b,), writer=b.owner,
+                               subfile=cp.subfile)
+                     for b, cp in zip(synth, layout.chunks)),
+        num_subfiles=layout.num_subfiles,
+        inter_process_moved=layout.inter_process_moved,
+        intra_node_moved=layout.intra_node_moved)
+    dtype = src.index.var_dtype(var)
+    if in_place:
+        # the fresh index starts with only the OTHER variables' records
+        # (they don't move), the new extents are appended past the current
+        # cursor so live readers' old extents stay byte-identical, and the
+        # one flush below is the atomic index replace that flips readers
+        new_index = DatasetIndex(num_subfiles=src.index.num_subfiles,
+                                 attrs=dict(src.index.attrs),
+                                 generation=src.index.generation + 1)
+        for name, meta in src.index.variables.items():
+            if name != var:
+                new_index.variables[name] = dict(meta)
+        for rec in src.index.chunks:
+            if rec.var != var:
+                new_index.chunks.append(dataclasses.replace(rec))
+        with src._lock:
+            cursor = dict(src._cursor_dict())
+        dst = Dataset(dst_dir, engine=engine, index=new_index, clock=clock,
+                      device=dev)
+        dst._cursor = cursor                  # append past the live extents
+    else:
+        dst = Dataset.create(dst_dir, engine=engine, clock=clock, device=dev)
+        # layout lineage: the destination supersedes the source's layout
+        dst.index.generation = src.index.generation + 1
+    plan = dst.plan_write(var, ident, dtype, align=align)
+    row_of = np.argsort(plan.chunk_ids)       # plan row of each chunk
+    read_seconds = d2h_seconds = 0.0
+    gather = ReadStats()
+    parts = []
+    try:
+        for batch in gather_batches(layout, dtype.itemsize) or [[]]:
+            bufs = []
+            if batch:
+                t0 = time.perf_counter()
+                bufs, st, d2h = _gather(src, var, [layout.chunks[i].chunk
+                                                   for i in batch], dtype,
+                                        dst._staging)
+                read_seconds += time.perf_counter() - t0
+                d2h_seconds += d2h
+                gather.merge(st)
+                gather.seconds += st.seconds
+            parts.append(dst.write_planned(
+                subset_write_plan(plan, row_of[batch]), {},
+                encoded=dict(zip(batch, bufs)), flush=False))
+        dst.flush()
+    finally:
+        src.close()
+    wstats = WriteStats(
+        assemble_seconds=sum(w.assemble_seconds for w in parts),
+        write_seconds=sum(w.write_seconds for w in parts),
+        total_seconds=sum(w.total_seconds for w in parts),
+        bytes_written=int(plan.bytes_total), num_extents=plan.num_chunks,
+        num_subfiles=len(plan.file_sizes),
+        groups=sum(w.groups for w in parts), plan_seconds=plan.plan_seconds,
+        engine=parts[0].engine if len({w.engine for w in parts}) == 1
+        else "mixed",
+        engine_reason="; ".join(dict.fromkeys(w.engine_reason
+                                              for w in parts)),
+        predicted_seconds=sum(w.predicted_seconds for w in parts),
+        d2h_seconds=d2h_seconds, gather=gather)
+    # learned per-chunk reorganization overhead: what the gather paid on
+    # top of raw engine time, folded into the source's reorg_stats.json
+    # only after the destination committed
+    if len(layout.chunks):
+        observe_reorg_overhead(
+            src_dir,
+            max(0.0, read_seconds - gather.seconds) / len(layout.chunks),
+            num_chunks=len(layout.chunks))
+    return read_seconds, dst, wstats

@@ -239,6 +239,73 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert torch.equal(flat[k][b.block_id], tree[k][b.slices()])
 
 
+def test_reorganize_and_read_pattern_on_the_card(cuda, tmp_path):
+    """A small ``reorganize`` on the card: one ``pack_rows`` launch a
+    gather batch, the destination's files equal to the CPU run's; then
+    each pattern's decomposed read, one launch, with the CPU run's counts
+    and the source's data."""
+    from repro_torch.io import reorganize
+    from repro_torch.io.device import gather_batches
+    shape = (32, 48, 40)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (8, 16, 10)), num_procs=6, seed=3)
+    field = torch.randn(shape, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    src = tmp_path / "src"
+    ds = Dataset.create(str(src), device=cuda)
+    ds.write("E", tc.plan_layout("merged_process", blocks, num_procs=6,
+                                 procs_per_node=2), np.float32,
+             {b.block_id: field[b.slices()].contiguous() for b in blocks})
+    ds.close()
+    target = tc.plan_reorganization(blocks, shape, None, num_stagers=3)
+    files, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        K.reset_launch_counts()
+        _, dst, _ = reorganize(str(src), str(d), "E", target, device=dev)
+        assert K.launch_counts()["pack_rows"] == (
+            len(gather_batches(target, 4)) if dev == "cuda" else 0)
+        files[dev] = {f.name: f.read_bytes() for f in sorted(d.iterdir())
+                      if f.name != "reorg_stats.json"}
+        stats[dev] = []
+        for pattern in tc.PATTERNS:
+            region = tc.pattern_region(pattern, shape)
+            K.reset_launch_counts()
+            st = dst.read_decomposed("E", region, (2, 2, 2))
+            assert K.launch_counts()["pack_rows"] == (dev == "cuda")
+            got, _ = dst.read("E", region)
+            assert torch.equal(got.to(cuda), field[region.slices()])
+            stats[dev].append((st.bytes_read, st.chunks_touched))
+        dst.close()
+    assert files["cuda"] == files["cpu"]
+    assert stats["cuda"] == stats["cpu"]
+
+
+def test_reads_reuse_the_sessions_pinned_buffer(cuda, tmp_path):
+    """Part reads and whole reads on one session stage through one pinned
+    buffer, grown only when a larger read needs it."""
+    shape = (256, 192)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (32, 32)), num_procs=8, seed=1)
+    field = torch.randn(shape, device=cuda)
+    ds = Dataset.create(str(tmp_path), device=cuda)
+    ds.write("E", tc.plan_layout("merged_process", blocks, num_procs=8),
+             np.float32, {b.block_id: field[b.slices()] for b in blocks})
+    part = Block((5, 17), (100, 150))
+    got, _ = ds.read("E", part)
+    buf = ds._staging._buf
+    assert buf is not None and buf.is_pinned()
+    for region in (part, Block((0, 0), (64, 64))):
+        got, _ = ds.read("E", region)
+        assert torch.equal(got, field[region.slices()])
+        assert ds._staging._buf is buf
+    got, _ = ds.read("E", Block((0, 0), shape))
+    assert torch.equal(got, field)
+    assert ds._staging._buf.numel() >= field.numel() * 4
+    ds.close()
+    assert ds._staging._buf is None
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 @pytest.mark.parametrize("D", [16, 48, 80, 128, 256])
 @pytest.mark.parametrize("causal,window,softcap",

@@ -51,6 +51,18 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("mod", ["core.cost_model", "core.reorg",
+                                 "core.read_patterns", "io.patterns",
+                                 "io.reader", "io.engine"])
+def test_mirrored_modules_are_scanned(mod):
+    """The port keeps its own copy of each module it mirrors, at the same
+    path, and the scans above cover it."""
+    rel = pathlib.Path(*mod.split(".")).with_suffix(".py")
+    assert (ROOT / "src" / "repro" / rel).is_file()
+    assert PKG / rel in SOURCES
+    assert f"repro_torch.{mod}" in _modules()
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_statement(path):
