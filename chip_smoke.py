@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
    call computing the same function; ``pack_rows`` as its kernel, its
    public wrapper and ``pack_tables`` as the main path calls it;
 5. launch counts of the main-path run; every kernel must have run (the
-   summary's copy-kernel rows add phase 15's and phase 16's launches);
+   summary's copy-kernel rows add the launches of phases 15, 16, 17a and
+   17b);
 6. the flash-attention forward's kernels against their plain version on
    the card, within tolerance: masks, GQA groups, head dims 16-256
    (padded ones too), ragged lengths, f32 and bf16, the serving paths'
@@ -137,7 +138,32 @@ Phases, each printing one JSON line:
     8 x 4 (generation up by one, seen by a session opened before the
     commit after ``refresh``); every whole read-back ``torch.equal``, each
     step's launch counts reset just before it and read just after, the
-    directory removed.  Reads come from the page cache.
+    directory removed.  Reads come from the page cache.  Between the
+    patterns and the in-place step (16c), ``reorganize(layout="auto")`` of
+    the component over the history its pattern reads logged to
+    ``access_log.json``: the policy's decision (scheme, codec, reason,
+    scores), the stage seconds, the launches (one a gather batch and one
+    for the codec sample's read) and the whole read-back; that history is
+    exported as 17a's prior;
+17a. online reorganization (paper §5, the staging coupler): the same 3-D
+    component as 1,024 boxes of a field on the card, staged for 3 output
+    steps by ``StagingExecutor`` (2 workers, queue depth 2,
+    ``engine="auto"``) under ``plan="auto"`` with 16c's prior, while the
+    producer advances the field in place on its own stream after each
+    submit; per step ``t_s`` (with its lowering, kernel and d2h), ``t_w``,
+    the stall, bytes, chunks, engine and reason; the policy's decision;
+    the §5.2 recommendation for the measured producer step; the launches
+    (``pack_rows`` one a step at least: the layout is assembled on the
+    card); the peak device memory; every step read back ``torch.equal``
+    to the field as it was at its submit;
+17b. async checkpoints at full width: qwen2.5-3b trained for 2 steps by
+    ``Trainer.run`` with an ``AsyncCheckpointer`` (``reorganized`` (4,
+    4), 1 worker, queue depth 1) as its checkpoint manager, which stages
+    the params (14 f32 leaves, 12.3 GB) after each step; per save the
+    stall, ``t_s``, ``t_w`` and stages, the recommendation (the direct
+    write: phase 15's save of the same leaves), the launches of the run,
+    the peak memory; every staged leaf read back ``torch.equal`` to a host
+    copy of the params at its save; the directory removed.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -1732,7 +1758,10 @@ def checkpoint(torch, dev, K, state: dict) -> dict:
                        "kernel": st.kernel_seconds, "d2h": st.d2h_seconds,
                        "engine_write": st.write_seconds,
                        "checksum_and_index": st.commit_seconds},
-            "launches": ran}
+            "launches": ran,
+            # the params' share, what phase 17b stages asynchronously
+            "params_seconds": sum(v for n, v in st.per_var_seconds.items()
+                                  if n.startswith("params/"))}
         if ran["pack_rows"] < len(axis):
             raise AssertionError(f"save launched pack_rows {ran['pack_rows']}"
                                  f" times for {len(axis)} leaves")
@@ -1835,6 +1864,9 @@ REORG_BOX = (64, 64, 128)
 REORG_SCHEMES = ((4, 4, 4), (2, 8, 4))
 REORG_2D = (8, 8)
 PATTERN_READERS = 8
+#: the 3-D component's access history after phase 16's pattern reads,
+#: exported as phase 17a's cross-run prior
+STAGING_PRIOR = ROOT / "build" / "chip_smoke" / "warpx_prior.json"
 
 
 def _reorg_stages(rs: float, ws) -> dict:
@@ -1859,9 +1891,9 @@ def reorg(torch, dev, K, blocks2d) -> dict:
     layouts with ``engine="auto"``.  Each reorganize's and read-back's
     launch counts are reset just before it and read just after; every
     check raises.  The reads come from the page cache."""
-    from repro_torch.core import (PATTERNS, pattern_region, plan_layout,
-                                  plan_reorganization, simulate_load_balance,
-                                  uniform_grid_blocks)
+    from repro_torch.core import (PATTERNS, AccessLog, pattern_region,
+                                  plan_layout, plan_reorganization,
+                                  simulate_load_balance, uniform_grid_blocks)
     from repro_torch.core.blocks import Block
     from repro_torch.io import Dataset, reorganize
     from repro_torch.io.device import GATHER_BATCH_BYTES, gather_batches
@@ -2024,6 +2056,35 @@ def reorg(torch, dev, K, blocks2d) -> dict:
         cube["patterns"] = patterns
         cube["num_readers"] = PATTERN_READERS
 
+        # 16c: layout="auto" over the history the pattern reads logged;
+        # the history is kept as phase 17a's prior
+        AccessLog(str(src)).export_prior(str(STAGING_PRIOR))
+        auto = work / "warpx_auto"
+        (rs, dds, ws), secs, ran = counted(lambda: reorganize(
+            str(src), str(auto), "Ez", "auto", engine="auto"))
+        decision = dds.index.attrs["policy"]["Ez"]
+        sizes = [r.nbytes for r in dds.index.chunks_of("Ez")]
+        dds.close()
+        n_batches, size = 0, GATHER_BATCH_BYTES + 1
+        for nb in sizes:                  # gather_batches' rule
+            if size + nb > GATHER_BATCH_BYTES:
+                n_batches, size = n_batches + 1, 0
+            size += nb
+        raw = decision["codec"] == "none"
+        # one launch a gather batch, and one for the part read that
+        # samples the codecs' ratios
+        if raw and ran["pack_rows"] != n_batches + 1:
+            raise AssertionError(f"auto reorganize launched {ran} for "
+                                 f"{n_batches} batches")
+        cube["auto"] = {
+            "decision": decision, "chunks": len(sizes), "seconds": secs,
+            "launches": ran, "bytes": ws.bytes_written,
+            "stages": _reorg_stages(rs, ws),
+            "engine_write": ws.engine, "engine_reason": ws.engine_reason,
+            "read_back": read_back(auto, "Ez", field,
+                                   {"pack_rows": 1} if raw else {})}
+        shutil.rmtree(auto)
+
         # in place: a session opened before the commit refreshes onto it
         second = layouts[REORG_SCHEMES[1]]
         before = Dataset.open(str(dst))
@@ -2062,6 +2123,271 @@ def reorg(torch, dev, K, blocks2d) -> dict:
                              f"{missing}")
     out["launches"] = launches
     return out
+
+
+# -- phase 17 ------------------------------------------------------------------
+
+#: 17a, online reorganization of the WarpX-style output: phase 16's 3-D
+#: component staged for STAGED_STEPS output steps by 2 workers, queue depth
+#: 2, the layout the policy picks with phase 16's history as its prior
+STAGED_STEPS, STAGED_WORKERS, STAGED_DEPTH = 3, 2, 2
+#: 17b, async checkpoints at full width: qwen2.5-3b trained by the Trainer
+#: with an AsyncCheckpointer staging its params (14 f32 leaves, 12.3 GB)
+#: under reorganized (4, 4) after each of ASYNC_SAVES steps.  One worker
+#: and a queue of 1 keep at most 3 snapshots of a leaf (3.25 GB the
+#: largest) and one assembled leaf beside the training step's 63.6 GB
+ASYNC_SAVES, ASYNC_WORKERS, ASYNC_DEPTH = 2, 1, 1
+ASYNC_SCHEME = (4, 4)
+
+
+def _stage_row(r) -> dict:
+    return {"step": r.step, "t_s": r.t_s, "t_w": r.t_w,
+            "bytes": r.bytes_staged, "chunks": r.num_chunks,
+            "engine": r.engine, "engine_reason": r.engine_reason,
+            "stages": {"lower": r.lower_seconds, "kernel": r.kernel_seconds,
+                       "d2h": r.d2h_seconds}, "error": r.error}
+
+
+def _decision(d) -> dict:
+    return {"strategy": d.strategy, "scheme": d.scheme, "codec": d.codec,
+            "reason": d.reason, "scores": d.scores,
+            "num_records": d.num_records,
+            "num_prior_records": d.num_prior_records}
+
+
+def staged(torch, dev, K, direct_s: float, posthoc_s: float) -> dict:
+    """Online reorganization on the card (paper §5, the
+    Strong-Staging-Coupler): phase 16's 3-D component as 1,024 boxes of a
+    field on the card, staged for STAGED_STEPS output steps through
+    ``StagingExecutor(plan="auto")`` with phase 16's history as prior.
+    After each submit the producer advances the field in place on its own
+    stream, so a staged copy that is not a snapshot shows as wrong bytes.
+    Launch counts reset just before the staging and read just after; the
+    §5.2 decision from the measured stage, write and producer times (the
+    direct write and post-hoc reorganize of phase 16); every step read
+    back and held to the field as it was at its submit."""
+    from repro_torch.core import (StagingTimings, simulate_load_balance,
+                                  uniform_grid_blocks)
+    from repro_torch.core.blocks import Block
+    from repro_torch.core.reorg import decide
+    from repro_torch.io import Dataset, StagingExecutor
+    work = ROOT / "build" / "chip_smoke" / "staged"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    field = torch.randn(REORG_FIELD, generator=gen, device=dev)
+    blocks = simulate_load_balance(
+        uniform_grid_blocks(REORG_FIELD, REORG_BOX), num_procs=NPROCS,
+        seed=SEED)
+    boxes = {b.block_id: field[b.slices()] for b in blocks}
+    whole = Block((0, 0, 0), REORG_FIELD)
+    producer = torch.cuda.Stream(dev)
+    producer.wait_stream(torch.cuda.current_stream(dev))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ex = StagingExecutor(str(work), num_workers=STAGED_WORKERS,
+                             queue_depth=STAGED_DEPTH, engine="auto",
+                             prior=str(STAGING_PRIOR), device=dev)
+        decision = ex.decision_for("Ez", blocks, REORG_FIELD)
+        wants, stalls, compute = [], [], []
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(producer):
+            for step in range(STAGED_STEPS):
+                wants.append(field.clone())
+                stalls.append(ex.submit(step, "Ez", np.float32, "auto",
+                                        boxes, blocks=blocks,
+                                        global_shape=REORG_FIELD))
+                # the time step: every box advanced in place
+                t1 = time.perf_counter()
+                field.mul_(0.5).add_(float(step + 1))
+                producer.synchronize()
+                compute.append(time.perf_counter() - t1)
+        results = ex.drain()
+        wall = time.perf_counter() - t0
+        ex.close()
+        launches = {k: K.launch_counts()[k] for k in COPY_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        failed = [r.error for r in results if r.error]
+        if failed or len(results) != STAGED_STEPS:
+            raise AssertionError(f"staging failed: {failed}")
+        if launches["pack_rows"] < STAGED_STEPS:
+            raise AssertionError(f"the staged layout was not assembled on "
+                                 f"the card: launches {launches}")
+        ds = Dataset.open(str(work), device=dev)
+        read_s = []
+        for step, want in enumerate(wants):
+            t1 = time.perf_counter()
+            got, _ = ds.read(f"Ez@{step}", whole)
+            torch.cuda.synchronize()
+            read_s.append(time.perf_counter() - t1)
+            if not torch.equal(got, want):
+                raise AssertionError(f"staged step {step} differs from the "
+                                     f"field at its submit")
+            del got
+        ds.close()
+        rows = [_stage_row(r) for r in results]
+        timings = StagingTimings(
+            t_s=statistics.mean(r.t_s for r in results),
+            t_w_stage=statistics.mean(r.t_w for r in results),
+            t_w_sim=direct_s, t_r_stage=posthoc_s / 2, n=NPROCS,
+            m=STAGED_WORKERS)
+        t_c = statistics.median(compute)
+        rec = decide(timings, t_c, STAGED_STEPS)
+        return {"field": list(REORG_FIELD), "boxes": len(blocks),
+                "steps": STAGED_STEPS, "num_workers": STAGED_WORKERS,
+                "queue_depth": STAGED_DEPTH,
+                "decision": _decision(decision),
+                "per_step": rows, "stalls": stalls,
+                "producer_step_seconds": compute, "wall_seconds": wall,
+                "read_back_seconds": read_s, "launches": launches,
+                "peak_memory_bytes": peak,
+                "recommendation": {
+                    "t_c": t_c, "N": STAGED_STEPS, "mode": rec.mode,
+                    "blocking": rec.blocking,
+                    "breakeven_N": rec.breakeven_N,
+                    "u_on_the_fly": rec.utilization_on_the_fly,
+                    "u_post_hoc": rec.utilization_post_hoc,
+                    "timings": dict(t_s=timings.t_s,
+                                    t_w_stage=timings.t_w_stage,
+                                    t_w_sim=direct_s,
+                                    t_r_stage=timings.t_r_stage,
+                                    n=NPROCS, m=STAGED_WORKERS)},
+                "tolerance": "bit-exact: torch.equal"}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class _HostCopies:
+    """The Trainer's checkpoint manager for phase 17b: a host copy of every
+    leaf at each save (what the staged bytes are held to), then the
+    AsyncCheckpointer's save, timed."""
+
+    def __init__(self, inner):
+        self.inner, self.seen, self.saves = inner, {}, []
+
+    def save(self, step, tree):
+        from repro_torch.checkpoint import flatten_pytree
+        self.seen[step] = {k: v.detach().cpu()
+                           for k, v in flatten_pytree(tree).items()}
+        t0 = time.perf_counter()
+        stall = self.inner.save(step, tree)
+        self.saves.append({"step": step, "stall": stall,
+                           "save_seconds": time.perf_counter() - t0})
+        return stall
+
+
+def async_checkpoints(torch, dev, K, direct_s: float) -> dict:
+    """Async checkpoints at full width: qwen2.5-3b (flash route,
+    ``remat="dots"``) trained for ASYNC_SAVES steps by ``Trainer.run``
+    with an ``AsyncCheckpointer`` (reorganized ASYNC_SCHEME) as its
+    checkpoint manager, saving after every step; launch counts reset just
+    before the run and read after the last staged write.  Every staged
+    leaf is read back and held to a host copy of the params at its step
+    (AdamW updates them in place in the next step).  ``direct_s`` is the
+    synchronous save of the same leaves (phase 15), the recommendation's
+    direct write."""
+    import dataclasses
+    import itertools
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.io import Dataset
+    from repro_torch.core.blocks import Block
+    from repro_torch.models import LM
+    from repro_torch.train import OptimizerConfig, Trainer, adamw_init
+    root = ROOT / "build" / "chip_smoke" / "async"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash=True)
+    model = LM(cfg)
+    params = training_params(model, torch.Generator(device=dev)
+                             .manual_seed(SEED + 17))
+    host_batch = next(SyntheticTokens(PipelineConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+        seed=SEED)))
+    try:
+        ac = AsyncCheckpointer(str(root), reorg_scheme=ASYNC_SCHEME,
+                               num_workers=ASYNC_WORKERS,
+                               queue_depth=ASYNC_DEPTH, engine="auto",
+                               t_w_direct=direct_s, device=dev)
+        witness = _HostCopies(ac)
+        trainer = Trainer(model, OptimizerConfig(**TRAIN_OPT),
+                          itertools.repeat(host_batch), ckpt_manager=witness,
+                          ckpt_every=1)
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, hist = trainer.run(params, opt, ASYNC_SAVES,
+                                        log_every=0)
+        t_run = time.perf_counter() - t0
+        results = ac.finish()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_leaves = sum(1 for t in witness.seen[1].values() if t.dim())
+        del params, opt, trainer, model
+        torch.cuda.empty_cache()
+        failed = [r.error for r in results if r.error]
+        if failed or len(results) != ASYNC_SAVES * n_leaves:
+            raise AssertionError(f"async saves failed: {failed}")
+        if launches["pack_rows"] < len(results):
+            raise AssertionError(f"staged leaves not assembled on the card: "
+                                 f"{launches['pack_rows']} launches for "
+                                 f"{len(results)} leaves")
+        ds = Dataset.open(str(root), device=dev)
+        t1 = time.perf_counter()
+        for step, leaves in witness.seen.items():
+            for name, want in leaves.items():
+                if not want.dim():
+                    continue
+                got, _ = ds.read(f"{name}@{step}",
+                                 Block((0,) * want.dim(), tuple(want.shape)))
+                if not torch.equal(got, want.to(dev)):
+                    raise AssertionError(f"{name}@{step} differs from the "
+                                         f"params at its save")
+                del got
+        read_s = time.perf_counter() - t1
+        ds.close()
+        per_save = []
+        for rec in witness.saves:
+            mine = [r for r in results if r.step == rec["step"]]
+            per_save.append({**rec, "leaves": len(mine),
+                             "t_s": sum(r.t_s for r in mine),
+                             "t_w": sum(r.t_w for r in mine),
+                             "bytes": sum(r.bytes_staged for r in mine),
+                             "chunks": sum(r.num_chunks for r in mine),
+                             "stages": {k: sum(getattr(r, f"{k}_seconds")
+                                               for r in mine)
+                                        for k in ("lower", "kernel", "d2h")},
+                             "engines": sorted({r.engine for r in mine})})
+        steps = [m["step_seconds"] for _, m in hist]
+        t_c = statistics.median(steps)
+        rec = ac.recommendation(t_c, ASYNC_SAVES, ac.timings(results))
+        return {"arch": SERVE_ARCH, "params": sum(
+                    t.numel() for t in witness.seen[1].values()),
+                "leaves": n_leaves, "scheme": list(ASYNC_SCHEME),
+                "saves": ASYNC_SAVES, "num_workers": ASYNC_WORKERS,
+                "queue_depth": ASYNC_DEPTH, "per_save": per_save,
+                "step_seconds": steps, "run_seconds": t_run,
+                "wall_seconds": wall, "read_back_seconds": read_s,
+                "losses": [m["loss"] for _, m in hist],
+                "launches": {k: launches[k] for k in COPY_KERNELS},
+                "flash_launches": {k: n for k, n in launches.items()
+                                   if k.startswith("flash") and n},
+                "peak_memory_bytes": peak,
+                "recommendation": {
+                    "t_c": t_c, "N": ASYNC_SAVES, "mode": rec.mode,
+                    "blocking": rec.blocking,
+                    "breakeven_N": rec.breakeven_N,
+                    "u_on_the_fly": rec.utilization_on_the_fly,
+                    "u_post_hoc": rec.utilization_post_hoc,
+                    "t_w_direct": direct_s},
+                "tolerance": "bit-exact: torch.equal"}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -2186,15 +2512,29 @@ def main() -> int:
     t0 = time.perf_counter()
     reorganized = reorg(torch, dev, K, blocks)
     emit(16, seconds=time.perf_counter() - t0, **reorganized)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cube = reorganized["warpx"]
+    online = staged(torch, dev, K, cube["write_seconds"],
+                    cube["reorganize"]["seconds"])
+    emit("17a", seconds=time.perf_counter() - t0, **online)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    saves = async_checkpoints(torch, dev, K, ckpt["save"]["params_seconds"])
+    emit("17b", seconds=time.perf_counter() - t0, **saves)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    # the copy kernels' launches on their three paths: the slice-1 step
-    # (phase 3), the checkpoint path (phase 15) and the reorganization
-    # path (phase 16)
+    # the copy kernels' launches on their five paths: the slice-1 step
+    # (phase 3), the checkpoint path (phase 15), the reorganization path
+    # (phase 16), the staged output (phase 17a) and the async checkpoints
+    # (phase 17b)
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              "launches": launches[name] + ckpt["launches"][name]
-             + reorganized["launches"][name],
+             + reorganized["launches"][name] + online["launches"][name]
+             + saves["launches"][name],
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

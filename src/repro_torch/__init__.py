@@ -1,5 +1,6 @@
 """PyTorch + CUDA port of the layout-reorganization data path and the
-model stack: serving, training and checkpoints.
+model stack: serving, training, checkpoints, the layout policy and
+staging, and the end-to-end examples.
 
 A package of its own beside the JAX package ``repro``: it imports
 ``torch``, ``numpy`` and the standard library, never ``jax`` or ``repro``,
@@ -15,8 +16,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["checkpoint", "configs", "core", "data", "device", "interop",
-           "io", "kernels", "launch", "models", "serve", "train"]
+__all__ = ["checkpoint", "configs", "core", "data", "device", "examples",
+           "interop", "io", "kernels", "launch", "models", "serve", "train"]
 
 
 def __getattr__(name):

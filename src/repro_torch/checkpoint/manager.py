@@ -11,7 +11,15 @@ the other); the layout strategy is a policy knob:
     chunks on restore);
   * ``merged_node``    — merge across a node group (pod slice);
   * ``reorganized``    — the paper's contribution 2 target layout: regular
-    K-way decomposition, read-optimal for elastic restarts.
+    K-way decomposition, read-optimal for elastic restarts (written post-hoc
+    or on the fly through :mod:`repro_torch.checkpoint.async_ckpt`);
+  * ``auto``           — per-variable layouts chosen by a
+    :class:`~repro_torch.core.policy.LayoutPolicy` from the *restore
+    patterns this manager has observed*: every restore appends pattern
+    fingerprints to ``access_log.json`` at the checkpoint root, and the
+    next ``save`` scores candidate layouts against that history (seeded by
+    a cross-run prior when the root has none); the decisions land in the
+    manifest under ``"policy"``.
 
 **Save** slices each leaf into its blocks as views, on the tensor's device,
 and ``Dataset.write`` assembles the chunks there
@@ -29,11 +37,7 @@ for all of a variable's targets.  Compressed chunks take the host plan and
 one copy a target.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: ``strategy="auto"``, ``layout_policy``,
-``export_prior``, ``policy=`` and ``prior=`` (the layout policy, S2);
-``trace=`` (trace capture, S3); bfloat16 leaves (S9).  The JAX package's
-manager appends a record of every restore to ``access_log.json`` for
-``strategy="auto"``; this one writes none until S2.
+``ROADMAP.md`` item: ``trace=`` (trace capture, S3); bfloat16 leaves (S9).
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ import torch
 
 from ..core.blocks import Block
 from ..core.layouts import plan_layout
+from ..core.policy import (ACCESS_PRIOR_NAME, AccessLog, AccessRecord,
+                           LayoutPolicy)
 from ..device import resolve_device
 from ..interop import to_tensor
 from ..io.device import read_regions, read_route
@@ -61,10 +67,6 @@ __all__ = ["CheckpointManager", "SaveStats", "RestoreStats",
            "ACCESS_PRIOR_NAME"]
 
 MANIFEST = "manifest.json"
-#: the file a run root exports its restore history to (a cross-run prior)
-ACCESS_PRIOR_NAME = "access_prior.json"
-
-_S2 = "the layout policy (S2 in ROADMAP.md queue 1)"
 
 
 def _waits(what: str, item: str) -> NotImplementedError:
@@ -118,21 +120,20 @@ class RestoreStats(ReadStats):
 
 class CheckpointManager:
     """The JAX package's constructor plus ``device`` (where restores land;
-    ``"cuda"`` unless ``"cpu"`` is asked for).  ``auto_prior`` and
-    ``clock`` are taken for the same signature: they stamp restore records
-    and pick the prior that ``strategy="auto"`` consults, which wait for
-    S2, and have no effect here."""
+    ``"cuda"`` unless ``"cpu"`` is asked for).  ``clock`` stamps the
+    restore records and is the ``auto`` save decision's recency reference;
+    ``prior`` (a previous run's root or exported prior) seeds
+    ``strategy="auto"`` until this root has restore telemetry of its own,
+    and with ``auto_prior`` and no ``prior`` the freshest sibling root's
+    exported prior (:meth:`discover_prior`) does."""
 
     def __init__(self, root: str, strategy: str = "merged_process",
                  devices_per_host: int = 4, hosts_per_node: int = 1,
                  keep: int = 3, reorg_scheme=None, align=None,
-                 engine: str | IOEngine = "memmap", policy=None,
+                 engine: str | IOEngine = "memmap",
+                 policy: LayoutPolicy | None = None,
                  prior: str | None = None, auto_prior: bool = True,
                  clock=None, trace=None, device="cuda"):
-        if strategy == "auto":
-            raise _waits('strategy="auto"', _S2)
-        if policy is not None or prior is not None:
-            raise _waits("a layout policy or a cross-run prior", _S2)
         if trace is not None:
             raise _waits("trace=", "trace capture (S3 in ROADMAP.md "
                          "queue 1)")
@@ -145,7 +146,14 @@ class CheckpointManager:
         self.reorg_scheme = reorg_scheme
         self.align = align
         self.engine = engine
+        self._clock = clock if clock is not None else time.time
         os.makedirs(root, exist_ok=True)
+        #: restore-pattern history, shared across steps (checkpoint root);
+        #: appends are batched and flushed once at the end of every restore
+        self.access_log = AccessLog(root, flush_every=16, clock=clock)
+        self.prior = prior
+        self.auto_prior = auto_prior
+        self._policy = policy
 
     def discover_prior(self) -> str | None:
         """The newest ``access_prior.json`` exported by any *sibling* run
@@ -172,11 +180,27 @@ class CheckpointManager:
                 best = (mt, p)
         return best[1] if best else None
 
-    def layout_policy(self, prior: str | None = None):
-        raise _waits("layout_policy", _S2)
+    def layout_policy(self, prior: str | None = None) -> LayoutPolicy:
+        """The policy ``strategy="auto"`` consults — over this manager's
+        own restore-pattern log unless one was injected, seeded with
+        ``prior`` (or the manager-level one, or the freshest sibling-run
+        prior :meth:`discover_prior` finds) when available."""
+        if self._policy is None:
+            self._policy = LayoutPolicy(log=self.access_log)
+            src = self.prior
+            if src is None and self.auto_prior:
+                src = self.discover_prior()
+            if src is not None:
+                self._policy = self._policy.with_prior(src)
+        pol = self._policy
+        if prior is not None:
+            pol = pol.with_prior(prior)
+        return pol
 
     def export_prior(self, path: str | None = None) -> str:
-        raise _waits("export_prior", _S2)
+        """Snapshot this root's restore-pattern history as a cross-run
+        prior a future run can pass as ``prior=``."""
+        return self.access_log.export_prior(path)
 
     # -- paths ---------------------------------------------------------------
     def step_dir(self, step: int) -> str:
@@ -197,17 +221,19 @@ class CheckpointManager:
         state), on the card or the CPU.  ``shardings``: a matching tree of
         :class:`~repro_torch.checkpoint.blocks_map.MeshSharding` (or None:
         one block a leaf).  ``block_map``: explicit name->blocks override
-        (tests / simulated hosts)."""
-        if prior is not None:
-            raise _waits("a cross-run prior", _S2)
+        (tests / simulated hosts).  ``prior``: seed this save's
+        ``strategy="auto"`` decisions from a previous run's restore
+        history (per-call override of the manager-level ``prior=``)."""
         t0 = time.perf_counter()
         d = self.step_dir(step)
         flat = flatten_pytree(tree)
         flat_sh = flatten_pytree(shardings) if shardings is not None else {}
-        ds = Dataset.create(d, engine=self.engine, device=self.device)
+        ds = Dataset.create(d, engine=self.engine, clock=self._clock,
+                            device=self.device)
         stats = SaveStats(step=step, seconds=0.0, bytes=0, num_chunks=0,
                           num_original_blocks=0, per_var_seconds={})
         scalars = {}
+        policy_info = {}
         for name, t in flat.items():
             if not isinstance(t, torch.Tensor):
                 raise TypeError(f"leaf {name!r} is a {type(t).__name__}, "
@@ -227,14 +253,25 @@ class CheckpointManager:
                 blocks = [Block((0,) * t.dim(), shape, owner=0, block_id=0)]
             hosts = max(b.owner for b in blocks) + 1
             data = {b.block_id: t[b.slices()] for b in blocks}
-            scheme = None
-            if self.strategy == "reorganized" and \
-                    self.reorg_scheme is not None:
-                scheme = (tuple(self.reorg_scheme[:t.dim()])
-                          + (1,) * max(0, t.dim() - len(self.reorg_scheme)))
-            plan = plan_layout(self.strategy, blocks, num_procs=hosts,
-                               procs_per_node=self.hosts_per_node,
-                               global_shape=shape, reorg_scheme=scheme)
+            if self.strategy == "auto":
+                # a save stages from memory: no gather term, only the
+                # write-side build cost vs the expected restore mix
+                decision = self.layout_policy(prior).choose_layout(
+                    name, blocks, shape, num_procs=hosts,
+                    procs_per_node=self.hosts_per_node, align=self.align,
+                    now=self._clock())
+                plan = decision.layout
+                policy_info[name] = decision.to_json()
+            else:
+                scheme = None
+                if self.strategy == "reorganized" and \
+                        self.reorg_scheme is not None:
+                    scheme = (tuple(self.reorg_scheme[:t.dim()])
+                              + (1,) * max(0, t.dim()
+                                           - len(self.reorg_scheme)))
+                plan = plan_layout(self.strategy, blocks, num_procs=hosts,
+                                   procs_per_node=self.hosts_per_node,
+                                   global_shape=shape, reorg_scheme=scheme)
             # index.json is re-committed per variable, so a crash mid-save
             # leaves a readable prefix of the checkpoint
             ws = ds.write(name, plan, dtype, data, align=self.align)
@@ -252,6 +289,8 @@ class CheckpointManager:
         manifest = {"step": step, "strategy": self.strategy,
                     "scalars": scalars,
                     "variables": sorted(k for k in flat if k not in scalars)}
+        if policy_info:
+            manifest["policy"] = policy_info
         with open(os.path.join(d, MANIFEST), "w") as f:
             json.dump(manifest, f)
         self._retain()
@@ -271,7 +310,15 @@ class CheckpointManager:
         names a new decomposition — elastic restart) on the manager's
         device.  Returns (tree_or_flat, RestoreStats); a variable named in
         ``target_blocks`` comes back as ``{block_id: tensor}``, a scalar as
-        a 0-d tensor of its stored dtype."""
+        a 0-d tensor of its stored dtype.
+
+        Every read is appended to the root's ``access_log.json`` (the
+        history ``strategy="auto"`` saves consult) as the JAX package's
+        manager appends it: one record a whole variable, one a target
+        block, each with its bytes and the engine that ran.  A whole
+        variable's record carries its read's runs, groups and seconds; a
+        target's, its own read plan's runs and groups and the gather's
+        seconds shared by bytes."""
         d = self.step_dir(step)
         with open(os.path.join(d, MANIFEST)) as f:
             manifest = json.load(f)
@@ -280,7 +327,8 @@ class CheckpointManager:
         ds = None
         if manifest["variables"]:
             ds = Dataset.open(d, engine=engine if engine is not None
-                              else self.engine, device=self.device)
+                              else self.engine, telemetry=False,
+                              device=self.device)
         for name in manifest["variables"]:
             if ds.index.variables[name]["dtype"] == "bfloat16":
                 raise _bf16()
@@ -292,11 +340,14 @@ class CheckpointManager:
             else:
                 flat[name], vstats = ds.read(name, full, engine=engine)
             vstats.seconds += vstats.probe_seconds + vstats.plan_seconds
+            if not (target_blocks and name in target_blocks):
+                self._record_restore(name, full, shape, vstats)
             agg.merge(vstats)
             agg.seconds += vstats.seconds
             agg.per_var[name] = vstats
         if ds is not None:
             ds.close()
+        self.access_log.flush()
         for name, rec in manifest["scalars"].items():
             if rec["dtype"] == "bfloat16":
                 raise _bf16()
@@ -311,20 +362,22 @@ class CheckpointManager:
                       regions: list, engine) -> tuple:
         """``{block_id: tensor}`` for the target blocks of one variable,
         from one shared probe of its index: raw chunks through the region
-        route, compressed ones through the host plan, one copy a target."""
+        route, compressed ones through the host plan, one copy a target.
+        Each target's read is recorded in the access log."""
         tp = time.perf_counter()
         cand = ds.index.spatial_index(name).query(full.lo, full.hi)
         probe = time.perf_counter() - tp
+        plans = [ds.plan_read(name, b, candidates=cand) for b in regions]
         got = None
         if read_route(ds.index, name, full) is not None:
             got = read_regions(ds, name, regions, self.device,
-                               engine=engine, candidates=cand)
+                               engine=engine, plans=plans)
         if got is None:
             tensors, st = [], ReadStats()
-            for b in regions:
-                arr, s = ds.read_planned(ds.plan_read(name, b,
-                                                      candidates=cand),
-                                         engine=engine)
+            for b, plan in zip(regions, plans):
+                arr, s = ds.read_planned(plan, engine=engine)
+                self._record_restore(name, b, full.shape, dataclasses.replace(
+                    s, seconds=s.seconds + s.probe_seconds + s.plan_seconds))
                 st.merge(s)
                 st.seconds += s.seconds
                 t1 = time.perf_counter()
@@ -332,8 +385,28 @@ class CheckpointManager:
                 st.h2d_seconds += time.perf_counter() - t1
         else:
             tensors, st = got
+            seconds = st.seconds + st.probe_seconds + probe + st.plan_seconds
+            total = max(1, sum(int(p.bytes_needed) for p in plans))
+            for b, plan in zip(regions, plans):
+                share = plan.bytes_needed / total
+                self._record_restore(name, b, full.shape, ReadStats(
+                    seconds=seconds * share, bytes_read=plan.bytes_needed,
+                    runs=plan.runs, groups=plan.num_groups,
+                    engine=st.engine,
+                    predicted_seconds=st.predicted_seconds * share))
         st.probe_seconds += probe
         return {b.block_id: t for b, t in zip(regions, tensors)}, st
+
+    def _record_restore(self, name: str, region: Block, shape,
+                        st: ReadStats) -> None:
+        """Feed one restore read back into the root's access log.
+        Telemetry never breaks a restore."""
+        try:
+            self.access_log.append(
+                AccessRecord.from_stats(name, "restore", region, shape, st,
+                                        ts=self._clock()))
+        except Exception:               # noqa: BLE001 — telemetry only
+            pass
 
     def restore_latest(self, template=None):
         steps = self.steps()

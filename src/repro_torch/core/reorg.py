@@ -1,19 +1,18 @@
 """Online data-layout reorganization policy (paper §5) — thin wrappers.
 
 :mod:`repro_torch.core.cost_model` (:func:`~repro_torch.core.cost_model.
-recommend`) chooses *when to reorganize* — on-the-fly vs post-hoc; the
-layout policy, which chooses *what layout* from the observed access mix, is
-not ported yet (S2 in ``ROADMAP.md`` queue 1).  A copy of the JAX
-package's module:
+recommend`) chooses *when to reorganize* — on-the-fly vs post-hoc;
+:class:`~repro_torch.core.policy.LayoutPolicy` chooses *what layout* from
+the observed access mix.  A copy of the JAX package's module:
 
-  * on-the-fly: a staging executor consumes the plans produced here while
-    the producer keeps computing;
+  * on-the-fly: :class:`repro_torch.io.staging.StagingExecutor` consumes
+    the plans produced here while the producer keeps computing;
   * post-hoc: :func:`repro_torch.io.reorganize` reads a written dataset
     back — gathering every new chunk on the card — and re-writes it with
     the reorganized plan.
 
-:func:`decide` answers, per run, the paper's "should I spend 1% extra nodes
-on staging" question.
+:mod:`repro_torch.checkpoint.async_ckpt` calls :func:`decide` to answer,
+per run, the paper's "should I spend 1% extra nodes on staging" question.
 """
 
 from __future__ import annotations
@@ -49,8 +48,8 @@ def plan_reorganization(blocks: Sequence[Block],
     (:func:`~repro_torch.core.layouts.default_reorg_scheme`) — 4x4x4 for 3-D
     variables, rank-matched factorizations otherwise; the historical fixed
     ``(4, 4, 4)`` silently mismatched 2-D/4-D variables.  For a scheme
-    derived from *observed* access patterns, the layout policy (S2) will
-    choose one.
+    derived from *observed* access patterns, use
+    :meth:`repro_torch.core.policy.LayoutPolicy.choose_layout`.
     """
     return plan_layout("reorganized", blocks, num_procs=0,
                        global_shape=global_shape, reorg_scheme=scheme,

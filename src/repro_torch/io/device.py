@@ -9,17 +9,19 @@ when the data are tensors):
   runs ``pack_rows`` from the blocks into the row-major field, then
   ``rowmajor_to_chunked``: chunk ``(i, j)`` is then one contiguous slice.
   This holds whether or not the chunk edges fall on block edges;
-* any other layout whose every chunk is tiled exactly by its own sources
-  (``merged_process``, ``merged_node``, ``chunked``, ``subfiled_*``) becomes
-  one :class:`~repro_torch.core.merge.MergePlan` with each chunk a cluster
-  and its sources the members — the layout's own clustering, never a new
-  one — lowered to row tables and run as ONE ``pack_rows`` launch over all
-  writers' chunks;
-* any other layout (uneven grids, partial coverage) is assembled on the
-  host from the blocks' bytes.
+* any other layout, at any rank, fills each chunk from its sources'
+  intersections (:func:`~repro_torch.kernels.ref.chunk_row_tables`,
+  lowered once a layout by the session's :class:`LayoutTables`): ONE
+  ``pack_rows`` launch over all chunks of the write.  Rows of a chunk no
+  source covers are zero;
+* what is left for the host (the blocks' bytes, then the JAX package's
+  ``assemble_chunk``) is a layout in which two sources of one chunk
+  overlap: there the reference's source order decides which bytes win.
 
-The assembled chunks then cross to pinned host memory in one copy, and the
-engine writes them as the JAX package would: same bytes, same index.
+The blocks enter the kernel flat, back to back; a lone contiguous source
+(an unsharded checkpoint leaf) enters as it is, uncopied.  The assembled
+chunks then cross to pinned host memory in one copy, and the engine writes
+them as the JAX package would: same bytes, same index.
 
 **Read** (:func:`read_linearized`, for ``Dataset.read`` of a whole
 variable): the engine reads every stored extent into one pinned flat
@@ -39,12 +41,16 @@ which crosses to the card in one copy, and ONE ``pack_rows`` launch
 gathers every target.  Compressed chunks take the host ``read_planned``
 followed by one copy to the device.
 
-**Staging.** Every copy between the host and the card passes through the
-session's :class:`PinnedStaging`: one grow-only pinned buffer, of which
-each call takes a view.  Each copy through it is synchronous, so the view
-is free again when the call returns; a write's view is handed to the
-engine and the checksums, and the session takes no other view before
-``write_planned`` returns.
+**Threads and streams.** Every copy between the host and the card passes
+through the session's :class:`PinnedStaging`, which keeps one grow-only
+pinned buffer for each thread that copies (a staging worker, a reader), so
+no view is ever shared across threads.  Each copy through it is
+synchronous, so a thread's view is free again when its call returns; a
+write's view is handed to the engine and the checksums, and that thread
+takes no other view before ``write_planned`` returns.  Device work runs on
+the calling thread's current stream, and every wait here is on that
+stream (:func:`_sync`), never on the whole device: a staging worker on its
+own stream does not wait for the producer's kernels.
 
 The route depends only on the layout and the region — never on a failure:
 a kernel that fails raises.  Tensors on the CPU take the same route, with
@@ -53,7 +59,9 @@ the kernels' plain versions, which is how the tests cover this module.
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from typing import Mapping
 
 import numpy as np
@@ -65,13 +73,15 @@ from ..core.layouts import LayoutPlan
 from ..core.merge import plan_from_clusters
 from ..interop import to_numpy
 from ..kernels.ops import pack_tables
-from ..kernels.ref import plan_row_tables, region_row_tables
+from ..kernels.ref import (chunk_row_tables, plan_row_tables,
+                           region_row_tables)
 from ..kernels.relayout import chunked_to_rowmajor, rowmajor_to_chunked
 from .engine import assemble_chunk
 from .format import DatasetIndex
 from .planner import build_read_plan, build_span_plan
 
-__all__ = ["PinnedStaging", "GATHER_BATCH_BYTES", "assemble_chunks",
+__all__ = ["PinnedStaging", "LayoutTables", "GATHER_BATCH_BYTES",
+           "assemble_chunks",
            "read_route", "read_linearized", "read_regions", "gather_regions",
            "gather_batches", "to_host"]
 
@@ -102,24 +112,37 @@ def gather_batches(layout: LayoutPlan, itemsize: int) -> list:
 
 
 class PinnedStaging:
-    """A session's one grow-only pinned host buffer, through which its
-    copies between the host and the card pass (pinned memory is slow to
-    allocate: tens of milliseconds for tens of MB).  :meth:`take` hands out
-    a view of its first ``nbytes``; the view is valid until the next
-    :meth:`take`."""
+    """A session's grow-only pinned host buffers, one for each thread that
+    copies between the host and the card (pinned memory is slow to
+    allocate: tens of milliseconds for tens of MB).  :meth:`take` hands the
+    calling thread a view of the first ``nbytes`` of its own buffer; the
+    view is valid until that thread's next :meth:`take`."""
 
     def __init__(self):
-        self._buf: torch.Tensor | None = None
+        self._bufs: dict = {}                 # thread ident -> buffer
+        self._lock = threading.Lock()
 
     def take(self, nbytes: int) -> torch.Tensor:
-        if self._buf is None or self._buf.numel() < nbytes:
-            self._buf = None                  # free before growing
-            self._buf = torch.empty(nbytes, dtype=torch.uint8,
-                                    pin_memory=True)
-        return self._buf[:nbytes]
+        key = threading.get_ident()
+        with self._lock:
+            buf = self._bufs.get(key)
+            if buf is not None and buf.numel() < nbytes:
+                del self._bufs[key]           # free before growing
+                buf = None
+        if buf is None:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            with self._lock:
+                self._bufs[key] = buf
+        return buf[:nbytes]
+
+    def buffer(self) -> torch.Tensor | None:
+        """The calling thread's buffer (None before its first take)."""
+        with self._lock:
+            return self._bufs.get(threading.get_ident())
 
     def release(self) -> None:
-        self._buf = None
+        with self._lock:
+            self._bufs.clear()
 
 
 def _host_bytes(nbytes: int, device: torch.device,
@@ -156,6 +179,12 @@ def _grid(shape: tuple, los: np.ndarray, his: np.ndarray):
     return ch, cw
 
 
+def _row_counts(dst_rows: np.ndarray, n: int) -> np.ndarray:
+    """How many table entries name each of the ``n`` destination rows (the
+    rows lie in ``[0, n)``, as ``pack_tables`` checks)."""
+    return np.bincount(dst_rows, minlength=n) if n else np.zeros(0, np.int64)
+
+
 def _lower(plan):
     """Row tables of ``plan``, or None unless its destination rows are
     covered exactly once (the sources tile the clusters): ``pack_tables``
@@ -163,15 +192,40 @@ def _lower(plan):
     tables = plan_row_tables(plan)
     width, _, dst_rows, total, _ = tables
     n = total // width
-    if len(dst_rows) != n or np.unique(dst_rows).size != n or \
-            (n and (dst_rows.min() < 0 or dst_rows.max() >= n)):
+    if len(dst_rows) != n or \
+            (n and (dst_rows.min() < 0 or dst_rows.max() >= n)) or \
+            (n and _row_counts(dst_rows, n).max() != 1):
         return None
     return tables
 
 
+class LayoutTables:
+    """A session's row tables of the layouts it writes
+    (:func:`~repro_torch.kernels.ref.chunk_row_tables` and each
+    destination row's count), lowered once a layout while the layout lives:
+    a staging executor writes the same layout every output step.
+    Thread-safe; concurrent writers of one layout share one lowering."""
+
+    def __init__(self):
+        self._tables = weakref.WeakKeyDictionary()
+        self._lock = threading.Lock()
+
+    def get(self, layout: LayoutPlan) -> tuple:
+        with self._lock:
+            got = self._tables.get(layout)
+            if got is None:
+                tables = chunk_row_tables(layout)
+                width, _, dst_rows, total, _ = tables
+                got = self._tables[layout] = (
+                    tables, _row_counts(dst_rows, total // width))
+            return got
+
+
 def _sync(dev: torch.device) -> None:
+    """Wait for the calling thread's current stream on ``dev`` (never the
+    whole device)."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def to_host(flat: torch.Tensor,
@@ -187,12 +241,28 @@ def to_host(flat: torch.Tensor,
     return host.numpy()
 
 
+def _flat_sources(ts: list) -> torch.Tensor:
+    """The tensors ``ts`` flat, back to back: a view when they already lie
+    so in one tensor's memory (a lone contiguous block, or a staging
+    snapshot), else one copy."""
+    first = ts[0]
+    ptr, nb = first.data_ptr(), first.element_size()
+    base = first.untyped_storage().data_ptr()
+    for t in ts:
+        if not t.is_contiguous() or t.data_ptr() != ptr \
+                or t.untyped_storage().data_ptr() != base:
+            return torch.cat([t.reshape(-1) for t in ts])
+        ptr += t.numel() * nb
+    return first.as_strided((sum(t.numel() for t in ts),), (1,))
+
+
 def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
-                    dtype, staging: PinnedStaging | None = None) -> tuple:
+                    dtype, staging: PinnedStaging | None = None,
+                    lowered: LayoutTables | None = None) -> tuple:
     """The chunk buffers of ``layout`` (host ndarrays, ``layout.chunks``
     order; views of ``staging`` on the device route) from block tensors,
     and the stage times ``{"lower", "kernel", "d2h"}`` of the device route
-    ({} on the host route)."""
+    ({} on the host route).  ``lowered``: the session's lowered layouts."""
     dtype = np.dtype(dtype)
     want = _torch_dtype(dtype)
     sources = {s.block_id: s for cp in layout.chunks for s in cp.sources}
@@ -217,26 +287,29 @@ def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
     grid = _grid(tuple(shape), los, his)
     if grid is not None and all(domain.contains(b)
                                 for b in sources.values()):
-        blocks = tuple(sources[b] for b in sorted(sources))
-        tables = _lower(plan_from_clusters([Cluster(domain, blocks)]))
+        order = sorted(sources)
+        tables = _lower(plan_from_clusters(
+            [Cluster(domain, tuple(sources[b] for b in order))]))
+        covered = True
         ch, cw = grid
         n_j = shape[1] // cw
         offsets = ((los[:, 0] // ch) * n_j + los[:, 1] // cw) * ch * cw
-    elif all(cp.chunk.contains(s) for cp in layout.chunks
-             for s in cp.sources):
-        grid = None
-        tables = _lower(plan_from_clusters(
-            [Cluster(cp.chunk, tuple(cp.sources)) for cp in layout.chunks]))
-        offsets = np.cumsum(np.prod(his - los, axis=1)) - \
-            np.prod(his - los, axis=1)
     if tables is None:
-        host = {bid: to_numpy(data[bid]) for bid in sources}
-        return [assemble_chunk(cp, host, dtype) for cp in layout.chunks], {}
+        grid = None
+        tables, counts = (lowered or LayoutTables()).get(layout)
+        order = tables[4]
+        if counts.size and counts.max() > 1:
+            host = {bid: to_numpy(data[bid]) for bid in sources}
+            return [assemble_chunk(cp, host, dtype)
+                    for cp in layout.chunks], {}
+        covered = bool(counts.size) and counts.min() == 1
+        vol = np.prod(his - los, axis=1)
+        offsets = np.cumsum(vol) - vol
     t1 = time.perf_counter()
 
-    flat = pack_tables(torch.cat([data[b].reshape(-1)
-                                  for b in sorted(sources)]), tables,
-                       _covered=True)
+    flat_src = _flat_sources([data[b] for b in order])
+    flat = pack_tables(flat_src, tables, _covered=covered)
+    del flat_src                  # a copy of the blocks goes back at once
     if grid is not None:
         flat = rowmajor_to_chunked(flat.view(tuple(shape)),
                                    chunk=grid).reshape(-1)
@@ -319,7 +392,7 @@ def read_linearized(ds, var: str, route, device: torch.device,
 
 
 def read_regions(ds, var: str, regions, device: torch.device, engine=None,
-                 candidates: np.ndarray | None = None):
+                 candidates: np.ndarray | None = None, plans=None):
     """Read ``regions`` of ``var`` (raw chunks) onto ``device`` through one
     engine read, one copy to the device and one ``pack_rows`` launch
     (:func:`gather_regions`).  Returns ``([tensor per region],
@@ -327,7 +400,7 @@ def read_regions(ds, var: str, regions, device: torch.device, engine=None,
     stored chunks overlap (a destination row named twice: the host plan
     decides which bytes win)."""
     got = gather_regions(ds, var, regions, device, engine=engine,
-                         candidates=candidates)
+                         candidates=candidates, plans=plans)
     if got is None:
         return None
     out, stats = got
@@ -339,7 +412,8 @@ def read_regions(ds, var: str, regions, device: torch.device, engine=None,
 
 
 def gather_regions(ds, var: str, regions, device: torch.device,
-                   engine=None, candidates: np.ndarray | None = None):
+                   engine=None, candidates: np.ndarray | None = None,
+                   plans=None):
     """:func:`read_regions`' gather: ``(flat, ReadStats)`` with ``flat``
     the regions row-major, back to back in ``regions`` order, on
     ``device``; or None when stored chunks overlap.
@@ -350,12 +424,14 @@ def gather_regions(ds, var: str, regions, device: torch.device,
     plans' (summed over the regions); ``runs`` and ``groups`` are this
     route's own: the span plan's extents, each read once.  Output rows no
     stored chunk covers are zero (``pack_tables`` fills the output unless
-    every row is covered).  ``seconds`` is the engine's."""
+    every row is covered).  ``seconds`` is the engine's.  ``plans``: the
+    regions' read plans, when the caller built them already."""
     t0 = time.perf_counter()
     index = ds.index
     dtype = index.var_dtype(var)
-    plans = [build_read_plan(index, var, r, candidates=candidates)
-             for r in regions]
+    if plans is None:
+        plans = [build_read_plan(index, var, r, candidates=candidates)
+                 for r in regions]
     tables = region_row_tables(plans)
     width, _, dst_rows, total, (subf, file_lo, file_hi) = tables
     n = total // width

@@ -8,7 +8,7 @@ of patterns" loop.
 A *mix* is a sequence of ``(pattern_name, weight)`` pairs (weights are
 relative; they need not sum to anything).  ``drive_pattern_mix`` makes
 weight-proportional real reads (populating the dataset's access log — the
-telemetry the layout policy learns from, once it is ported: S2);
+telemetry the layout policy learns from);
 ``measure_pattern_mix`` times the same mix best-of-``repeats`` and returns
 the weighted read seconds, which is how the layout-policy benchmark compares
 candidate layouts on equal terms.
@@ -66,7 +66,7 @@ def drive_pattern_mix(ds, var: str, mix, *, rounds: int = 1,
                       engine=None) -> dict:
     """Make real ``Dataset.read`` calls in proportion to the mix weights
     (``rounds`` x :func:`mix_counts` reads per pattern) so the dataset's
-    access log (S2) observes the mix; each read returns a tensor on the
+    access log observes the mix; each read returns a tensor on the
     session's device.  Returns ``{pattern: merged ReadStats}``."""
     shape = ds.index.var_shape(var)
     out: dict = {}

@@ -21,7 +21,13 @@ format (a directory either package wrote opens under the other):
   in one gather on the card.
 * **reorganize** — :func:`reorganize` gathers every chunk of a new layout
   on the card and writes them as the reference's post-hoc reorganization
-  does (paper §5.1), out of place or in place.
+  does (paper §5.1), out of place or in place; ``layout="auto"`` asks the
+  :class:`~repro_torch.core.policy.LayoutPolicy` built from the source's
+  ``access_log.json`` which layout (and codec) the observed mix favors.
+* **telemetry** — ``read`` / ``read_decomposed`` / ``read_pattern``
+  append one pattern fingerprint each to ``access_log.json`` next to
+  ``index.json`` (:class:`~repro_torch.core.policy.AccessLog`), stamped by
+  the session's ``clock``; ``telemetry=False`` turns it off.
 
 Engines are interchangeable per session or per call, and ``engine="auto"``
 defers the choice to plan-execution time: the session loads (or
@@ -33,12 +39,8 @@ depth from the shape of the plan it executes.  The decision is recorded in
 ``predicted_seconds``); after persistently divergent auto plans the
 calibration is dropped and re-probed (recalibrate-on-drift).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: the access log and ``reorganize``'s ``layout="auto"``,
-``policy=``, ``prior=``, ``expected_reads=`` and ``now=`` (the layout
-policy, S2); ``trace=`` (trace capture, S3).  ``telemetry=`` and
-``clock=`` are accepted for the reference's signature; the access log (S2)
-is what reads them.
+Not ported yet: ``reorganize``'s ``trace=`` raises ``NotImplementedError``
+naming trace capture (S3 in ``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -59,12 +61,13 @@ from ..core.cost_model import (CalibrationDrift, EngineCalibration,
                                invalidate_calibration, observe_reorg_overhead,
                                storage_calibration)
 from ..core.layouts import ChunkPlan, LayoutPlan
+from ..core.policy import AccessLog, AccessRecord, LayoutPolicy
 from ..core.read_patterns import best_decompositions, decompose_region
 from ..device import resolve_device
 from ..interop import to_numpy
-from .device import (PinnedStaging, assemble_chunks, gather_batches,
-                     gather_regions, read_linearized, read_regions,
-                     read_route, to_host)
+from .device import (LayoutTables, PinnedStaging, _sync, assemble_chunks,
+                     gather_batches, gather_regions, read_linearized,
+                     read_regions, read_route, to_host)
 from .engine import (IOEngine, SubfileStore, WriteStats, assemble_chunk,
                      resolve_engine)
 from .format import ChunkRecord, DatasetIndex, INDEX_NAME, extent_checksum
@@ -72,15 +75,9 @@ from .patterns import resolve_pattern
 from .planner import (ReadPlan, WritePlan, build_read_plan, build_write_plan,
                       subset_write_plan)
 
-__all__ = ["ReadStats", "Dataset", "reorganize"]
+__all__ = ["ReadStats", "Dataset", "reorganize", "choose_reorg_layout"]
 
-_S2 = "the layout policy (S2 in ROADMAP.md queue 1)"
 _S3 = "trace capture and replay (S3 in ROADMAP.md queue 1)"
-
-
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it waits for "
-                               f"{item}")
 
 
 @dataclasses.dataclass
@@ -151,9 +148,9 @@ class Dataset:
     persisted on first use; ``calibration`` injects one, which drift never
     drops).  ``index`` starts the session on an in-memory index, which it
     never refreshes.  ``device`` is where :meth:`read` returns tensors:
-    ``"cuda"`` unless ``"cpu"`` is asked for.  ``telemetry`` and ``clock``
-    are the reference's signature; the access log that reads them waits
-    for S2.
+    ``"cuda"`` unless ``"cpu"`` is asked for.  ``telemetry=False`` turns
+    off the access-log appends; ``clock`` stamps the access records (and
+    the log's TTL check).
     """
 
     def __init__(self, dirpath: str, engine: str | IOEngine = "memmap", *,
@@ -171,6 +168,9 @@ class Dataset:
         self._drift_enabled = calibration is None
         self._drift = CalibrationDrift()
         self._drift_lock = threading.Lock()
+        self._telemetry = telemetry
+        self._clock = clock if clock is not None else time.time
+        self._access_log: AccessLog | None = None
         self._index_stat = None
         if index is not None:
             self.index = index
@@ -188,7 +188,9 @@ class Dataset:
         self._lock = threading.Lock()     # index mutation + append cursor
         self._cal_lock = threading.Lock()  # one probe even with many workers
         self._cursor: dict | None = None  # subfile -> first free byte
-        self._staging = PinnedStaging()   # copies to and from the card
+        self._staging = PinnedStaging()   # copies to and from the card,
+        #                                   one pinned buffer a thread
+        self._tables = LayoutTables()     # lowered layouts, while they live
 
     # -- session management --------------------------------------------------
     @classmethod
@@ -261,6 +263,31 @@ class Dataset:
                     self._calibration = storage_calibration(self.dirpath)
         return self._calibration
 
+    @property
+    def access_log(self) -> AccessLog:
+        """The dataset's persistent access log (``access_log.json``) — the
+        pattern history :class:`~repro_torch.core.policy.LayoutPolicy`
+        scores candidate layouts against.  Appends are batched;
+        :meth:`flush` / :meth:`close` drain the buffer."""
+        if self._access_log is None:
+            self._access_log = AccessLog(self.dirpath, flush_every=8,
+                                         clock=self._clock)
+        return self._access_log
+
+    def _record_access(self, var: str, region: Block, stats: "ReadStats",
+                       kind: str = "read", tenant: str = "") -> None:
+        """Append one pattern fingerprint; telemetry never breaks a read.
+        The record's ``runs``/``groups`` are the executed route's own (see
+        :class:`ReadStats`)."""
+        if not self._telemetry:
+            return
+        try:
+            self.access_log.append(AccessRecord.from_stats(
+                var, kind, region, self.index.var_shape(var), stats,
+                tenant=tenant, ts=self._clock()))
+        except Exception:               # noqa: BLE001 — telemetry only
+            pass
+
     def _note_drift(self, choice: EngineChoice | None,
                     measured_seconds: float) -> None:
         """Recalibrate-on-drift: after persistently divergent auto plans,
@@ -306,10 +333,15 @@ class Dataset:
         return self._engine, None, self._fallback_reason or "pinned"
 
     def flush(self) -> None:
-        """Persist ``index.json`` (atomic replace)."""
+        """Persist ``index.json`` (atomic replace) and any buffered
+        access-log records."""
         self.index.save(self.dirpath)
+        if self._access_log is not None:
+            self._access_log.flush()
 
     def close(self) -> None:
+        if self._access_log is not None:
+            self._access_log.flush()
         self._store.close()
         self._staging.release()
 
@@ -346,7 +378,8 @@ class Dataset:
         views of the session's pinned staging buffer), else on the
         host."""
         if any(isinstance(v, torch.Tensor) for v in data.values()):
-            return assemble_chunks(layout, data, dtype, self._staging)
+            return assemble_chunks(layout, data, dtype, self._staging,
+                                   self._tables)
         return [assemble_chunk(cp, data, dtype) for cp in layout.chunks], {}
 
     def write_planned(self, plan: WritePlan, data: Mapping, *,
@@ -521,8 +554,16 @@ class Dataset:
         part of the variable) reads each touched extent's needed bytes
         once, copies them to the device once and gathers the region with
         one ``pack_rows`` launch.  Compressed chunks take the host plan and
-        one copy of the result (see :mod:`repro_torch.io.device`).
+        one copy of the result (see :mod:`repro_torch.io.device`).  The
+        read is appended to the access log.
         """
+        out, stats = self._read(var, region, candidates, engine, device)
+        self._record_access(var, region, stats)
+        return out, stats
+
+    def _read(self, var: str, region: Block, candidates, engine,
+              device=None) -> tuple:
+        """:meth:`read` without the access record."""
         dev = self.device if device is None else resolve_device(device)
         route = read_route(self.index, var, region) if candidates is None \
             else None
@@ -560,9 +601,9 @@ class Dataset:
         ``chunks_touched`` are the reference's (the sub-plans' sums);
         ``runs`` and ``groups`` are the gather's own.  Compressed or
         overlapping chunks take the host plan a reader, each result copied
-        to the device, as :meth:`read` does.  ``materialize`` and
-        ``log_access`` are the reference's signature (the access log waits
-        for S2).
+        to the device, as :meth:`read` does.  ``materialize`` is the
+        reference's signature.  ``log_access=False`` suppresses the access
+        record (:meth:`read_pattern`'s sweep is one logical access).
         """
         parts = decompose_region(region, scheme)
         agg = ReadStats()
@@ -578,14 +619,14 @@ class Dataset:
                                  engine=engine, candidates=candidates)
         if got is None:
             for p in parts:
-                _, st = self.read(var, p, candidates=candidates,
-                                  engine=engine)
+                _, st = self._read(var, p, candidates, engine)
                 agg.merge(st)
         else:
             agg.merge(got[1])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self.device)
         agg.seconds = time.perf_counter() - t0
+        if log_access:
+            self._record_access(var, region, agg)
         return agg
 
     def read_pattern(self, var: str, pattern: str,
@@ -611,8 +652,10 @@ class Dataset:
                                       log_access=False)
             if best is None or st.seconds < best[1].seconds:
                 best = (scheme, st)
-        # the one shared index probe is attributed to the reported best
+        # the one shared index probe is attributed to the reported best;
+        # the whole best-of-schemes sweep is ONE logical access pattern
         best[1].probe_seconds += probe_seconds
+        self._record_access(var, region, best[1])
         return best
 
     # -- integrity -----------------------------------------------------------
@@ -639,8 +682,8 @@ def sample_codec_ratios(src: Dataset, var: str, *,
                         max_bytes: int = 4 << 20) -> dict:
     """Measure each available codec's stored/logical size ratio on a sample
     of ``var``'s actual data (the first stored chunk, capped at
-    ``max_bytes`` along its leading axis) — what the layout policy (S2)
-    scores compressibility with.  Returns ``{}`` when the variable has no
+    ``max_bytes`` along its leading axis) — what the layout policy scores
+    compressibility with.  Returns ``{}`` when the variable has no
     extents or every codec fails."""
     rows = src.index.var_rows(var)
     if rows.n == 0:
@@ -706,18 +749,59 @@ def _gather(src: Dataset, var: str, regions: list, dtype,
     return bufs, st, d2h
 
 
+def choose_reorg_layout(src: Dataset, var: str, *,
+                        align: int | None = None,
+                        policy: LayoutPolicy | None = None,
+                        prior: str | None = None,
+                        expected_reads: float | None = None,
+                        codec_ratios: dict | None = None,
+                        now: float | None = None):
+    """The ``layout="auto"`` decision :func:`reorganize` makes: ask the
+    source dataset's :class:`~repro_torch.core.policy.LayoutPolicy` (its
+    access log + calibration + learned reorganization overhead) which
+    target layout the observed pattern mix favors, charging each candidate
+    the cost of gathering out of the source's *current* extents.  Returns
+    the :class:`~repro_torch.core.policy.PolicyDecision`."""
+    pol = policy if policy is not None else \
+        LayoutPolicy.for_dataset(src.dirpath)
+    if prior is not None:
+        pol = pol.with_prior(prior)
+    rows = src.index.var_rows(var)
+    blocks = [Block(tuple(int(v) for v in rows.los[i]),
+                    tuple(int(v) for v in rows.his[i]),
+                    owner=int(rows.subfiles[i]), block_id=i)
+              for i in range(rows.n)]
+    return pol.choose_layout(var, blocks, src.index.var_shape(var),
+                             num_stagers=max(1, src.index.num_subfiles),
+                             align=align, current_extents=rows,
+                             expected_reads=expected_reads,
+                             codec_ratios=codec_ratios, now=now)
+
+
 def reorganize(src_dir: str, dst_dir: str, var: str,
                layout: LayoutPlan | str = "auto", *,
                engine: str | IOEngine = "memmap",
                align: int | None = None,
-               policy=None, prior: str | None = None,
+               policy: LayoutPolicy | None = None,
+               prior: str | None = None,
                expected_reads: float | None = None,
                now: float | None = None,
                clock=None, trace=None, device="cuda") -> tuple:
     """Post-hoc reorganization (paper §5.1) on the card: gather every chunk
     of the new ``layout`` out of ``src_dir`` and write the reorganized
     dataset to ``dst_dir`` — the same subfiles and ``index.json`` as the
-    JAX package's ``reorganize`` with the same ``LayoutPlan``.
+    JAX package's ``reorganize`` with the same layout or decision.
+
+    ``layout="auto"`` (the default) asks :func:`choose_reorg_layout` —
+    the source's access history, its calibration and measured
+    reorganization overhead, each candidate charged its lifecycle cost
+    (paper §5.2) — which layout, and which codec
+    (:func:`sample_codec_ratios` measures them on the variable's data), the
+    observed read mix favors; ``policy`` injects a prepared policy,
+    ``prior`` seeds it with a previous run's history, ``expected_reads``
+    pins the amortization horizon and ``now`` the recency reference.  The
+    decision is persisted in the destination's ``index.json`` under
+    ``attrs["policy"][var]``.
 
     The new chunks, in ``layout.chunks`` order, are the target regions of
     :func:`~repro_torch.io.device.gather_regions` on ``device`` (``"cuda"``
@@ -725,10 +809,13 @@ def reorganize(src_dir: str, dst_dir: str, var: str,
     extent, once, one copy to the card and ONE ``pack_rows`` launch — a
     call per batch of whole chunks of at most :data:`~repro_torch.io.
     device.GATHER_BATCH_BYTES`.  Its output is the new chunks, row-major,
-    back to back, so it crosses to the host once and is written as it is:
-    ``write_planned`` of the identity plan's rows with the chunk views as
-    ``encoded`` and ``codec="none"``, no second kernel pass.  The index is
-    committed once, after the last batch.
+    back to back, so it crosses to the host once.  Raw chunks are written
+    as they are: ``write_planned`` of the identity plan's rows with the
+    chunk views as ``encoded`` and ``codec="none"``, no second kernel pass,
+    and the index is committed once, after the last batch.  With a codec
+    the stored sizes decide the append offsets, so each batch's chunks are
+    encoded on the host as they arrive, and the write plan is built from
+    the encoded sizes and written once, after the last batch.
 
     With ``dst_dir == src_dir`` the reorganization happens **in place,
     online**: the new extents are appended past the live ones, and the
@@ -742,68 +829,75 @@ def reorganize(src_dir: str, dst_dir: str, var: str,
     whose ``gather`` is the gather's merged ``ReadStats`` (engine read,
     lowering, copy to the card, kernel) and ``d2h_seconds`` its copy back.
     The measured per-chunk overhead (gather minus engine seconds) is
-    folded into the source's ``reorg_stats.json``.
-
-    ``layout="auto"``, ``policy``, ``prior``, ``expected_reads`` and
-    ``now`` wait for the layout policy (S2), ``trace`` for trace capture
-    (S3): each raises ``NotImplementedError``.  ``clock`` is accepted.
+    folded into the source's ``reorg_stats.json``.  ``clock`` stamps the
+    destination session's records; ``trace`` waits for trace capture (S3)
+    and raises ``NotImplementedError``.
     """
     if isinstance(layout, str) and layout != "auto":
         raise ValueError(f"layout must be a LayoutPlan or 'auto', "
                          f"got {layout!r}")
-    if isinstance(layout, str):
-        raise _waits("reorganize(layout='auto')", _S2)
-    for name, value in (("policy", policy), ("prior", prior),
-                        ("expected_reads", expected_reads), ("now", now)):
-        if value is not None:
-            raise _waits(f"reorganize({name}=...)", _S2)
     if trace is not None:
-        raise _waits("reorganize(trace=...)", _S3)
+        raise NotImplementedError("reorganize(trace=...) is not ported "
+                                  f"yet: it waits for {_S3}")
     dev = resolve_device(device)
     in_place = os.path.abspath(src_dir) == os.path.abspath(dst_dir)
+    # the source session's bulk chunk reads are mechanical, not an
+    # application access pattern: keep them out of the telemetry
     src = Dataset.open(src_dir, engine=engine, telemetry=False, clock=clock,
                        device=dev)
-    # rewrite with chunk == source identity
-    synth = [Block(cp.chunk.lo, cp.chunk.hi, owner=cp.writer, block_id=i)
-             for i, cp in enumerate(layout.chunks)]
-    ident = LayoutPlan(
-        strategy=layout.strategy, global_shape=layout.global_shape,
-        chunks=tuple(ChunkPlan(chunk=b, sources=(b,), writer=b.owner,
-                               subfile=cp.subfile)
-                     for b, cp in zip(synth, layout.chunks)),
-        num_subfiles=layout.num_subfiles,
-        inter_process_moved=layout.inter_process_moved,
-        intra_node_moved=layout.intra_node_moved)
-    dtype = src.index.var_dtype(var)
-    if in_place:
-        # the fresh index starts with only the OTHER variables' records
-        # (they don't move), the new extents are appended past the current
-        # cursor so live readers' old extents stay byte-identical, and the
-        # one flush below is the atomic index replace that flips readers
-        new_index = DatasetIndex(num_subfiles=src.index.num_subfiles,
-                                 attrs=dict(src.index.attrs),
-                                 generation=src.index.generation + 1)
-        for name, meta in src.index.variables.items():
-            if name != var:
-                new_index.variables[name] = dict(meta)
-        for rec in src.index.chunks:
-            if rec.var != var:
-                new_index.chunks.append(dataclasses.replace(rec))
-        with src._lock:
-            cursor = dict(src._cursor_dict())
-        dst = Dataset(dst_dir, engine=engine, index=new_index, clock=clock,
-                      device=dev)
-        dst._cursor = cursor                  # append past the live extents
-    else:
-        dst = Dataset.create(dst_dir, engine=engine, clock=clock, device=dev)
-        # layout lineage: the destination supersedes the source's layout
-        dst.index.generation = src.index.generation + 1
-    plan = dst.plan_write(var, ident, dtype, align=align)
-    row_of = np.argsort(plan.chunk_ids)       # plan row of each chunk
-    read_seconds = d2h_seconds = 0.0
-    gather = ReadStats()
-    parts = []
     try:
+        decision = None
+        if isinstance(layout, str):
+            decision = choose_reorg_layout(
+                src, var, align=align, policy=policy, prior=prior,
+                expected_reads=expected_reads,
+                codec_ratios=sample_codec_ratios(src, var), now=now)
+            layout = decision.layout
+        codec = decision.codec if decision is not None else "none"
+        # rewrite with chunk == source identity
+        synth = [Block(cp.chunk.lo, cp.chunk.hi, owner=cp.writer,
+                       block_id=i) for i, cp in enumerate(layout.chunks)]
+        ident = LayoutPlan(
+            strategy=layout.strategy, global_shape=layout.global_shape,
+            chunks=tuple(ChunkPlan(chunk=b, sources=(b,), writer=b.owner,
+                                   subfile=cp.subfile)
+                         for b, cp in zip(synth, layout.chunks)),
+            num_subfiles=layout.num_subfiles,
+            inter_process_moved=layout.inter_process_moved,
+            intra_node_moved=layout.intra_node_moved)
+        dtype = src.index.var_dtype(var)
+        if in_place:
+            # the fresh index starts with only the OTHER variables'
+            # records (they don't move), the new extents are appended past
+            # the current cursor so live readers' old extents stay
+            # byte-identical, and the one flush below is the atomic index
+            # replace that flips readers
+            new_index = DatasetIndex(num_subfiles=src.index.num_subfiles,
+                                     attrs=dict(src.index.attrs),
+                                     generation=src.index.generation + 1)
+            for name, meta in src.index.variables.items():
+                if name != var:
+                    new_index.variables[name] = dict(meta)
+            for rec in src.index.chunks:
+                if rec.var != var:
+                    new_index.chunks.append(dataclasses.replace(rec))
+            with src._lock:
+                cursor = dict(src._cursor_dict())
+            dst = Dataset(dst_dir, engine=engine, index=new_index,
+                          clock=clock, device=dev)
+            dst._cursor = cursor              # append past the live extents
+        else:
+            dst = Dataset.create(dst_dir, engine=engine, clock=clock,
+                                 device=dev)
+            # layout lineage: the destination supersedes the source's layout
+            dst.index.generation = src.index.generation + 1
+        plan = None
+        if codec == "none":
+            plan = dst.plan_write(var, ident, dtype, align=align)
+            row_of = np.argsort(plan.chunk_ids)     # each chunk's plan row
+        read_seconds = d2h_seconds = encode_seconds = 0.0
+        gather = ReadStats()
+        parts, enc = [], []
         for batch in gather_batches(layout, dtype.itemsize) or [[]]:
             bufs = []
             if batch:
@@ -815,31 +909,56 @@ def reorganize(src_dir: str, dst_dir: str, var: str,
                 d2h_seconds += d2h
                 gather.merge(st)
                 gather.seconds += st.seconds
+            if plan is None:
+                # the views are the staging buffer's: encode before the
+                # next batch takes it
+                t0 = time.perf_counter()
+                enc.extend(np.frombuffer(
+                    encode(codec, np.ascontiguousarray(b)), dtype=np.uint8)
+                    for b in bufs)
+                encode_seconds += time.perf_counter() - t0
+                continue
             parts.append(dst.write_planned(
                 subset_write_plan(plan, row_of[batch]), {},
                 encoded=dict(zip(batch, bufs)), flush=False))
+        if plan is None:
+            sizes = np.asarray([b.nbytes for b in enc], dtype=np.int64)
+            with dst._lock:
+                cursor = dst._cursor_dict()
+                plan = build_write_plan(ident, var, dtype, align=align,
+                                        base_offsets=cursor, sizes=sizes)
+                for sf, end in plan.file_sizes.items():
+                    if end > cursor.get(sf, 0):
+                        cursor[sf] = end
+            parts.append(dst.write_planned(plan, {}, codec=codec,
+                                           encoded=enc, flush=False))
+            parts[-1].assemble_seconds += encode_seconds
+            parts[-1].total_seconds += encode_seconds
+        if decision is not None:
+            dst.index.attrs.setdefault("policy", {})[var] = \
+                decision.to_json()
         dst.flush()
+        wstats = WriteStats(
+            assemble_seconds=sum(w.assemble_seconds for w in parts),
+            write_seconds=sum(w.write_seconds for w in parts),
+            total_seconds=sum(w.total_seconds for w in parts),
+            bytes_written=int(plan.bytes_total),
+            num_extents=plan.num_chunks, num_subfiles=len(plan.file_sizes),
+            groups=sum(w.groups for w in parts),
+            plan_seconds=plan.plan_seconds,
+            engine=parts[0].engine if len({w.engine for w in parts}) == 1
+            else "mixed",
+            engine_reason="; ".join(dict.fromkeys(w.engine_reason
+                                                  for w in parts)),
+            predicted_seconds=sum(w.predicted_seconds for w in parts),
+            d2h_seconds=d2h_seconds, gather=gather)
     finally:
         src.close()
-    wstats = WriteStats(
-        assemble_seconds=sum(w.assemble_seconds for w in parts),
-        write_seconds=sum(w.write_seconds for w in parts),
-        total_seconds=sum(w.total_seconds for w in parts),
-        bytes_written=int(plan.bytes_total), num_extents=plan.num_chunks,
-        num_subfiles=len(plan.file_sizes),
-        groups=sum(w.groups for w in parts), plan_seconds=plan.plan_seconds,
-        engine=parts[0].engine if len({w.engine for w in parts}) == 1
-        else "mixed",
-        engine_reason="; ".join(dict.fromkeys(w.engine_reason
-                                              for w in parts)),
-        predicted_seconds=sum(w.predicted_seconds for w in parts),
-        d2h_seconds=d2h_seconds, gather=gather)
     # learned per-chunk reorganization overhead: what the gather paid on
     # top of raw engine time, folded into the source's reorg_stats.json
     # only after the destination committed
     if len(layout.chunks):
         observe_reorg_overhead(
-            src_dir,
-            max(0.0, read_seconds - gather.seconds) / len(layout.chunks),
-            num_chunks=len(layout.chunks))
+            src_dir, max(0.0, read_seconds - wstats.gather.seconds)
+            / len(layout.chunks), num_chunks=len(layout.chunks))
     return read_seconds, dst, wstats

@@ -24,7 +24,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "check"]
+__all__ = ["SOURCES", "build_all", "load", "check", "count"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -61,6 +61,7 @@ SOURCES = {
 
 _lock = threading.Lock()
 _libs: dict = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -146,3 +147,11 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} at launch: {msg}")
+
+
+def count(counter) -> None:
+    """Add one to ``counter.launches`` (a wrapper, or one flash kernel's
+    counter) under a lock, so no launch from a staging worker's thread is
+    lost."""
+    with _count_lock:
+        counter.launches += 1

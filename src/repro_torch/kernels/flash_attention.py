@@ -269,7 +269,7 @@ def _launch(q, k, v, scale, causal, window, softcap, route=None) -> tuple:
             *k.stride()[:3], *v.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
     _build.check(lib, code, f"flash_attention ({name})")
-    _COUNTERS[entry].launches += 1
+    _build.count(_COUNTERS[entry])
     return o, lse
 
 
@@ -308,7 +308,7 @@ def _launch_bwd(kernel, outs, q, k, v, do, lse, delta, scale, causal,
             *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dtype_flag,
             *_mask_args(causal, window, softcap), float(scale), stream)
     _build.check(lib, code, f"flash_attention_{kernel} ({name})")
-    _COUNTERS[entries[kernel]].launches += 1
+    _build.count(_COUNTERS[entries[kernel]])
 
 
 #: kernel launches since the last reset (CPU calls never count), one

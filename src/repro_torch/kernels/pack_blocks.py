@@ -130,7 +130,7 @@ def launch(src: torch.Tensor, out: torch.Tensor, src_rows: torch.Tensor,
                                    src_rows.data_ptr(), dst_rows.data_ptr(),
                                    n, width * src.element_size(), stream)
     _build.check(lib, code, "pack_rows")
-    pack_rows.launches += 1
+    _build.count(pack_rows)
 
 
 #: kernel launches since the last reset (CPU calls never count)

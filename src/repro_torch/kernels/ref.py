@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels (the three copies, the flash
 attention forward and its two backward kernels), and the lowerings to the
 row tables ``pack_rows`` takes: of a :class:`~repro_torch.core.merge.
-MergePlan` (the merge, the whole-variable read) and of a region read's
-plans (the region read, the elastic restore).
+MergePlan` (the merge, the whole-variable read), of a region read's
+plans (the region read, the elastic restore) and of a layout's chunks
+filled from their sources (the write).
 
 The plain versions are the oracles: the CPU tests run them against the JAX
 package's Pallas kernels (interpret mode), and ``chip_smoke.py`` holds each
@@ -23,7 +24,7 @@ __all__ = ["pack_rows_ref", "chunked_to_rowmajor_ref",
            "rowmajor_to_chunked_ref", "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref",
-           "plan_row_tables", "region_row_tables"]
+           "plan_row_tables", "region_row_tables", "chunk_row_tables"]
 
 
 def pack_rows_ref(src: torch.Tensor, src_rows: torch.Tensor,
@@ -254,6 +255,9 @@ def _tables_from_runs(s: np.ndarray, d: np.ndarray, ln: np.ndarray,
         raise OverflowError(f"{max(total_src, total_dst) // width} rows of "
                             f"width {width} overflow the int32 row tables")
     per_run = ln // width
+    if (per_run == 1).all():                 # each run is one row
+        return width, (s // width).astype(np.int32), \
+            (d // width).astype(np.int32)
     first = np.cumsum(per_run) - per_run
     k = np.arange(int(per_run.sum()), dtype=np.int64) \
         - np.repeat(first, per_run)
@@ -335,3 +339,62 @@ def region_row_tables(plans, max_width: int = 4096) -> tuple:
                                                   dst_base, max_width)
     return width, src_rows, dst_rows, dst_base, (sub[order], lo[order],
                                                   hi[order])
+
+
+def chunk_row_tables(layout, max_width: int = 4096) -> tuple:
+    """Lower the chunks of a :class:`~repro_torch.core.layouts.LayoutPlan`,
+    each filled from its sources' intersections as the JAX package's
+    ``assemble_chunk`` fills it, to ``(width, src_rows, dst_rows,
+    dst_elems, order)`` for one ``pack_rows`` launch — the write-side
+    counterpart of :func:`region_row_tables`.
+
+    Source: the distinct source blocks flat, back to back in ascending
+    ``block_id`` (``order``).  Destination: the chunks row-major,
+    concatenated in ``layout.chunks`` order.  Each run is one row of a
+    chunk-source intersection along the last axis; width is the gcd of
+    every run's start and length and of both totals, capped at
+    ``max_width``.  Rows of a chunk that no source covers are named by no
+    table entry; a row two sources cover is named twice.
+    """
+    sources = {}
+    for cp in layout.chunks:
+        for b in cp.sources:
+            sources[b.block_id] = b
+    order = sorted(sources)
+    src_off, pos = {}, 0
+    for bid in order:
+        src_off[bid] = pos
+        pos += sources[bid].volume
+    total_src = pos
+
+    starts_s, starts_d, lengths = [], [], []
+    dst_base = 0
+    for cp in layout.chunks:
+        clo = np.asarray(cp.chunk.lo, dtype=np.int64)
+        cstr = np.asarray(_row_major_strides(cp.chunk.shape), dtype=np.int64)
+        for b in cp.sources:
+            inter = cp.chunk.intersect(b)
+            if inter is None:
+                continue
+            ilo = np.asarray(inter.lo, dtype=np.int64)
+            ish = np.asarray(inter.shape, dtype=np.int64)
+            sstr = np.asarray(_row_major_strides(b.shape), dtype=np.int64)
+            lead_s = np.zeros(1, dtype=np.int64)
+            lead_d = np.zeros(1, dtype=np.int64)
+            for n, ss, ds in zip(ish[:-1], sstr[:-1], cstr[:-1]):
+                a = np.arange(n, dtype=np.int64)
+                lead_s = (lead_s[:, None] + a[None, :] * ss).reshape(-1)
+                lead_d = (lead_d[:, None] + a[None, :] * ds).reshape(-1)
+            blo = np.asarray(b.lo, dtype=np.int64)
+            starts_s.append(src_off[b.block_id]
+                            + int(((ilo - blo) * sstr).sum()) + lead_s)
+            starts_d.append(dst_base + int(((ilo - clo) * cstr).sum())
+                            + lead_d)
+            lengths.append(np.full(lead_s.size, ish[-1], dtype=np.int64))
+        dst_base += cp.chunk.volume
+    s = np.concatenate(starts_s) if starts_s else np.empty(0, np.int64)
+    d = np.concatenate(starts_d) if starts_d else np.empty(0, np.int64)
+    ln = np.concatenate(lengths) if lengths else np.empty(0, np.int64)
+    width, src_rows, dst_rows = _tables_from_runs(s, d, ln, total_src,
+                                                  dst_base, max_width)
+    return width, src_rows, dst_rows, dst_base, order

@@ -81,9 +81,9 @@ def launch(src: torch.Tensor, out: torch.Tensor, n_i: int, n_j: int,
     what = "chunked_to_rowmajor" if to_rowmajor else "rowmajor_to_chunked"
     _build.check(lib, code, what)
     if to_rowmajor:
-        chunked_to_rowmajor.launches += 1
+        _build.count(chunked_to_rowmajor)
     else:
-        rowmajor_to_chunked.launches += 1
+        _build.count(rowmajor_to_chunked)
 
 
 #: kernel launches since the last reset (CPU calls never count)

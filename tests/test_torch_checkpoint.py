@@ -275,21 +275,9 @@ def test_scalars_keep_shape_and_dtype(tmp_path, dtype):
 
 def test_unported_options_name_their_item(tmp_path):
     root = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="S2"):
-        CheckpointManager(root, strategy="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="S2"):
-        CheckpointManager(root, policy=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="S2"):
-        CheckpointManager(root, prior="x", device="cpu")
     with pytest.raises(NotImplementedError, match="S3"):
         CheckpointManager(root, trace=object(), device="cpu")
     mgr = CheckpointManager(root, device="cpu")
-    with pytest.raises(NotImplementedError, match="S2"):
-        mgr.layout_policy()
-    with pytest.raises(NotImplementedError, match="S2"):
-        mgr.export_prior()
-    with pytest.raises(NotImplementedError, match="S2"):
-        mgr.save(1, {"w": torch.ones(4)}, prior="x")
     with pytest.raises(NotImplementedError, match="S9"):
         mgr.save(2, {"w": torch.ones(4, dtype=torch.bfloat16)})
     with pytest.raises(TypeError, match="'w' is a ndarray"):

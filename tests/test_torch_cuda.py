@@ -282,8 +282,8 @@ def test_reorganize_and_read_pattern_on_the_card(cuda, tmp_path):
 
 
 def test_reads_reuse_the_sessions_pinned_buffer(cuda, tmp_path):
-    """Part reads and whole reads on one session stage through one pinned
-    buffer, grown only when a larger read needs it."""
+    """Part reads and whole reads on one thread of a session stage through
+    one pinned buffer, grown only when a larger read needs it."""
     shape = (256, 192)
     blocks = tc.simulate_load_balance(
         tc.uniform_grid_blocks(shape, (32, 32)), num_procs=8, seed=1)
@@ -293,18 +293,92 @@ def test_reads_reuse_the_sessions_pinned_buffer(cuda, tmp_path):
              np.float32, {b.block_id: field[b.slices()] for b in blocks})
     part = Block((5, 17), (100, 150))
     got, _ = ds.read("E", part)
-    buf = ds._staging._buf
+    buf = ds._staging.buffer()
     assert buf is not None and buf.is_pinned()
     for region in (part, Block((0, 0), (64, 64))):
         got, _ = ds.read("E", region)
         assert torch.equal(got, field[region.slices()])
-        assert ds._staging._buf is buf
+        assert ds._staging.buffer() is buf
     got, _ = ds.read("E", Block((0, 0), shape))
     assert torch.equal(got, field)
-    assert ds._staging._buf.numel() >= field.numel() * 4
+    assert ds._staging.buffer().numel() >= field.numel() * 4
     ds.close()
-    assert ds._staging._buf is None
+    assert ds._staging.buffer() is None
 
+
+
+def test_3d_intersection_route_matches_the_host_assembly(cuda):
+    """A 3-D ``reorganized`` layout whose chunk edges cut through the
+    boxes: ONE ``pack_rows`` launch fills every chunk on the card, each
+    equal to the host assembly of the same blocks."""
+    from repro_torch.io.device import assemble_chunks
+    from repro_torch.io.engine import assemble_chunk
+    shape = (48, 40, 36)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (12, 10, 9)), num_procs=6, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    data = {b.block_id: torch.randn(b.shape, generator=gen, device=cuda)
+            for b in blocks}
+    host = {k: v.cpu().numpy() for k, v in data.items()}
+    for scheme in ((4, 4, 4), (3, 5, 7)):
+        layout = tc.plan_layout("reorganized", blocks, num_procs=6,
+                                global_shape=shape, reorg_scheme=scheme)
+        K.reset_launch_counts()
+        bufs, stages = assemble_chunks(layout, data, np.float32)
+        assert K.launch_counts()["pack_rows"] == 1 and stages
+        for cp, buf in zip(layout.chunks, bufs):
+            assert np.array_equal(buf, assemble_chunk(cp, host, np.float32))
+
+
+def test_staging_workers_overlap_the_producer(cuda, tmp_path):
+    """Two staging workers assemble and write on their own streams while
+    the producer's kernel still runs and the producer updates its field
+    in place after each submit: every step's bytes are the field as it
+    was at its submit (a shared pinned buffer or a missing snapshot shows
+    as wrong bytes), the workers finish before the producer's kernel does
+    (a device-wide synchronize would wait for it), each through its own
+    pinned buffer, and every chunk was assembled by ``pack_rows``."""
+    from repro_torch.io import StagingExecutor
+    shape = (64, 96, 80)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (16, 32, 20)), num_procs=6, seed=1)
+    layout = tc.plan_layout("reorganized", blocks, num_procs=6,
+                            global_shape=shape, reorg_scheme=(4, 4, 4),
+                            num_stagers=2)
+    field = torch.randn(shape, device=cuda)
+    ex = StagingExecutor(str(tmp_path), num_workers=2, queue_depth=2,
+                         engine="pread", device=cuda)
+    K.reset_launch_counts()
+    want = []
+    ex.submit(0, "E", np.float32, layout, {b.block_id: field[b.slices()]
+                                          for b in blocks})
+    ex.drain()                              # the kernels are built now
+    want.append(field.clone())
+    producer = torch.cuda.Stream(cuda)
+    producer.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(producer):
+        for step in range(1, 5):
+            field.mul_(1.5).add_(float(step))
+            want.append(field.clone())
+            ex.submit(step, "E", np.float32, layout,
+                      {b.block_id: field[b.slices()] for b in blocks})
+        done = torch.cuda.Event()
+        torch.cuda._sleep(4_000_000_000)     # about two seconds of spinning
+        done.record(producer)
+        field.mul_(-1.0)                     # after the last submit
+    res = ex.drain()
+    assert not done.query(), "the workers waited for the producer's kernel"
+    bufs = list(ex.dataset._staging._bufs.values())
+    assert len({b.data_ptr() for b in bufs}) == len(bufs) >= 1
+    ex.close()
+    done.synchronize()
+    assert [r.error for r in res] == [None] * 5
+    assert K.launch_counts()["pack_rows"] == 5
+    ds = Dataset.open(str(tmp_path), device=cuda)
+    for step, w in enumerate(want):
+        got, _ = ds.read(f"E@{step}", Block((0, 0, 0), shape))
+        assert torch.equal(got, w), step
+    ds.close()
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16), ids=str)
 @pytest.mark.parametrize("D", [16, 48, 80, 128, 256])

@@ -16,7 +16,9 @@ import torch
 import repro_torch
 from repro_torch.device import resolve_device
 from repro_torch.interop import tensors_from_numpy, to_tensor
-from repro_torch.io import Dataset
+from repro_torch.checkpoint import AsyncCheckpointer
+from repro_torch.examples import layout_reorg_demo
+from repro_torch.io import Dataset, StagingExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -53,7 +55,8 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 @pytest.mark.parametrize("mod", ["core.cost_model", "core.reorg",
                                  "core.read_patterns", "io.patterns",
-                                 "io.reader", "io.engine"])
+                                 "io.reader", "io.engine", "core.policy",
+                                 "io.staging", "checkpoint.async_ckpt"])
 def test_mirrored_modules_are_scanned(mod):
     """The port keeps its own copy of each module it mirrors, at the same
     path, and the scans above cover it."""
@@ -80,9 +83,9 @@ def test_no_forbidden_import_statement(path):
 
 def test_package_is_lazy():
     assert set(repro_torch.__all__) == {"checkpoint", "configs", "core",
-                                        "data", "device", "interop", "io",
-                                        "kernels", "launch", "models",
-                                        "serve", "train"}
+                                        "data", "device", "examples",
+                                        "interop", "io", "kernels", "launch",
+                                        "models", "serve", "train"}
     with pytest.raises(AttributeError):
         repro_torch.no_such_module
 
@@ -95,6 +98,12 @@ def test_entry_points_need_a_gpu_unless_cpu(tmp_path, monkeypatch):
         Dataset.create(str(tmp_path / "d"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tensors_from_numpy({0: np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StagingExecutor(str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AsyncCheckpointer(str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        layout_reorg_demo.main(["--tiny"])
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")

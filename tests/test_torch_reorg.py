@@ -6,8 +6,8 @@ against the JAX package's, on the CPU with ``pack_rows``' plain version:
 in-place commit, ``read_decomposed`` / ``read_pattern`` over every
 pattern, ``verify_checksums``, ``merge_blocks``, the modules they use
 (read patterns, pattern mixes, ``plan_reorganization``/``decide``, the
-planner's ``linear_candidates``/``subset_write_plan``) and the refusals
-that name S2 and S3.  Every comparison is exact."""
+planner's ``linear_candidates``/``subset_write_plan``) and the refusal
+that names S3.  Every comparison is exact."""
 
 import dataclasses
 import json
@@ -166,13 +166,9 @@ def test_reorganize_refusals_name_their_items(tmp_path, source):
     with pytest.raises(ValueError):
         tio.reorganize(source, str(tmp_path / "x"), "E", "merged",
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="S2"):
-        tio.reorganize(source, str(tmp_path / "x"), "E", device="cpu")
-    for kw in ({"policy": object()}, {"prior": "p"},
-               {"expected_reads": 3.0}, {"now": 1.0}):
-        with pytest.raises(NotImplementedError, match="S2"):
-            tio.reorganize(source, str(tmp_path / "x"), "E", tl,
-                           device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="S3"):
+        tio.reorganize(source, str(tmp_path / "x"), "E", device="cpu",
+                       trace=object())
     with pytest.raises(NotImplementedError, match="S3"):
         tio.reorganize(source, str(tmp_path / "x"), "E", tl, device="cpu",
                        trace=object())
