@@ -163,7 +163,28 @@ Phases, each printing one JSON line:
     stall, ``t_s``, ``t_w`` and stages, the recommendation (the direct
     write: phase 15's save of the same leaves), the launches of the run,
     the peak memory; every staged leaf read back ``torch.equal`` to a host
-    copy of the params at its save; the directory removed.
+    copy of the params at its save; the directory removed;
+18. (after 17b) the kernel-bypass engines and the distributed fleet on the
+    card.  18a: the probes (``uring_available``, ``odirect_available``)
+    and the calibration's kernel terms for ``build/chip_smoke/engines``;
+    phase 16's 3-D component written under ``merged_process`` with
+    ``engine="odirect"`` and ``engine="uring"`` and read back whole onto
+    the card, the first copy with ``pread`` and ``odirect``, the second
+    with ``uring`` and ``uring`` with ``direct=True`` (the direct reads
+    are cold whatever the page cache holds), and slice 1's component
+    under ``reorganized`` 8 x 8 written and read back through O_DIRECT:
+    each transfer's seconds, GB/s, the engine that ran and its reason, the
+    uring pool's registration.  18b:
+    ``distributed_reorganize`` of the 3-D component to ``reorganized`` 4 x
+    4 x 4 with O_DIRECT writes and 2 worker processes gathering on the
+    card: a first fleet whose first worker parked at ``mid_write`` is
+    SIGKILLed (lease 3 s), the survivor finishing every unit, then
+    ``distributed_reorganize`` adopting the journal, validating and
+    committing.  Per surviving worker the units done and lost, chunks
+    gathered, ``pack_rows`` launches (read in the worker, after its
+    warm-up), the card's name and the spawn, import, warm-up and work
+    seconds; the destination bit-identical to a single-process
+    ``reorganize`` and read back ``torch.equal``.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -1915,7 +1936,8 @@ def reorg(torch, dev, K, blocks2d) -> dict:
         return out, seconds, got
 
     def batches(layout) -> int:
-        return len(gather_batches(layout, 4))
+        return len(gather_batches([cp.chunk.volume * 4
+                                   for cp in layout.chunks]))
 
     def read_back(d, var, field, want):
         ds = Dataset.open(str(d))
@@ -2065,11 +2087,7 @@ def reorg(torch, dev, K, blocks2d) -> dict:
         decision = dds.index.attrs["policy"]["Ez"]
         sizes = [r.nbytes for r in dds.index.chunks_of("Ez")]
         dds.close()
-        n_batches, size = 0, GATHER_BATCH_BYTES + 1
-        for nb in sizes:                  # gather_batches' rule
-            if size + nb > GATHER_BATCH_BYTES:
-                n_batches, size = n_batches + 1, 0
-            size += nb
+        n_batches = len(gather_batches(sizes))
         raw = decision["codec"] == "none"
         # one launch a gather batch, and one for the part read that
         # samples the codecs' ratios
@@ -2390,6 +2408,348 @@ def async_checkpoints(torch, dev, K, direct_s: float) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+#: 18a writes phase 16's 3-D component under each kernel-bypass engine
+#: and reads each copy back whole with two engines: the O_DIRECT copy,
+#: which the page cache does not hold, buffered (a cold read through the
+#: cache) and direct; the io_uring copy, written buffered, through the
+#: ring (hot) and the ring's direct reads (cold whatever the cache holds)
+ENGINE_READS = {"odirect": ("pread", "odirect"),
+                "uring": ("uring", "uring_direct")}
+#: 18b: the distributed fleet, 2 worker processes on the card, 2 units
+#: each, O_DIRECT writes; its lease (seconds) and the crash point one
+#: worker is SIGKILLed at
+FLEET_WORKERS, FLEET_UNITS, FLEET_ENGINE = 2, 2, "odirect"
+FLEET_LEASE_S, FLEET_KILL_AT, FLEET_WAIT_S = 3.0, "mid_write", 120.0
+#: the calibration's kernel-bypass terms
+KERNEL_TERMS = ("uring_sqe_s", "uring_reg_s", "odirect_seq_read_bps",
+                "odirect_seq_write_bps", "odirect_align_s")
+
+
+def fleet_worker(queue, dst: str, worker: str, engine: str,
+                 barrier_dir) -> None:
+    """A distributed-reorganization worker process of phase 18b:
+    ``worker_main`` on the card, its device warmed first and its launch
+    counts reset after the warm-up; puts its stats, its ``pack_rows``
+    launches, the card's name and its timeline (wall clock: entry, imports
+    done, warm-up done, end) on ``queue``."""
+    t_enter = time.time()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.distributed.reorg import warm_device, worker_main
+    t_import = time.time()
+    warm_device("cuda")
+    t_warm = time.time()
+    K.reset_launch_counts()
+    stats = worker_main(dst, worker, engine, barrier_dir=barrier_dir,
+                        device="cuda")
+    torch.cuda.synchronize()
+    queue.put({"worker": worker, **stats,
+               "launches": {k: K.launch_counts()[k] for k in COPY_KERNELS},
+               "device": torch.cuda.get_device_name(0),
+               "t_enter": t_enter, "t_import": t_import, "t_warm": t_warm,
+               "t_done": time.time()})
+
+
+def _fleet(dst: Path, kill_at) -> dict:
+    """One fleet of FLEET_WORKERS ``fleet_worker`` processes on the
+    journal in ``dst``.  With ``kill_at``, only that crash point parks the
+    workers, the first to reach it is SIGKILLed there and the rest are
+    released: the survivors reclaim its unit once its lease expires.  Every
+    wait has a deadline."""
+    import multiprocessing as mp
+    import os
+    import signal
+    from repro_torch.distributed.reorg import BARRIERS
+    bdir = None
+    if kill_at is not None:
+        bdir = dst.parent / f"{dst.name}.barriers"
+        bdir.mkdir()
+        for name in BARRIERS:
+            if name != kill_at:
+                (bdir / f"go.{name}").touch()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    names = [f"w{i}" for i in range(FLEET_WORKERS)]
+    t0 = time.time()
+    procs = {w: ctx.Process(target=fleet_worker, args=(
+        queue, str(dst), w, FLEET_ENGINE, bdir and str(bdir)), daemon=True)
+        for w in names}
+    for p in procs.values():
+        p.start()
+    deadline = time.monotonic() + FLEET_WAIT_S
+    killed = None
+    try:
+        if kill_at is not None:
+            while killed is None:
+                reached = sorted(bdir.glob(f"*.{kill_at}.reached"))
+                if reached:
+                    killed = reached[0].name.split(".")[0]
+                    os.kill(int(reached[0].read_text()), signal.SIGKILL)
+                    procs[killed].join(timeout=10.0)
+                    t_kill = time.time() - t0
+                    (bdir / f"go.{kill_at}").touch()
+                elif time.monotonic() > deadline:
+                    raise AssertionError(f"no worker reached {kill_at}")
+                time.sleep(0.01)
+        # drain the queue before joining its writers
+        workers = [queue.get(timeout=max(1.0, deadline - time.monotonic()))
+                   for w in names if w != killed]
+        for p in procs.values():
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        if any(p.is_alive() for p in procs.values()):
+            raise AssertionError("a fleet worker outlived its deadline")
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+        if bdir is not None:
+            shutil.rmtree(bdir, ignore_errors=True)
+    wall = time.time() - t0
+    for w in workers:
+        w["spawn_seconds"] = w.pop("t_enter") - t0
+        w["import_seconds"] = w.pop("t_import") - t0 - w["spawn_seconds"]
+        w["warmup_seconds"] = w.pop("t_warm") - t0 - w["spawn_seconds"] \
+            - w["import_seconds"]
+        w["work_seconds"] = w.pop("t_done") - t0 - w["spawn_seconds"] \
+            - w["import_seconds"] - w["warmup_seconds"]
+    out = {"wall_seconds": wall, "workers": workers, "killed": killed,
+           "kill_at": kill_at}
+    if killed is not None:
+        out["kill_seconds"] = t_kill
+    return out
+
+
+def _same_bytes(a: Path, b: Path) -> bool:
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    return a.stat().st_size == 0 or np.array_equal(
+        np.memmap(a, dtype=np.uint8, mode="r"),
+        np.memmap(b, dtype=np.uint8, mode="r"))
+
+
+def _same_dataset(a: Path, b: Path) -> bool:
+    """Subfiles byte-equal and ``index.json`` chunks equal."""
+    bins = sorted(f.name for f in a.glob("data_*.bin"))
+    if bins != sorted(f.name for f in b.glob("data_*.bin")):
+        return False
+    if not all(_same_bytes(a / f, b / f) for f in bins):
+        return False
+    return json.loads((a / "index.json").read_text())["chunks"] == \
+        json.loads((b / "index.json").read_text())["chunks"]
+
+
+def engines(torch, dev, K, blocks2d) -> dict:
+    """The kernel-bypass engines and the distributed fleet on the card.
+
+    18a: phase 16's 3-D component written under ``merged_process`` with
+    ``engine="odirect"`` and ``engine="uring"``, and read back whole onto
+    the card (``pack_rows``): the O_DIRECT copy under ``pread`` and
+    ``odirect``, the io_uring copy under ``uring`` and ``uring`` with
+    ``direct=True``, every read-back ``torch.equal``; slice
+    1's component under ``reorganized`` 8 x 8 written and read back with
+    ``odirect`` (``rowmajor_to_chunked``, ``chunked_to_rowmajor``).  Each
+    transfer's engine that ran, its reason, seconds and GB/s; the uring
+    pool's registration; the probes and the calibration's kernel terms.
+
+    18b: ``distributed_reorganize`` of the component to the fixed
+    ``reorganized`` 4 x 4 x 4 (phase 16's target) with O_DIRECT writes,
+    2 worker processes gathering on the card: a first fleet whose first
+    worker at ``mid_write`` is SIGKILLed, the survivor finishing every
+    unit, then ``distributed_reorganize`` adopting the journal, validating
+    and committing.  The destination held bit-identical to a
+    single-process ``reorganize`` of the same source, and read back
+    ``torch.equal``.  Launch counts are reset just before each step and
+    read just after (in the workers for the fleet); every check raises;
+    every directory is removed."""
+    from repro_torch.core import (plan_layout, plan_reorganization,
+                                  probe_storage, simulate_load_balance,
+                                  uniform_grid_blocks)
+    from repro_torch.core.blocks import Block
+    from repro_torch.distributed.reorg import distributed_reorganize
+    from repro_torch.io import (Dataset, ReorgJournal, build_write_plan,
+                                get_engine, reorganize, resolve_engine)
+    from repro_torch.io.direct import odirect_available
+    from repro_torch.io.uring import uring_available
+    work = ROOT / "build" / "chip_smoke" / "engines"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = dict.fromkeys(COPY_KERNELS, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran = {k: K.launch_counts()[k] for k in COPY_KERNELS}
+        for k, n in ran.items():
+            launches[k] += n
+        return got, seconds, ran
+
+    def gbps(nbytes, seconds):
+        return nbytes / max(seconds, 1e-12) / 1e9
+
+    def write_back(d, var, field, blocks, layout, engine, want):
+        ds = Dataset.create(str(d), engine=engine)
+        data = {b.block_id: field[b.slices()].contiguous() for b in blocks}
+        ws, secs, ran = counted(lambda: ds.write(var, layout, np.float32,
+                                                 data))
+        ds.close()
+        del data
+        if any(ran[k] < n for k, n in want.items()):
+            raise AssertionError(f"{d.name}: write launched {ran}")
+        return {"seconds": secs, "engine_seconds": ws.write_seconds,
+                "bytes": ws.bytes_written,
+                "engine_gbps": gbps(ws.bytes_written, ws.write_seconds),
+                "engine": ws.engine, "engine_reason": ws.engine_reason,
+                "launches": ran}
+
+    def read_back(d, var, field, name, want):
+        # "uring_direct" is an engine instance resolved here, with its reason
+        eng, why = resolve_engine("uring", dirpath=str(d), direct=True) \
+            if name == "uring_direct" else (name, None)
+        ds = Dataset.open(str(d))
+        whole = Block((0,) * field.dim(), tuple(field.shape))
+        (got, rs), secs, ran = counted(lambda: ds.read(var, whole,
+                                                       engine=eng))
+        ds.close()
+        if not torch.equal(got, field):
+            raise AssertionError(f"{d.name}: {name} read-back differs")
+        del got
+        if any(ran[k] < n for k, n in want.items()):
+            raise AssertionError(f"{d.name}: {name} read-back launched {ran}")
+        row = {"seconds": secs, "engine_seconds": rs.seconds,
+               "bytes": rs.bytes_read,
+               "engine_gbps": gbps(rs.bytes_read, rs.seconds),
+               "gbps": gbps(rs.bytes_read, secs),
+               "engine": rs.engine, "engine_reason": rs.engine_reason,
+               "stages": {"lower": rs.lower_seconds, "h2d": rs.h2d_seconds,
+                          "kernel": rs.linearize_seconds},
+               "launches": ran}
+        if why is not None:
+            row["engine_reason"] = why or "pinned"
+            row["direct"] = getattr(eng, "direct", False)
+        if rs.engine.startswith("uring"):
+            # the ring and whether its buffer pool is registered (fixed)
+            ran_eng = get_engine(rs.engine) if isinstance(eng, str) else eng
+            row["uring_ring"] = ran_eng._ring is not None
+            row["uring_fixed"] = ran_eng._fixed
+        return row
+
+    out = {"uring_available": list(uring_available()),
+           "odirect_available": list(odirect_available(str(work))),
+           "tolerance": "bit-exact: torch.equal"}
+    cal = probe_storage(str(work))
+    out["calibration"] = {k: getattr(cal, k) for k in
+                          ("seq_read_bps", "seq_write_bps", "memmap_bps",
+                           *KERNEL_TERMS)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    try:
+        # 18a: the 3-D component under each kernel-bypass write engine
+        field = torch.randn(REORG_FIELD, generator=gen, device=dev)
+        blocks = simulate_load_balance(
+            uniform_grid_blocks(REORG_FIELD, REORG_BOX), num_procs=NPROCS,
+            seed=SEED)
+        merged = plan_layout("merged_process", blocks, num_procs=NPROCS,
+                             procs_per_node=PPN)
+        cube = {"field": list(REORG_FIELD), "chunks": len(merged.chunks),
+                "writes": {}, "reads": {}}
+        dirs = {e: work / f"warpx_{e}" for e in ENGINE_READS}
+        for e, d in dirs.items():
+            cube["writes"][e] = write_back(d, "Ez", field, blocks, merged, e,
+                                           {"pack_rows": 1})
+            for name in ENGINE_READS[e]:
+                cube["reads"][name] = read_back(d, "Ez", field, name,
+                                                {"pack_rows": 1})
+        shutil.rmtree(dirs["uring"])
+        out["warpx"] = cube
+
+        # 18a: slice 1's component, reorganized 8 x 8, through O_DIRECT
+        field2 = torch.randn(FIELD, generator=gen, device=dev)
+        grid = plan_reorganization(blocks2d, FIELD, REORG_2D,
+                                   num_stagers=NPROCS // PPN)
+        d2 = work / "slice1_reorganized"
+        out["slice1"] = {
+            "field": list(FIELD), "scheme": list(REORG_2D),
+            "write": write_back(d2, "Ez", field2, blocks2d, grid, "odirect",
+                                {"rowmajor_to_chunked": 1}),
+            "read": read_back(d2, "Ez", field2, "odirect",
+                              {"chunked_to_rowmajor": 1})}
+        del field2
+        shutil.rmtree(d2)
+        torch.cuda.empty_cache()
+
+        # 18b: the fleet, held to a single-process reorganize
+        src = dirs["odirect"]
+        target = plan_reorganization(blocks, REORG_FIELD, REORG_SCHEMES[0],
+                                     num_stagers=NPROCS // PPN)
+        ref = work / "warpx_single"
+        (rrs, rds, rws), ref_s, ref_ran = counted(lambda: reorganize(
+            str(src), str(ref), "Ez", target, engine=FLEET_ENGINE))
+        rds.close()
+        fleet = {"scheme": list(REORG_SCHEMES[0]),
+                 "chunks": len(target.chunks), "num_workers": FLEET_WORKERS,
+                 "units": FLEET_WORKERS * FLEET_UNITS,
+                 "engine": FLEET_ENGINE, "lease_s": FLEET_LEASE_S,
+                 "single_process": {"seconds": ref_s, "launches": ref_ran,
+                                    "stages": _reorg_stages(rrs, rws),
+                                    "engine_write": rws.engine}}
+        # the coordinator's journal, then a fleet of our own workers (their
+        # launch counts come back over a queue), one SIGKILLed at
+        # FLEET_KILL_AT: the survivor finishes every unit, reclaiming the
+        # victim's once its lease expires; the coordinator, run again on
+        # the destination, adopts the journal, validates and commits
+        dst = work / "warpx_fleet"
+        ReorgJournal.create(str(dst), build_write_plan(target, "Ez",
+                                                       np.float32),
+                            str(src), num_units=FLEET_WORKERS * FLEET_UNITS,
+                            lease_timeout_s=FLEET_LEASE_S,
+                            attrs={"var": "Ez", "engine": FLEET_ENGINE,
+                                   "policy": None})
+        fleet.update(_fleet(dst, FLEET_KILL_AT))
+        fleet["journal_events"] = ReorgJournal(str(dst)).load()["events"]
+        (dds, st), adopt_s, adopt_ran = counted(
+            lambda: distributed_reorganize(
+                str(src), str(dst), "Ez", target, engine=FLEET_ENGINE,
+                num_workers=FLEET_WORKERS, device=dev))
+        (got, _), read_s, _ = counted(lambda: dds.read(
+            "Ez", Block((0, 0, 0), REORG_FIELD)))
+        dds.close()
+        if not torch.equal(got, field):
+            raise AssertionError("fleet: read-back differs")
+        del got
+        t1 = time.perf_counter()
+        same = _same_dataset(dst, ref)
+        compare_s = time.perf_counter() - t1
+        # each unit the survivors did is one gather batch at least
+        gathered = sum(w["launches"]["pack_rows"] for w in fleet["workers"])
+        done = sum(w["units_done"] for w in fleet["workers"])
+        if not same or st["rounds"] or st["validation_failures"] or \
+                done != FLEET_WORKERS * FLEET_UNITS or gathered < done:
+            raise AssertionError(f"fleet: identical {same}, {st}, {done} "
+                                 f"units, {gathered} launches")
+        for k in COPY_KERNELS:
+            launches[k] += sum(w["launches"][k] for w in fleet["workers"])
+        fleet.update(adopt={"seconds": adopt_s, **st, "launches": adopt_ran},
+                     read_back_seconds=read_s, compare_seconds=compare_s,
+                     bit_identical_to_single_process=same)
+        out["fleet"] = fleet
+        del field
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    missing = [k for k in COPY_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the engines' paths never launched {missing}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2524,17 +2884,23 @@ def main() -> int:
     t0 = time.perf_counter()
     saves = async_checkpoints(torch, dev, K, ckpt["save"]["params_seconds"])
     emit("17b", seconds=time.perf_counter() - t0, **saves)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bypass = engines(torch, dev, K, blocks)
+    emit(18, seconds=time.perf_counter() - t0, **bypass)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    # the copy kernels' launches on their five paths: the slice-1 step
+    # the copy kernels' launches on their six paths: the slice-1 step
     # (phase 3), the checkpoint path (phase 15), the reorganization path
-    # (phase 16), the staged output (phase 17a) and the async checkpoints
-    # (phase 17b)
+    # (phase 16), the staged output (phase 17a), the async checkpoints
+    # (phase 17b) and the kernel-bypass engines with the distributed
+    # fleet (phase 18, the fleet workers' launches included)
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              "launches": launches[name] + ckpt["launches"][name]
              + reorganized["launches"][name] + online["launches"][name]
-             + saves["launches"][name],
+             + saves["launches"][name] + bypass["launches"][name],
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of the layout-reorganization data path and the
 model stack: serving, training, checkpoints, the layout policy and
-staging, and the end-to-end examples.
+staging, the crash-safe distributed reorganization, and the end-to-end
+examples.
 
 A package of its own beside the JAX package ``repro``: it imports
 ``torch``, ``numpy`` and the standard library, never ``jax`` or ``repro``,
@@ -16,8 +17,9 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["checkpoint", "configs", "core", "data", "device", "examples",
-           "interop", "io", "kernels", "launch", "models", "serve", "train"]
+__all__ = ["checkpoint", "configs", "core", "data", "device", "distributed",
+           "examples", "interop", "io", "kernels", "launch", "models", "serve",
+           "train"]
 
 
 def __getattr__(name):

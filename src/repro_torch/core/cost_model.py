@@ -37,12 +37,10 @@ paper (N>=26 break-even at t_c=40; post-hoc always wins at t_c=20; the
 functions below.
 
 A copy of the JAX package's cost model: the same calibrations give the same
-predictions, choices and ``calibration.json``.  The kernel-bypass engines
-(``uring``, ``odirect``) are not ported yet (S6 in ``ROADMAP.md`` queue 1),
-so this copy's probes always leave their "unsupported" sentinels, exactly
-as the reference's do on a host without io_uring or O_DIRECT; an injected
-calibration that carries their terms still prices them, and the session
-then degrades the choice (:func:`repro_torch.io.engine.resolve_engine`).
+predictions, choices and ``calibration.json``.  The probe measures the
+kernel-bypass terms (``uring``, ``odirect``) wherever the host supports
+them, as the reference's does, and leaves their "unsupported" sentinels
+where it does not.
 """
 
 from __future__ import annotations
@@ -400,11 +398,45 @@ def probe_storage(dirpath: str,
 
 
 def _probe_uring(fd: int, offsets) -> tuple:
-    """io_uring submission overhead + registered-buffer setup: ``(-1.0,
-    0.0)``, the "unsupported" sentinels, because the io_uring engine is not
-    ported yet (S6) — what the reference's probe returns on a host without
-    io_uring."""
-    return -1.0, 0.0
+    """Measure io_uring submission overhead + registered-buffer setup
+    against the already-open probe scratch fd.  ``(-1.0, 0.0)`` where
+    io_uring is unavailable."""
+    try:
+        from ..io.uring import IoUring, OP_READ, uring_available
+    except Exception:                   # pragma: no cover - import guard
+        return -1.0, 0.0
+    ok, _why = uring_available()
+    if not ok:
+        return -1.0, 0.0
+    import numpy as _np
+    batch = 16
+    try:
+        t0 = time.perf_counter()
+        ring = IoUring(entries=batch)
+        bufs = [_np.empty(4096, dtype=_np.uint8) for _ in range(batch)]
+        try:
+            ring.register_buffers(bufs)
+        except Exception:               # memlock-limited: ring still works
+            pass
+        uring_reg_s = time.perf_counter() - t0
+    except Exception:
+        return -1.0, 0.0
+    try:
+        it = iter(offsets * 4)
+        rounds = 8
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for j in range(batch):
+                ring.prep(OP_READ, fd, bufs[j].ctypes.data, 4096,
+                          next(it), user_data=j)
+            ring.submit(batch, wait_for=batch)
+            ring.reap()
+        uring_sqe_s = (time.perf_counter() - t0) / (rounds * batch)
+        return uring_sqe_s, uring_reg_s
+    except Exception:                   # pragma: no cover - defensive
+        return -1.0, 0.0
+    finally:
+        ring.close()
 
 
 #: codec-probe buffer size: big enough to amortize call overhead into a
@@ -444,10 +476,45 @@ def _probe_codecs() -> dict:
 
 
 def _probe_odirect(path: str) -> tuple:
-    """O_DIRECT sequential bandwidth + aligned-block latency: all-sentinel,
-    because the O_DIRECT engine is not ported yet (S6) — what the
-    reference's probe returns where the filesystem refuses direct I/O."""
-    return -1.0, -1.0, 0.0
+    """Measure O_DIRECT sequential bandwidth + aligned-block latency with
+    a scratch file at ``path``.  All-sentinel where the filesystem refuses
+    direct I/O."""
+    try:
+        from ..io.direct import (DIRECT_ALIGN, aligned_empty, open_direct,
+                                 pread_into_direct, pwrite_direct)
+    except Exception:                   # pragma: no cover - import guard
+        return -1.0, -1.0, 0.0
+    nchunks = 4                         # 4 MiB each way
+    fd = None
+    try:
+        fd = open_direct(path, writable=True)
+        buf = aligned_empty(1 << 20)
+        buf[:] = 0xC3
+        t0 = time.perf_counter()
+        for i in range(nchunks):
+            pwrite_direct(fd, buf, i << 20)
+        w_bps = (nchunks << 20) / max(time.perf_counter() - t0, 1e-9)
+        t0 = time.perf_counter()
+        for i in range(nchunks):
+            pread_into_direct(fd, buf, i << 20)
+        r_bps = (nchunks << 20) / max(time.perf_counter() - t0, 1e-9)
+        small = aligned_empty(DIRECT_ALIGN)
+        rng = random.Random(0xD12EC7)
+        offs = [rng.randrange(0, (nchunks << 20) - DIRECT_ALIGN)
+                & ~(DIRECT_ALIGN - 1) for _ in range(32)]
+        it = iter(offs * 2)
+        align_s = _timed_calls(
+            lambda: pread_into_direct(fd, small, next(it)), 32)
+        return r_bps, w_bps, align_s
+    except OSError:
+        return -1.0, -1.0, 0.0
+    finally:
+        if fd is not None:
+            os.close(fd)
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
 
 
 def save_calibration(cal: EngineCalibration, dirpath: str) -> None:

@@ -96,18 +96,20 @@ __all__ = ["PinnedStaging", "LayoutTables", "GATHER_BATCH_BYTES",
 GATHER_BATCH_BYTES = 1 << 30
 
 
-def gather_batches(layout: LayoutPlan, itemsize: int) -> list:
-    """``layout.chunks`` positions in order, cut into runs of whole chunks
-    of at most :data:`GATHER_BATCH_BYTES` each (a larger chunk alone): the
-    batches ``reorganize`` gathers, one :func:`gather_regions` call each."""
+def gather_batches(nbytes) -> list:
+    """Positions ``0 .. len(nbytes) - 1`` in order, cut into runs of whole
+    chunks of at most :data:`GATHER_BATCH_BYTES` each (a larger chunk
+    alone), ``nbytes`` being the chunks' sizes: the batches ``reorganize``
+    and a distributed reorganization worker gather, one
+    :func:`gather_regions` call each."""
     out, cur, size = [], [], 0
-    for i, cp in enumerate(layout.chunks):
-        nbytes = cp.chunk.volume * itemsize
-        if cur and size + nbytes > GATHER_BATCH_BYTES:
+    for i, n in enumerate(nbytes):
+        n = int(n)
+        if cur and size + n > GATHER_BATCH_BYTES:
             out.append(cur)
             cur, size = [], 0
         cur.append(i)
-        size += nbytes
+        size += n
     return out + [cur] if cur else out
 
 

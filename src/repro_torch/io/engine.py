@@ -13,14 +13,23 @@ plan by the :class:`~repro_torch.io.reader.Dataset` session):
 * ``pread``      — explicit ``os.preadv``/``os.pwritev`` vectored syscalls,
   one per coalesced group, issued serially in ``(subfile, offset)`` order;
 * ``overlapped`` — the ``pread`` mechanism with up to ``depth`` group
-  transfers in flight at once on a persistent submission pool.
+  transfers in flight at once on a persistent submission pool;
+* ``uring``      — true async submission through a raw ``io_uring`` ring:
+  one SQE per coalesced group, batched submit/reap at a configurable queue
+  depth, a registered fixed-buffer pool for zero-copy gathers;
+* ``odirect``    — ``O_DIRECT`` kernel-bypass transfers for large
+  sequential extents: page-cache double-buffering is skipped, ragged
+  head/tail bytes around the planner's ``align`` boundaries go through
+  small aligned bounce buffers (reads) or buffered edge writes (writes),
+  never a read-modify-write of a neighbor's bytes.
 
-The kernel-bypass engines ``uring`` and ``odirect`` are not ported yet (S6
-in ``ROADMAP.md`` queue 1): :func:`validate_engine_spec` accepts their
-spellings, :func:`get_engine` refuses them, and :func:`resolve_engine`
-degrades them as the reference does on a host without io_uring or
-O_DIRECT — ``uring[:d]`` to ``overlapped[:d]``, ``odirect`` to ``pread`` —
-with a reason every stats record carries.
+On the card's routes (:mod:`repro_torch.io.device`) the host buffers an
+engine reads into are views of the session's pinned staging buffer, so the
+bytes land where the one copy to the card starts.  The kernel-bypass
+engines feature-detect at probe time: :func:`resolve_engine` degrades
+``uring`` to ``overlapped`` and ``odirect`` to ``pread`` where the kernel
+or filesystem lacks support and reports the reason, which the Dataset
+session surfaces as ``ReadStats.engine_reason``.
 
 File handles live in a :class:`SubfileStore` (per-``Dataset`` session):
 read-mostly fd/memmap caches, growth via ``ftruncate`` with map
@@ -39,11 +48,16 @@ import numpy as np
 
 from ..core.codecs import CODEC_NONE, decode
 from ..core.layouts import ChunkPlan
+from .direct import (DIRECT_ALIGN, aligned_empty, odirect_available,
+                     open_direct, pread_into_direct, pwrite_direct)
 from .format import subfile_name
 from .planner import ReadPlan, WritePlan
+from .uring import (OP_READ, OP_READ_FIXED, OP_WRITE, OP_WRITE_FIXED,
+                    IoUring, UringUnavailable, uring_available)
 
 __all__ = ["IOEngine", "MemmapEngine", "PreadEngine",
-           "OverlappedPreadEngine", "SubfileStore", "WriteStats",
+           "OverlappedPreadEngine", "UringEngine", "ODirectEngine",
+           "SubfileStore", "WriteStats",
            "ENGINES", "get_engine", "resolve_engine", "validate_engine_spec",
            "assemble_chunk", "scatter_row"]
 
@@ -52,6 +66,15 @@ _IOV_MAX = 1024
 
 #: default queue depth of the overlapped engine
 DEFAULT_QUEUE_DEPTH = 8
+
+#: default queue depth of the uring engine (SQEs in flight per batch)
+DEFAULT_URING_DEPTH = 16
+
+#: registered fixed-buffer slot size: depth x this much memory is pinned
+#: (counted against RLIMIT_MEMLOCK — containers commonly cap it at 8 MiB,
+#: so the default pool stays well under; registration failure degrades to
+#: unregistered async reads, never an error)
+URING_BUF_BYTES = 256 << 10
 
 
 @dataclasses.dataclass
@@ -106,6 +129,7 @@ class SubfileStore:
     def __init__(self, dirpath: str):
         self.dirpath = dirpath
         self._fds: dict = {}          # (subfile, writable) -> fd
+        self._dfds: dict = {}         # (subfile, writable) -> O_DIRECT fd
         self._maps: dict = {}         # subfile -> read np.memmap
         self._wmaps: dict = {}        # subfile -> (write np.memmap, size)
         self._lock = threading.Lock()
@@ -126,6 +150,20 @@ class SubfileStore:
             flags = (os.O_RDWR | os.O_CREAT) if writable else os.O_RDONLY
             fd = os.open(self.path(k), flags)
             self._fds[(k, writable)] = fd
+            return fd
+
+    def direct_fd(self, k: int, writable: bool = False) -> int:
+        """An ``O_DIRECT`` handle for subfile ``k`` (cached like
+        :meth:`fd`).  Raises ``OSError`` where the filesystem refuses
+        direct I/O — callers fall back to the buffered path."""
+        with self._lock:
+            fd = self._dfds.get((k, True))
+            if fd is None and not writable:
+                fd = self._dfds.get((k, False))
+            if fd is not None:
+                return fd
+            fd = open_direct(self.path(k), writable=writable)
+            self._dfds[(k, writable)] = fd
             return fd
 
     def read_map(self, k: int) -> np.memmap:
@@ -174,19 +212,25 @@ class SubfileStore:
             for (k, writable), fd in self._fds.items():
                 if writable:
                     os.fsync(fd)
+            for (k, writable), fd in self._dfds.items():
+                # O_DIRECT bypasses the page cache for data, but metadata
+                # (size from the plan-time ftruncate) still needs the sync
+                if writable:
+                    os.fsync(fd)
 
     def close(self) -> None:
         # every cached handle is closed even if one close raises (EIO on
         # flush): stopping at the first failure would leak the rest
         with self._lock:
             first_exc = None
-            for fd in list(self._fds.values()):
+            for fd in list(self._fds.values()) + list(self._dfds.values()):
                 try:
                     os.close(fd)
                 except OSError as e:
                     if first_exc is None:
                         first_exc = e
             self._fds.clear()
+            self._dfds.clear()
             self._maps.clear()
             self._wmaps.clear()
         if first_exc is not None:
@@ -453,29 +497,425 @@ class OverlappedPreadEngine(PreadEngine):
                 store.invalidate(k)
 
 
+class _Transfer:
+    """One in-flight SQE's bookkeeping inside :class:`UringEngine`.
+
+    ``want`` is the total transfer length, ``need`` the minimum acceptable
+    (direct-mode read windows may legally stop short at EOF inside their
+    alignment padding), ``done`` the progress so far — short completions
+    re-prep the remainder and go back in flight."""
+
+    __slots__ = ("opcode", "fd", "base_addr", "file_off", "want", "need",
+                 "done", "slot", "buf", "g", "buf_index")
+
+    def prep(self, ring: IoUring, user_data: int) -> None:
+        ring.prep(self.opcode, self.fd, self.base_addr + self.done,
+                  self.want - self.done, self.file_off + self.done,
+                  user_data, self.buf_index)
+
+
+class UringEngine(PreadEngine):
+    """True async submission through a raw ``io_uring`` ring.
+
+    One SQE per coalesced group, batched submit/reap with up to ``depth``
+    groups in flight — the same plan-group iteration as the overlapped
+    engine, but the queue depth lives in the kernel instead of a thread
+    pool, so there is no per-group dispatch handoff and no GIL traffic.
+    Groups whose span fits a slot of the registered fixed-buffer pool go
+    through ``IORING_OP_READ_FIXED``/``WRITE_FIXED`` (the kernel DMAs into
+    pre-pinned pages — the zero-copy gather); larger groups use plain
+    ``READ``/``WRITE`` SQEs on a per-group buffer.
+
+    ``direct=True`` additionally routes *reads* through ``O_DIRECT`` file
+    handles (aligned windows, page cache bypassed) — a cold read
+    whatever the page cache holds.  Writes always go
+    buffered: direct writes belong to :class:`ODirectEngine`, whose
+    ragged-edge handling this engine does not duplicate.
+
+    The ring is a single-submitter structure; concurrent plans from other
+    threads (decomposed reads) take the serial ``pread`` path instead of
+    queueing behind the lock.  Ring creation failure at execution time
+    degrades to the inherited ``pread`` mechanics — :func:`resolve_engine`
+    normally catches unsupported kernels before an instance exists, this
+    is the in-engine safety net (seccomp mid-session, fd exhaustion).
+    """
+
+    name = "uring"
+
+    def __init__(self, depth: int = DEFAULT_URING_DEPTH,
+                 buf_bytes: int = URING_BUF_BYTES,
+                 register: bool = True, direct: bool = False):
+        if depth < 1:
+            raise ValueError(f"queue depth must be >= 1, got {depth}")
+        if depth > 1024:
+            raise ValueError(f"queue depth must be <= 1024, got {depth}")
+        self.depth = depth
+        # fixed slots must hold whole aligned windows in direct mode
+        self.buf_bytes = -(-int(buf_bytes) // DIRECT_ALIGN) * DIRECT_ALIGN
+        self.register = register
+        self.direct = direct
+        self._lock = threading.Lock()   # single submitter
+        self._ring: IoUring | None = None
+        self._ring_error: str | None = None
+        self._pool = None
+        self._slot_views: list = []
+        self._free_slots: list = []
+        self._fixed = False
+
+    # -- ring lifecycle ------------------------------------------------------
+    def _ensure_ring(self) -> IoUring:
+        if self._ring is not None:
+            return self._ring
+        if self._ring_error is not None:
+            raise UringUnavailable(self._ring_error)
+        try:
+            ring = IoUring(entries=max(self.depth, 8))
+        except UringUnavailable as e:
+            self._ring_error = str(e)
+            raise
+        pool = aligned_empty(self.depth * self.buf_bytes)
+        views = [pool[i * self.buf_bytes:(i + 1) * self.buf_bytes]
+                 for i in range(self.depth)]
+        fixed = False
+        if self.register:
+            try:
+                ring.register_buffers(views)
+                fixed = True
+            except UringUnavailable:
+                # RLIMIT_MEMLOCK too small to pin the pool: plain READ/
+                # WRITE SQEs are still fully async, just not zero-copy
+                fixed = False
+        self._pool, self._slot_views = pool, views
+        self._free_slots = list(range(self.depth))
+        self._fixed = fixed
+        self._ring = ring
+        return ring
+
+    def close(self) -> None:
+        with self._lock:
+            if self._ring is not None:
+                self._ring.close()
+                self._ring = None
+            self._pool, self._slot_views, self._free_slots = None, [], []
+
+    def _take_slot(self, want: int) -> int | None:
+        if want <= self.buf_bytes and self._free_slots:
+            return self._free_slots.pop()
+        return None
+
+    def _release(self, it: _Transfer) -> None:
+        if it.slot is not None:
+            self._free_slots.append(it.slot)
+        it.buf = None                   # drop the keep-alive reference
+
+    # -- the submit/reap driver ----------------------------------------------
+    def _drive(self, ring: IoUring, n_items: int, make_item,
+               finish_item) -> None:
+        """Keep up to ``depth`` transfers in flight: prep from
+        ``make_item(i)``, batched ``io_uring_enter``, complete through
+        ``finish_item``.  Short transfers resubmit their remainder.  On
+        any failure every in-flight CQE is still reaped before the first
+        error surfaces — returning with SQEs pending would let a caller
+        free buffers under an active kernel transfer."""
+        inflight: dict = {}
+        redo: list = []
+        next_i = user_data = 0
+        err: BaseException | None = None
+        while True:
+            submitted = 0
+            if err is None:
+                while redo and ring.sq_space() > 0:
+                    it = redo.pop()
+                    it.prep(ring, user_data)
+                    inflight[user_data] = it
+                    user_data += 1
+                    submitted += 1
+                while (next_i < n_items and len(inflight) < self.depth
+                       and ring.sq_space() > 0):
+                    try:
+                        it = make_item(next_i)
+                    except BaseException as e:  # noqa: BLE001 — drain first
+                        err = e
+                        break
+                    next_i += 1
+                    it.prep(ring, user_data)
+                    inflight[user_data] = it
+                    user_data += 1
+                    submitted += 1
+            if not inflight:
+                break
+            ring.submit(submitted, wait_for=1)
+            for ud, res in ring.reap():
+                it = inflight.pop(ud)
+                if err is not None:     # draining: discard, free the slot
+                    self._release(it)
+                    continue
+                if res < 0:
+                    err = OSError(-res, f"io_uring transfer failed on "
+                                        f"group {it.g}: {os.strerror(-res)}")
+                    self._release(it)
+                    continue
+                it.done += res
+                if res == 0 or it.done >= it.want:
+                    if it.done < it.need:
+                        err = IOError(f"short io_uring transfer: group "
+                                      f"{it.g} moved {it.done} of "
+                                      f"{it.need} bytes")
+                        self._release(it)
+                        continue
+                    try:
+                        finish_item(it)
+                    except BaseException as e:  # noqa: BLE001 — drain first
+                        err = e
+                    self._release(it)
+                else:
+                    redo.append(it)     # short: continue where it stopped
+        if err is not None:
+            raise err
+
+    # -- reads ---------------------------------------------------------------
+    def _run_read(self, ring: IoUring, plan: ReadPlan, store: SubfileStore,
+                  out: np.ndarray) -> None:
+        gb = plan.group_bounds
+        A = DIRECT_ALIGN
+
+        def make(g: int) -> _Transfer:
+            s, e = int(gb[g]), int(gb[g + 1])
+            sf = int(plan.subfiles[s])
+            glo, ghi = int(plan.file_lo[s]), int(plan.file_hi[e - 1])
+            it = _Transfer()
+            it.g, it.done = g, 0
+            if self.direct:
+                it.fd = store.direct_fd(sf)
+                lo, hi = (glo // A) * A, -(-ghi // A) * A
+            else:
+                it.fd = store.fd(sf)
+                lo, hi = glo, ghi
+            want = hi - lo
+            slot = self._take_slot(want)
+            if slot is not None:
+                it.slot = slot
+                it.buf = self._slot_views[slot][:want]
+                it.opcode = OP_READ_FIXED if self._fixed else OP_READ
+                it.buf_index = slot if self._fixed else 0
+            else:
+                it.slot = None
+                it.buf = aligned_empty(want) if self.direct \
+                    else np.empty(want, dtype=np.uint8)
+                it.opcode, it.buf_index = OP_READ, 0
+            it.base_addr = it.buf.ctypes.data
+            it.file_off, it.want = lo, want
+            it.need = ghi - lo          # EOF may clip the alignment pad
+            return it
+
+        def finish(it: _Transfer) -> None:
+            s = int(gb[it.g])
+            glo = int(plan.file_lo[s])
+            self._scatter_group(plan, it.g, it.buf[glo - it.file_off:], out)
+
+        self._drive(ring, plan.num_groups, make, finish)
+
+    def read_plan(self, plan, store, out):
+        if plan.num_groups == 0:
+            return
+        if not self._lock.acquire(blocking=False):
+            # the ring is busy on another thread (decomposed reads):
+            # serial pread beats queueing behind a foreign plan
+            return super().read_plan(plan, store, out)
+        try:
+            try:
+                ring = self._ensure_ring()
+            except UringUnavailable:
+                return super().read_plan(plan, store, out)
+            if self.direct:
+                try:        # one probe: all subfiles share the filesystem
+                    store.direct_fd(int(plan.subfiles[0]))
+                except OSError:
+                    return super().read_plan(plan, store, out)
+            self._run_read(ring, plan, store, out)
+        finally:
+            self._lock.release()
+
+    # -- writes --------------------------------------------------------------
+    def _prepare_write_group(self, plan: WritePlan, g: int,
+                             buffers: Sequence[np.ndarray]) -> np.ndarray:
+        """Assemble group ``g``'s contiguous payload (groups tile their
+        span by construction).  Separate hook so fault-injection tests can
+        kill between group submissions."""
+        gb = plan.group_bounds
+        s, e = int(gb[g]), int(gb[g + 1])
+        if e - s == 1:
+            return _flat_bytes(buffers[s])
+        glo = int(plan.file_lo[s])
+        payload = np.empty(int(plan.file_hi[e - 1]) - glo, dtype=np.uint8)
+        for row in range(s, e):
+            payload[int(plan.file_lo[row]) - glo:
+                    int(plan.file_hi[row]) - glo] = _flat_bytes(buffers[row])
+        return payload
+
+    def _run_write(self, ring: IoUring, plan: WritePlan,
+                   buffers: Sequence[np.ndarray],
+                   store: SubfileStore) -> None:
+        gb = plan.group_bounds
+
+        def make(g: int) -> _Transfer:
+            s = int(gb[g])
+            payload = self._prepare_write_group(plan, g, buffers)
+            it = _Transfer()
+            it.g, it.done = g, 0
+            it.fd = store.fd(int(plan.subfiles[s]), writable=True)
+            want = payload.nbytes
+            slot = self._take_slot(want)
+            if slot is not None:
+                view = self._slot_views[slot][:want]
+                view[:] = payload
+                it.slot, it.buf = slot, view
+                it.opcode = OP_WRITE_FIXED if self._fixed else OP_WRITE
+                it.buf_index = slot if self._fixed else 0
+            else:
+                it.slot = None
+                it.buf = np.ascontiguousarray(payload)
+                it.opcode, it.buf_index = OP_WRITE, 0
+            it.base_addr = it.buf.ctypes.data
+            it.file_off = int(plan.file_lo[s])
+            it.want = it.need = want
+            return it
+
+        self._drive(ring, plan.num_groups, make, lambda it: None)
+
+    def write_plan(self, plan, buffers, store):
+        if not self._lock.acquire(blocking=False):
+            return super().write_plan(plan, buffers, store)
+        try:
+            try:
+                ring = self._ensure_ring()
+            except UringUnavailable:
+                return super().write_plan(plan, buffers, store)
+            for k in plan.file_sizes:
+                store.fd(k, writable=True)
+            try:
+                self._run_write(ring, plan, buffers, store)
+            finally:
+                for k in plan.file_sizes:
+                    store.invalidate(k)
+        finally:
+            self._lock.release()
+
+
+class ODirectEngine(PreadEngine):
+    """``O_DIRECT`` transfers for large sequential extents.
+
+    Reads fetch each coalesced group through an aligned window
+    ``[align_down(lo), align_up(hi))`` into an aligned bounce buffer — the
+    page cache never stages the bytes, so a cold read costs one device
+    pass instead of device → cache → user.  Writes push the aligned middle
+    of each group span direct and finish the ragged head/tail bytes with
+    small buffered edge writes: never a read-modify-write of neighbouring
+    bytes, so concurrent disjoint writers (distributed reorg workers)
+    stay correct.  Plans built with the planner's ``align`` machinery
+    (``GPFS_BLOCK`` spans) have no ragged edges at all.
+
+    Filesystems that refuse ``O_DIRECT`` (tmpfs) degrade per group to the
+    inherited buffered ``pread`` mechanics; :func:`resolve_engine` catches
+    the common case up front and records the fallback reason.
+    """
+
+    name = "odirect"
+
+    def __init__(self, align: int = DIRECT_ALIGN):
+        if align < 512 or align & (align - 1):
+            raise ValueError(f"align must be a power-of-two >= 512, "
+                             f"got {align}")
+        self.align = int(align)
+
+    # -- reads ---------------------------------------------------------------
+    def _fetch_group(self, plan: ReadPlan, g: int,
+                     store: SubfileStore) -> np.ndarray:
+        gb = plan.group_bounds
+        s, e = int(gb[g]), int(gb[g + 1])
+        glo = int(plan.file_lo[s])
+        ghi = int(plan.file_hi[e - 1])
+        try:
+            dfd = store.direct_fd(int(plan.subfiles[s]))
+        except OSError:
+            return super()._fetch_group(plan, g, store)
+        A = self.align
+        alo, ahi = (glo // A) * A, -(-ghi // A) * A
+        buf = aligned_empty(ahi - alo, A)
+        got = pread_into_direct(dfd, buf, alo)
+        if got < ghi - alo:             # EOF may only clip the pad bytes
+            raise IOError(f"short direct read: group {g} got {got} of "
+                          f"{ghi - alo} required bytes")
+        return buf[glo - alo:ghi - alo]
+
+    # -- writes --------------------------------------------------------------
+    def _write_group(self, plan: WritePlan, g: int,
+                     buffers: Sequence[np.ndarray],
+                     store: SubfileStore) -> None:
+        gb = plan.group_bounds
+        s, e = int(gb[g]), int(gb[g + 1])
+        sf = int(plan.subfiles[s])
+        glo = int(plan.file_lo[s])
+        ghi = int(plan.file_hi[e - 1])
+        A = self.align
+        head = -(-glo // A) * A         # align_up(glo)
+        tail = (ghi // A) * A           # align_down(ghi)
+        if tail - head < A:             # no aligned middle: buffered
+            return super()._write_group(plan, g, buffers, store)
+        try:
+            dfd = store.direct_fd(sf, writable=True)
+        except OSError:
+            return super()._write_group(plan, g, buffers, store)
+        abuf = aligned_empty(tail - head, A)
+        edges = []                      # (offset, bytes) outside [head,tail)
+        for row in range(s, e):
+            flo, fhi = int(plan.file_lo[row]), int(plan.file_hi[row])
+            fb = _flat_bytes(buffers[row])
+            mlo, mhi = max(flo, head), min(fhi, tail)
+            if mlo < mhi:
+                abuf[mlo - head:mhi - head] = fb[mlo - flo:mhi - flo]
+            if flo < head:
+                edges.append((flo, fb[:min(fhi, head) - flo]))
+            if fhi > tail:
+                tlo = max(flo, tail)
+                edges.append((tlo, fb[tlo - flo:]))
+        try:
+            pwrite_direct(dfd, abuf, head)
+        except OSError:
+            # a filesystem that opened O_DIRECT but refuses the transfer
+            # (alignment quirk): rewrite the whole group buffered
+            return super()._write_group(plan, g, buffers, store)
+        if edges:
+            # ragged head/tail bytes: small buffered writes — the direct
+            # region is page-aligned on both sides, so the dirtied edge
+            # pages never overlap the direct extent
+            fd = store.fd(sf, writable=True)
+            for off, chunk in edges:
+                _pwrite_all(fd, memoryview(chunk), off)
+
+
 ENGINES = {
     "memmap": MemmapEngine,
     "pread": PreadEngine,
     "overlapped": OverlappedPreadEngine,
+    "uring": UringEngine,
+    "odirect": ODirectEngine,
 }
 
 #: engines whose spec accepts a ":<depth>" queue-depth suffix
 _DEPTH_ENGINES = {"overlapped", "uring"}
-#: the reference's kernel-bypass engines, not ported yet: each degrades to
-#: the engine the reference falls back to without kernel support, and why
-_NOT_PORTED = {"uring": ("overlapped", "io_uring engine not ported yet (S6)"),
-               "odirect": ("pread", "O_DIRECT engine not ported yet (S6)")}
+_DEFAULT_DEPTHS = {"overlapped": DEFAULT_QUEUE_DEPTH,
+                   "uring": DEFAULT_URING_DEPTH}
 
 _instances: dict = {}
 _instances_lock = threading.Lock()
 
 
 def validate_engine_spec(engine) -> str:
-    """Validate an engine spec *including* ``"auto"`` and the reference's
-    kernel-bypass spellings (``"uring[:<depth>]"``, ``"odirect"``), and
-    return it normalized to a string.  Raises ``ValueError`` on anything
-    unknown — callers use this to fail loudly instead of silently falling
-    back to a default engine.
+    """Validate an engine spec *including* ``"auto"`` and return it
+    normalized to a string.  Raises ``ValueError`` on anything unknown —
+    callers (benchmark harnesses, CLIs) use this to fail loudly instead of
+    silently falling back to a default engine.
     """
     if isinstance(engine, IOEngine):
         return engine.name
@@ -491,42 +931,37 @@ def validate_engine_spec(engine) -> str:
             raise ValueError(f"bad queue depth in engine spec {engine!r}")
         if depth < 1:
             raise ValueError(f"queue depth must be >= 1, got {depth}")
-    if base != "auto" and base not in ENGINES and base not in _NOT_PORTED:
+    if base != "auto" and base not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of "
-                         f"{sorted([*ENGINES, *_NOT_PORTED]) + ['auto']} or "
-                         f"an IOEngine instance")
+                         f"{sorted(ENGINES) + ['auto']} or an IOEngine "
+                         f"instance")
     return name
 
 
 def get_engine(engine, **kwargs) -> IOEngine:
     """Resolve an engine spec: an :class:`IOEngine` instance (returned
-    as-is), or a registry name — ``"memmap"``, ``"pread"``, ``"overlapped"``
-    (``"overlapped:<depth>"`` sets the queue depth).  ``"auto"`` is the
-    session's to resolve, per plan; ``"uring"`` and ``"odirect"`` raise
-    ``NotImplementedError`` (S6: use :func:`resolve_engine`, which
-    degrades them).
+    as-is), or a registry name — ``"memmap"``, ``"pread"``, ``"overlapped"``,
+    ``"uring"``, ``"odirect"`` (``"overlapped:<depth>"`` / ``"uring:<depth>"``
+    set the queue depth; other constructor knobs pass as kwargs).
 
-    Named engines are process-wide singletons keyed on the resolved
-    ``(name, kwargs)`` pair, so ``"overlapped"`` and ``"overlapped:8"``
-    share one submission pool.  A spec-string depth that contradicts an
-    explicit ``depth=`` kwarg is an error.
+    Named engines are process-wide singletons keyed on the *resolved*
+    ``(name, kwargs)`` pair — ``"overlapped"`` and ``"overlapped:8"`` share
+    one instance (one submission pool), while differently-configured
+    requests (another depth, an unregistered-buffer uring) get distinct
+    instances instead of silently sharing a mis-sized pool.  A spec-string
+    depth that contradicts an explicit ``depth=`` kwarg is an error, not a
+    silent preference.
     """
     if isinstance(engine, IOEngine):
         return engine
     name = str(engine)
-    base = name.partition(":")[0]
-    if base == "auto":
+    if name.partition(":")[0] == "auto":
         raise ValueError("engine 'auto' is resolved per plan by Dataset "
                          "(pass engine='auto' to Dataset.create/open or to "
                          "read_planned/write_planned), not by get_engine")
-    if base in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: it waits for the "
-            f"kernel-bypass engines (S6 in ROADMAP.md queue 1); "
-            f"resolve_engine degrades it to {_NOT_PORTED[base][0]!r}")
     if ":" in name:
         name, arg = name.split(":", 1)
-        if name != "overlapped":
+        if name not in _DEPTH_ENGINES:
             raise ValueError(f"engine {engine!r} takes no ':<depth>' "
                              f"argument")
         spec_depth = int(arg)
@@ -537,9 +972,9 @@ def get_engine(engine, **kwargs) -> IOEngine:
                              f"vs depth={kwargs['depth']}")
         kwargs = dict(kwargs)
         kwargs["depth"] = spec_depth
-    if name == "overlapped":
+    if name in _DEPTH_ENGINES:
         kwargs = dict(kwargs)
-        kwargs.setdefault("depth", DEFAULT_QUEUE_DEPTH)
+        kwargs.setdefault("depth", _DEFAULT_DEPTHS[name])
     cls = ENGINES.get(name)
     if cls is None:
         raise ValueError(f"unknown engine {engine!r}; one of "
@@ -554,23 +989,30 @@ def get_engine(engine, **kwargs) -> IOEngine:
 
 def resolve_engine(engine, dirpath: str | None = None,
                    **kwargs) -> tuple:
-    """:func:`get_engine` plus the reference's degrade path: returns
-    ``(engine, fallback_reason)``, ``fallback_reason`` ``""`` when the spec
-    resolved as requested.
+    """:func:`get_engine` plus kernel feature detection:
+    returns ``(engine, fallback_reason)`` where ``fallback_reason`` is
+    ``""`` when the spec resolved as requested.
 
-    ``uring[:<depth>]`` degrades to ``overlapped[:<depth>]`` and
-    ``odirect`` to ``pread`` — what the reference does on a host without
-    io_uring or O_DIRECT — because neither engine is ported yet (S6); the
-    reason names it.  ``dirpath`` is accepted for the reference's
-    signature (its O_DIRECT probe is per filesystem)."""
+    ``uring`` degrades to ``overlapped`` (same queue depth) where
+    ``io_uring`` is unavailable (old kernel, seccomp, sysctl); ``odirect``
+    degrades to ``pread`` where ``dirpath``'s filesystem refuses
+    ``O_DIRECT`` (tmpfs).  The reason string is what Dataset sessions
+    surface as ``ReadStats.engine_reason`` so fallbacks are observable,
+    never silent.  With ``dirpath=None`` the odirect probe is skipped —
+    the engine still degrades per group internally, it just can't report.
+    """
     if isinstance(engine, IOEngine):
         return engine, ""
     name = str(engine)
     base, sep, arg = name.partition(":")
-    if base in _NOT_PORTED:
-        validate_engine_spec(name)
-        fallback, why = _NOT_PORTED[base]
-        kw = {k: v for k, v in kwargs.items() if k == "depth"}
-        return get_engine(fallback + (f":{arg}" if sep else ""), **kw), \
-            f"{base} -> {fallback}: {why}"
+    if base == "uring":
+        ok, why = uring_available()
+        if not ok:
+            spec = "overlapped" + (f":{arg}" if sep else "")
+            kw = {k: v for k, v in kwargs.items() if k == "depth"}
+            return get_engine(spec, **kw), f"uring -> overlapped: {why}"
+    elif base == "odirect" and dirpath is not None:
+        ok, why = odirect_available(dirpath)
+        if not ok:
+            return get_engine("pread"), f"odirect -> pread: {why}"
     return get_engine(engine, **kwargs), ""

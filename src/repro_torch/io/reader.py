@@ -139,10 +139,12 @@ class Dataset:
     ``Dataset(dir)`` attaches to an existing dataset (read paths work
     immediately, writes append); ``Dataset.create(dir)`` starts an empty
     one.  ``engine`` is ``"memmap"``, ``"pread"``,
-    ``"overlapped"``/``"overlapped:<depth>"``, ``"auto"`` or an
-    :class:`~repro_torch.io.engine.IOEngine` instance (``"uring[:<depth>]"``
-    and ``"odirect"`` degrade, as :func:`~repro_torch.io.engine.
-    resolve_engine` says).  With ``"auto"`` the session picks an engine
+    ``"overlapped"``/``"overlapped:<depth>"``, ``"uring"``/
+    ``"uring:<depth>"``, ``"odirect"``, ``"auto"`` or an
+    :class:`~repro_torch.io.engine.IOEngine` instance; a kernel-bypass
+    engine this host or filesystem cannot run degrades as
+    :func:`~repro_torch.io.engine.resolve_engine` says, and the reason
+    enters every stats record.  With ``"auto"`` the session picks an engine
     *per plan* from the plan's shape and a storage calibration
     (``calibration.json`` next to ``index.json``, micro-probed and
     persisted on first use; ``calibration`` injects one, which drift never
@@ -308,9 +310,11 @@ class Dataset:
         """Resolve a per-call ``engine`` override (or the session default)
         to an engine instance; returns ``(engine, EngineChoice | None,
         pinned_reason)``.  ``"auto"`` — per call or as the session default
-        — consults the cost model with this plan's shape.  Specs that are
-        not ported degrade through :func:`~repro_torch.io.engine.
-        resolve_engine`, and the reason enters the stats record."""
+        — consults the cost model with this plan's shape.  Pinned specs
+        that the kernel/filesystem cannot honor degrade through
+        :func:`~repro_torch.io.engine.resolve_engine`, and
+        ``pinned_reason`` carries the fallback explanation into the stats
+        record."""
         spec = override if override is not None else \
             ("auto" if self._auto else self._engine)
         if isinstance(spec, str) and spec == "auto":
@@ -320,9 +324,9 @@ class Dataset:
                                    direction=direction)
             eng, fb = resolve_engine(choice.engine, dirpath=self.dirpath)
             if fb:
-                # a calibration that carries kernel-bypass terms (injected,
-                # or copied from another host) priced an engine this port
-                # lacks: degrade, and keep the record honest about what ran
+                # a calibration probed elsewhere promised support this
+                # host lacks (copied calibration.json): degrade, but keep
+                # the decision record honest about what actually ran
                 choice = dataclasses.replace(choice, engine=eng.name,
                                              reason=f"{choice.reason}; "
                                                     f"{fb}")
@@ -898,7 +902,8 @@ def reorganize(src_dir: str, dst_dir: str, var: str,
         read_seconds = d2h_seconds = encode_seconds = 0.0
         gather = ReadStats()
         parts, enc = [], []
-        for batch in gather_batches(layout, dtype.itemsize) or [[]]:
+        for batch in gather_batches([cp.chunk.volume * dtype.itemsize
+                                     for cp in layout.chunks]) or [[]]:
             bufs = []
             if batch:
                 t0 = time.perf_counter()

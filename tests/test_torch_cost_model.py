@@ -2,9 +2,10 @@
 names against the JAX package's, on injected calibrations: the staging
 model, every prediction and ``EngineChoice``, ``calibration.json`` and
 ``reorg_stats.json`` byte for byte, version 1/2/3 loads, drift, the
-``choose_engine`` doctests, engine specs and the kernel-bypass degrade
-(whose engines are not ported yet: S6), and ``engine="auto"`` through
-both packages' ``Dataset`` sessions.  Every comparison is exact."""
+``choose_engine`` doctests, engine specs, the probes' kernel-bypass
+terms and the engines' degrade where a host lacks io_uring or O_DIRECT,
+and ``engine="auto"`` through both packages' ``Dataset`` sessions.  Every
+comparison is exact."""
 
 import dataclasses
 import doctest
@@ -194,16 +195,20 @@ def test_calibration_files_equal_and_versions_load(tmp_path):
     assert not (td / name).exists()
 
 
-def test_probe_reports_the_unported_engines_unsupported(tmp_path):
-    """The port's probe measures what the reference's does, and leaves the
-    kernel-bypass terms at their "unsupported" sentinels (S6), so auto
-    never picks an engine the port lacks from its own probe."""
+def test_probe_measures_the_kernel_terms_where_supported(tmp_path):
+    """The port's probe measures what the reference's does, the
+    kernel-bypass terms included exactly where the host's io_uring and
+    O_DIRECT probes say they work, and leaves no scratch file."""
+    from repro_torch.io.direct import odirect_available
+    from repro_torch.io.uring import uring_available
     cal = tcm.probe_storage(str(tmp_path), probe_bytes=1 << 20)
     ref = jcm.FALLBACK_CALIBRATION
     assert set(dataclasses.asdict(cal)) == set(dataclasses.asdict(ref))
     assert cal.version == tcm.CALIBRATION_VERSION
-    assert cal.uring_sqe_s < 0 and cal.odirect_seq_read_bps < 0
-    assert cal.odirect_seq_write_bps < 0
+    assert (cal.uring_sqe_s >= 0) == uring_available()[0]
+    assert (cal.odirect_seq_read_bps > 0) == \
+        (cal.odirect_seq_write_bps > 0) == \
+        odirect_available(str(tmp_path))[0]
     assert cal.seq_read_bps > 0 and cal.memmap_bps > 0
     assert os.listdir(tmp_path) == []
     got = tcm.storage_calibration(str(tmp_path), probe_bytes=1 << 20)
@@ -265,23 +270,31 @@ def test_engine_specs_validate_as_the_reference():
                                             ("uring:8", "overlapped", 8),
                                             ("uring:2", "overlapped", 2),
                                             ("odirect", "pread", None)])
-def test_kernel_bypass_engines_degrade_naming_s6(spec, ran, depth,
-                                                 monkeypatch, tmp_path):
-    """``resolve_engine`` degrades as the reference does on a host without
-    io_uring or O_DIRECT, with a reason that names S6; ``get_engine``
-    refuses the engine outright."""
-    monkeypatch.setattr(jeng, "uring_available", lambda: (False, "none"))
-    monkeypatch.setattr(jeng, "odirect_available",
-                        lambda p: (False, "none"))
+def test_kernel_bypass_engines_resolve_as_the_reference(spec, ran, depth,
+                                                       monkeypatch,
+                                                       tmp_path):
+    """Where the probes pass, ``get_engine`` and ``resolve_engine`` give
+    the real engine, as the reference's do; with both packages' probes
+    made to fail, both degrade to the same engine and depth with the same
+    reason."""
+    jreal, jwhy = jeng.resolve_engine(spec, dirpath=str(tmp_path))
+    treal, twhy = teng.resolve_engine(spec, dirpath=str(tmp_path))
+    assert (type(treal).__name__, treal.name, twhy) == \
+        (type(jreal).__name__, jreal.name, jwhy)
+    assert getattr(treal, "depth", None) == getattr(jreal, "depth", None)
+    assert type(teng.get_engine(spec)).__name__ == \
+        type(jeng.get_engine(spec)).__name__
+    for mod in (jeng, teng):
+        monkeypatch.setattr(mod, "uring_available",
+                            lambda: (False, "io_uring_setup: ENOSYS"))
+        monkeypatch.setattr(mod, "odirect_available",
+                            lambda p: (False, "tmpfs refuses O_DIRECT"))
     jeng_, jwhy = jeng.resolve_engine(spec, dirpath=str(tmp_path))
     teng_, twhy = teng.resolve_engine(spec, dirpath=str(tmp_path))
     assert jeng_.name == teng_.name == ran
     assert getattr(jeng_, "depth", None) == getattr(teng_, "depth", None) \
         == depth
-    assert twhy.split(":")[0] == jwhy.split(":")[0]
-    assert "not ported yet (S6)" in twhy
-    with pytest.raises(NotImplementedError, match="S6"):
-        teng.get_engine(spec)
+    assert twhy == jwhy and twhy.startswith(f"{spec.split(':')[0]} -> {ran}")
     assert teng.resolve_engine("pread") == (teng.get_engine("pread"), "")
 
 
@@ -310,9 +323,8 @@ def written(tmp_path_factory):
 def test_auto_reads_and_writes_record_the_reference_decision(written, cal,
                                                              monkeypatch):
     """The same plans under the same injected calibration: equal engine,
-    reason and prediction, the data equal; where the reference's choice is
-    a kernel-bypass engine, the port records the degrade naming S6."""
-    monkeypatch.setattr(jeng, "uring_available", lambda: (False, "none"))
+    reason and prediction, the data equal, a kernel-bypass choice run by
+    the real engine in both packages."""
     d, shape, field, blocks, data = written
     jc, tc_ = _cals(cal)
     jd = JDataset.open(str(d / "src"), engine="auto", calibration=jc,
@@ -329,15 +341,10 @@ def test_auto_reads_and_writes_record_the_reference_decision(written, cal,
                                bytes_moved=ts.bytes_read,
                                span_bytes=td.plan_read("B",
                                                        region).span_bytes)
-    assert ts.engine_reason.startswith(choice.reason)
+    assert ts.engine_reason == choice.reason
     assert ts.predicted_seconds == js.predicted_seconds
-    if choice.engine.startswith("uring"):
-        assert ts.engine.startswith("overlapped")
-        assert "uring -> overlapped: io_uring engine not ported yet (S6)" \
-            in ts.engine_reason
-    else:
-        assert (ts.engine, ts.engine_reason) == (js.engine,
-                                                 js.engine_reason)
+    assert (ts.engine, ts.engine_reason) == (js.engine, js.engine_reason)
+    assert ts.engine == choice.engine
     # the device routes resolve auto on the span plan they execute
     got, rs = td.read("B", region)
     assert np.array_equal(got.numpy(), field[region.slices()])
@@ -367,15 +374,33 @@ def test_auto_reads_and_writes_record_the_reference_decision(written, cal,
         s.close()
 
 
-def test_pinned_kernel_engines_degrade_in_the_session(written):
+def test_pinned_kernel_engines_run_in_the_session(written, monkeypatch):
+    """Pinned ``uring:4`` and ``odirect`` run the real engines through the
+    port's session, its device routes included; where the probes fail the
+    stats carry the reference's degrade reason."""
     d, shape, field, blocks, data = written
-    for spec in ("uring:4", "odirect"):
+    whole = Block((0, 0, 0), shape)
+    for spec, name in (("uring:4", "uring"), ("odirect", "odirect")):
         td = Dataset.open(str(d / "src"), engine=spec, device="cpu")
-        got, st = td.read("B", Block((0, 0, 0), shape))
+        got, st = td.read("B", whole)
         assert np.array_equal(got.numpy(), field)
-        assert st.engine == ("overlapped" if spec == "uring:4"
-                             else "pread")
-        assert "not ported yet (S6)" in st.engine_reason
-        _, st = td.read("B", Block((0, 0, 0), shape), engine="pread")
+        assert (st.engine, st.engine_reason) == (name, "pinned")
+        _, st = td.read("B", whole, engine="pread")
         assert (st.engine, st.engine_reason) == ("pread", "pinned")
+        td.close()
+    for mod in (jeng, teng):
+        monkeypatch.setattr(mod, "uring_available",
+                            lambda: (False, "io_uring_setup: ENOSYS"))
+        monkeypatch.setattr(mod, "odirect_available",
+                            lambda p: (False, "tmpfs refuses O_DIRECT"))
+    for spec in ("uring:4", "odirect"):
+        jd = JDataset.open(str(d / "src"), engine=spec, telemetry=False)
+        td = Dataset.open(str(d / "src"), engine=spec, device="cpu")
+        jarr, js = jd.read("B", JBlock((0, 0, 0), shape))
+        got, ts = td.read("B", whole)
+        assert np.array_equal(got.numpy(), jarr)
+        assert (ts.engine, ts.engine_reason) == (js.engine, js.engine_reason)
+        assert ts.engine in ("overlapped", "pread") and " -> " in \
+            ts.engine_reason
+        jd.close()
         td.close()

@@ -5,6 +5,7 @@ skip where there is no GPU (run them on one with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``)."""
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -239,6 +240,20 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert torch.equal(flat[k][b.block_id], tree[k][b.slices()])
 
 
+def _written_3d(cuda, d, engine="memmap"):
+    shape = (32, 48, 40)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (8, 16, 10)), num_procs=6, seed=3)
+    field = torch.randn(shape, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    ds = Dataset.create(str(d), engine=engine, device=cuda)
+    ds.write("E", tc.plan_layout("merged_process", blocks, num_procs=6,
+                                 procs_per_node=2), np.float32,
+             {b.block_id: field[b.slices()].contiguous() for b in blocks})
+    ds.close()
+    return shape, blocks, field
+
+
 def test_reorganize_and_read_pattern_on_the_card(cuda, tmp_path):
     """A small ``reorganize`` on the card: one ``pack_rows`` launch a
     gather batch, the destination's files equal to the CPU run's; then
@@ -246,17 +261,8 @@ def test_reorganize_and_read_pattern_on_the_card(cuda, tmp_path):
     and the source's data."""
     from repro_torch.io import reorganize
     from repro_torch.io.device import gather_batches
-    shape = (32, 48, 40)
-    blocks = tc.simulate_load_balance(
-        tc.uniform_grid_blocks(shape, (8, 16, 10)), num_procs=6, seed=3)
-    field = torch.randn(shape, generator=torch.Generator(
-        device=cuda).manual_seed(0), device=cuda)
     src = tmp_path / "src"
-    ds = Dataset.create(str(src), device=cuda)
-    ds.write("E", tc.plan_layout("merged_process", blocks, num_procs=6,
-                                 procs_per_node=2), np.float32,
-             {b.block_id: field[b.slices()].contiguous() for b in blocks})
-    ds.close()
+    shape, blocks, field = _written_3d(cuda, src)
     target = tc.plan_reorganization(blocks, shape, None, num_stagers=3)
     files, stats = {}, {}
     for dev in ("cuda", "cpu"):
@@ -264,7 +270,8 @@ def test_reorganize_and_read_pattern_on_the_card(cuda, tmp_path):
         K.reset_launch_counts()
         _, dst, _ = reorganize(str(src), str(d), "E", target, device=dev)
         assert K.launch_counts()["pack_rows"] == (
-            len(gather_batches(target, 4)) if dev == "cuda" else 0)
+            len(gather_batches([cp.chunk.volume * 4 for cp in
+                                target.chunks])) if dev == "cuda" else 0)
         files[dev] = {f.name: f.read_bytes() for f in sorted(d.iterdir())
                       if f.name != "reorg_stats.json"}
         stats[dev] = []
@@ -279,6 +286,62 @@ def test_reorganize_and_read_pattern_on_the_card(cuda, tmp_path):
         dst.close()
     assert files["cuda"] == files["cpu"]
     assert stats["cuda"] == stats["cpu"]
+
+
+@pytest.mark.parametrize("engine", ["odirect", "uring"])
+def test_kernel_bypass_read_back_onto_the_card(cuda, tmp_path, engine):
+    """A 3-D field written under ``merged_process`` with a kernel-bypass
+    engine and read back whole onto the card through it: one ``pack_rows``
+    launch, the source's values; the engine that ran is the one asked for
+    unless the host's probe refuses it, and then the reason says why."""
+    from repro_torch.io.direct import odirect_available
+    from repro_torch.io.uring import uring_available
+    d = tmp_path / "d"
+    shape, _, field = _written_3d(cuda, d, engine)
+    ok, why = uring_available() if engine == "uring" else \
+        odirect_available(str(d))
+    ds = Dataset.open(str(d), engine=engine, device=cuda)
+    K.reset_launch_counts()
+    got, st = ds.read("E", Block((0, 0, 0), shape))
+    assert K.launch_counts()["pack_rows"] == 1
+    assert torch.equal(got, field)
+    if ok:
+        assert (st.engine, st.engine_reason) == (engine, "pinned")
+    else:
+        assert st.engine == {"uring": "overlapped", "odirect": "pread"}[
+            engine] and why in st.engine_reason
+    ds.close()
+
+
+def test_distributed_reorganize_on_the_card(cuda, tmp_path):
+    """Two worker processes gathering on the card (``device="cuda"``,
+    O_DIRECT writes): subfiles and ``index.json`` chunks equal to a
+    single-process ``reorganize`` of the same source, and the committed
+    dataset read back onto the card equal to the field."""
+    from repro_torch.distributed import distributed_reorganize
+    from repro_torch.io import reorganize
+    src = tmp_path / "src"
+    shape, blocks, field = _written_3d(cuda, src)
+    target = tc.plan_reorganization(blocks, shape, None, num_stagers=3)
+    _, ref, _ = reorganize(str(src), str(tmp_path / "ref"), "E", target,
+                           device=cuda)
+    ref.close()
+    dst = tmp_path / "dst"
+    ds, stats = distributed_reorganize(str(src), str(dst), "E", target,
+                                       num_workers=2, engine="odirect",
+                                       round_timeout_s=300.0, device="cuda")
+    got, _ = ds.read("E", Block((0, 0, 0), shape))
+    ds.close()
+    assert torch.equal(got, field)
+    assert (stats["rounds"], stats["validation_failures"]) == (1, 0)
+    bins = sorted(f.name for f in dst.glob("data_*.bin"))
+    assert bins == sorted(f.name for f in (tmp_path / "ref").glob(
+        "data_*.bin"))
+    for f in bins:
+        assert (dst / f).read_bytes() == (tmp_path / "ref" / f).read_bytes()
+    chunks = [json.loads((p / "index.json").read_text())["chunks"]
+              for p in (dst, tmp_path / "ref")]
+    assert chunks[0] == chunks[1]
 
 
 def test_reads_reuse_the_sessions_pinned_buffer(cuda, tmp_path):

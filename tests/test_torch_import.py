@@ -56,7 +56,10 @@ def test_import_leaves_jax_and_repro_unloaded():
 @pytest.mark.parametrize("mod", ["core.cost_model", "core.reorg",
                                  "core.read_patterns", "io.patterns",
                                  "io.reader", "io.engine", "core.policy",
-                                 "io.staging", "checkpoint.async_ckpt"])
+                                 "io.staging", "checkpoint.async_ckpt",
+                                 "io.direct", "io.uring", "io.journal",
+                                 "distributed.fault_tolerance",
+                                 "distributed.reorg"])
 def test_mirrored_modules_are_scanned(mod):
     """The port keeps its own copy of each module it mirrors, at the same
     path, and the scans above cover it."""
@@ -83,7 +86,8 @@ def test_no_forbidden_import_statement(path):
 
 def test_package_is_lazy():
     assert set(repro_torch.__all__) == {"checkpoint", "configs", "core",
-                                        "data", "device", "examples",
+                                        "data", "device", "distributed",
+                                        "examples",
                                         "interop", "io", "kernels", "launch",
                                         "models", "serve", "train"}
     with pytest.raises(AttributeError):
