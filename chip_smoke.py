@@ -132,7 +132,7 @@ Phases, each printing one JSON line:
     ``merged_process``, reorganized out of place to the default 4 x 4 x 4
     (one ``pack_rows`` launch a gather batch), its six Fig.-6 patterns
     read under both layouts by ``Dataset.read`` (``torch.equal`` to the
-    source) and by ``read_pattern`` with 8 readers and
+    source) and by ``read_pattern`` with 4 readers and
     ``engine="auto"`` (best scheme, seconds, bytes, chunks, the engine and
     its reason; the calibration's terms), and reorganized in place to 2 x
     8 x 4 (generation up by one, seen by a session opened before the
@@ -144,7 +144,22 @@ Phases, each printing one JSON line:
     ``access_log.json``: the policy's decision (scheme, codec, reason,
     scores), the stage seconds, the launches (one a gather batch and one
     for the codec sample's read) and the whole read-back; that history is
-    exported as 17a's prior;
+    exported as 17a's prior.  Before 16c, under each of the two layouts
+    (16d), the multi-tenant read service (``ReadService``, default 2 ms
+    window, ``max_batch`` 64, 256 MiB in flight, ``engine="auto"``):
+    8 tenant threads each submit the regions of ``sub_area``,
+    ``plane_yz``, ``plane_xz``, ``plane_xy`` and ``line_z`` (round A:
+    the same regions; round B: tenant t's moved 8 t along axis 0, clamped
+    to the domain), then one ``read_batch`` of round B's 40 requests and
+    one of round C's 16 (each tenant's ``line_z`` and ``plane_yz``,
+    moved as in round B, which fit the in-flight limit together: fewer
+    coalesced batches than requests, or the phase fails); every result
+    ``torch.equal`` to the source on the card, ``pack_rows`` launches
+    equal to the coalesced batches (``super_plans``), no member on the
+    host route; the service's statistics, ``fetch_bytes`` against
+    ``bytes_served``, each tenant's seconds, and each ``read_batch``'s
+    wall time beside the same requests as independent ``Dataset.read``
+    calls;
 17a. online reorganization (paper §5, the staging coupler): the same 3-D
     component as 1,024 boxes of a field on the card, staged for 3 output
     steps by ``StagingExecutor`` (2 workers, queue depth 2,
@@ -184,7 +199,15 @@ Phases, each printing one JSON line:
     gathered, ``pack_rows`` launches (read in the worker, after its
     warm-up), the card's name and the spawn, import, warm-up and work
     seconds; the destination bit-identical to a single-process
-    ``reorganize`` and read back ``torch.equal``.
+    ``reorganize`` and read back ``torch.equal``;
+19. (last) trace replay: every committed trace under ``traces/`` replayed
+    by ``replay_trace`` with ``engine="memmap"`` on the card and on the
+    CPU under ``build/chip_smoke/replay`` (removed): the two digests equal
+    (the digest covers every read's bytes, every policy decision and the
+    final index and manifest tables), the event counts the trace's own,
+    nonzero verified bytes; each trace's seconds both ways and its
+    copy-kernel launches on the card (``pack_rows`` in every trace, the
+    relayout pair where a replayed read or write meets an even 2-D grid).
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -1888,6 +1911,19 @@ PATTERN_READERS = 8
 #: the 3-D component's access history after phase 16's pattern reads,
 #: exported as phase 17a's cross-run prior
 STAGING_PRIOR = ROOT / "build" / "chip_smoke" / "warpx_prior.json"
+#: 16d, the read service on the 3-D component: SERVICE_TENANTS tenants, one
+#: thread each, each submitting these patterns' regions; in round B tenant
+#: t's regions move SERVICE_SHIFT * t along axis 0, clamped to the domain.
+#: Round C's regions are each tenant's SERVICE_SMALL ones, shifted as in
+#: round B: a plane_yz's hull is 4 MiB under 4 x 4 x 4, a line_z's 4 KiB,
+#: so they fit the in-flight limit together while a plane_xz's or a
+#: plane_xy's hull (about 512 MiB) fills it alone.  The service's window is
+#: its default (2 ms), the rest as below
+SERVICE_TENANTS = 8
+SERVICE_PATTERNS = ("sub_area", "plane_yz", "plane_xz", "plane_xy", "line_z")
+SERVICE_SMALL = ("line_z", "plane_yz")
+SERVICE_SHIFT = 8
+SERVICE_MAX_BATCH, SERVICE_INFLIGHT = 64, 256 << 20
 
 
 def _reorg_stages(rs: float, ws) -> dict:
@@ -2078,6 +2114,12 @@ def reorg(torch, dev, K, blocks2d) -> dict:
         cube["patterns"] = patterns
         cube["num_readers"] = PATTERN_READERS
 
+        # 16d: the read service under both layouts, before 16c reads the
+        # history (the service's sessions log nothing)
+        cube["service"] = {name: serve_reads(torch, d, field, counted)
+                           for name, d in (("merged_process", src),
+                                           ("reorganized", dst))}
+
         # 16c: layout="auto" over the history the pattern reads logged;
         # the history is kept as phase 17a's prior
         AccessLog(str(src)).export_prior(str(STAGING_PRIOR))
@@ -2139,6 +2181,199 @@ def reorg(torch, dev, K, blocks2d) -> dict:
     if missing:
         raise AssertionError(f"the reorganization path never launched "
                              f"{missing}")
+    out["launches"] = launches
+    return out
+
+
+def _shifted(region, shift: int):
+    """``region`` moved ``shift`` along axis 0, clamped to the 3-D
+    component."""
+    from repro_torch.core.blocks import Block
+    lo0 = min(region.lo[0] + shift, REORG_FIELD[0] - 1)
+    hi0 = min(region.hi[0] + shift, REORG_FIELD[0])
+    return Block((lo0,) + tuple(region.lo[1:]), (hi0,) + tuple(region.hi[1:]))
+
+
+def serve_reads(torch, d: Path, field, counted) -> dict:
+    """16d: the multi-tenant read service on one layout of the 3-D
+    component.  SERVICE_TENANTS client threads each submit the five
+    pattern regions (round A: the same regions; round B: each tenant's
+    shifted), then one ``read_batch`` of round B's requests and one of
+    round C's (each tenant's SERVICE_SMALL regions, shifted as in round
+    B: small enough that the admission limit takes several tenants'
+    members into one batch, which the check demands); every result
+    ``torch.equal`` to the source on the card, every coalesced batch one
+    ``pack_rows`` launch (launches == the rounds' ``super_plans``), no
+    member on the host route.  After each ``read_batch``, the same
+    requests as independent ``Dataset.read`` calls, for their wall
+    time.  The session logs
+    nothing, so 16c's history stays the pattern reads'."""
+    import dataclasses
+    import threading
+    from repro_torch.core import pattern_region
+    from repro_torch.io import Dataset
+    from repro_torch.serve import ReadService, Request
+    base = [pattern_region(p, REORG_FIELD) for p in SERVICE_PATTERNS]
+    small = [pattern_region(p, REORG_FIELD) for p in SERVICE_SMALL]
+    rounds = {"A": [base] * SERVICE_TENANTS,
+              "B": [[_shifted(r, SERVICE_SHIFT * t) for r in base]
+                    for t in range(SERVICE_TENANTS)],
+              "C": [[_shifted(r, SERVICE_SHIFT * t) for r in small]
+                    for t in range(SERVICE_TENANTS)]}
+    ds = Dataset.open(str(d), engine="auto", telemetry=False)
+    out = {"tenants": SERVICE_TENANTS, "patterns": list(SERVICE_PATTERNS),
+           "max_batch": SERVICE_MAX_BATCH,
+           "max_inflight_bytes": SERVICE_INFLIGHT}
+
+    def check(results, regions, what):
+        routes = {st.route for _, st in results}
+        if routes != {"device"}:
+            raise AssertionError(f"{what}: members on routes {routes}")
+        for (got, _), r in zip(results, regions):
+            if not torch.equal(got, field[r.slices()]):
+                raise AssertionError(f"{what}: {r} differs")
+
+    def delta(before, svc):
+        after = dataclasses.asdict(svc.stats)
+        return {k: after[k] - before[k] for k in after}
+
+    def tenant_seconds(before, svc):
+        return {t: svc.tenant_stats(t).seconds - before.get(t, 0.0)
+                for t in sorted(svc.tenants)}
+
+    with ReadService(ds, max_batch=SERVICE_MAX_BATCH,
+                     max_inflight_bytes=SERVICE_INFLIGHT,
+                     engine="auto") as svc:
+        for name in ("A", "B"):
+            regions = rounds[name]
+            errors = []
+
+            def tenant(t):
+                try:
+                    futs = [svc.submit(f"t{t}", "Ez", r)
+                            for r in regions[t]]
+                    check([f.result(timeout=600) for f in futs],
+                          regions[t], f"round {name}, tenant {t}")
+                except Exception as exc:     # noqa: BLE001 — raised below
+                    errors.append(exc)
+
+            def run():
+                threads = [threading.Thread(target=tenant, args=(t,))
+                           for t in range(SERVICE_TENANTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=900)
+                    if th.is_alive():
+                        raise AssertionError(f"round {name}: a tenant hung")
+
+            before = dataclasses.asdict(svc.stats)
+            t_before = {t: svc.tenant_stats(t).seconds for t in svc.tenants}
+            _, secs, ran = counted(run)
+            if errors:
+                raise errors[0]
+            st = delta(before, svc)
+            if ran["pack_rows"] != st["super_plans"] or \
+                    st["requests"] != SERVICE_TENANTS * len(base):
+                raise AssertionError(f"round {name}: {ran} launches for "
+                                     f"{st}")
+            out[f"round_{name}"] = {
+                "seconds": secs, "stats": st, "launches": ran,
+                "fetch_bytes": st["fetch_bytes"],
+                "bytes_served": st["bytes_served"],
+                "tenant_seconds": tenant_seconds(t_before, svc)}
+        for name, key in (("read_batch", "B"), ("read_batch_C", "C")):
+            regions = [r for t in range(SERVICE_TENANTS)
+                       for r in rounds[key][t]]
+            reqs = [Request(f"t{t}", "Ez", r)
+                    for t in range(SERVICE_TENANTS) for r in rounds[key][t]]
+            before = dataclasses.asdict(svc.stats)
+            res, batch_s, ran = counted(lambda: svc.read_batch(reqs))
+            check(res, regions, name)
+            del res
+            st = delta(before, svc)
+            if ran["pack_rows"] != st["super_plans"]:
+                raise AssertionError(f"{name}: {ran} launches for {st}")
+            # round C's regions fit the admission limit together: the
+            # service must gather several tenants' members in one launch
+            if key == "C" and st["super_plans"] >= st["requests"]:
+                raise AssertionError(f"{name}: no batch held two members "
+                                     f"({st})")
+
+            def independent():
+                for r in regions:
+                    ds.read("Ez", r)
+
+            _, ind_s, ind_ran = counted(independent)
+            out[name] = {
+                "requests": len(reqs), "seconds": batch_s, "stats": st,
+                "launches": ran, "fetch_bytes": st["fetch_bytes"],
+                "bytes_served": st["bytes_served"],
+                "members_per_launch": st["requests"] / st["super_plans"],
+                "independent_reads_seconds": ind_s,
+                "independent_reads_launches": ind_ran}
+        out["stats"] = dataclasses.asdict(svc.stats)
+    ds.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 19 ------------------------------------------------------------------
+
+def replay(torch, dev, K) -> dict:
+    """19: every committed trace under ``traces/`` replayed by
+    ``replay_trace`` with ``engine="memmap"`` on the card and on the CPU:
+    one digest, the trace's own event counts, nonzero verified bytes, the
+    same decisions; each card replay's copy-kernel launches (counts reset
+    just before it and read just after).  The work directories lie under
+    ``build/chip_smoke/replay`` and are removed."""
+    from collections import Counter
+    from repro_torch.io import load_trace, replay_trace
+    work = ROOT / "build" / "chip_smoke" / "replay"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = dict.fromkeys(COPY_KERNELS, 0)
+    out = {"engine": "memmap", "traces": {}}
+    try:
+        for path in sorted((ROOT / "traces").glob("*.jsonl")):
+            name = path.stem
+            trace = load_trace(str(path))
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            card = replay_trace(trace, str(work / name / "card"),
+                                engine="memmap", device=dev)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            ran = {k: K.launch_counts()[k] for k in COPY_KERNELS}
+            t0 = time.perf_counter()
+            cpu = replay_trace(trace, str(work / name / "cpu"),
+                               engine="memmap", device="cpu")
+            cpu_s = time.perf_counter() - t0
+            want = dict(Counter(e.kind for e in trace.events))
+            if card.digest != cpu.digest or card.counts != want or \
+                    cpu.counts != want or card.decisions != cpu.decisions \
+                    or not card.bytes_verified == cpu.bytes_verified > 0:
+                raise AssertionError(
+                    f"{name}: card {card.digest[:12]} {card.counts} "
+                    f"{card.bytes_verified}, cpu {cpu.digest[:12]} "
+                    f"{cpu.counts} {cpu.bytes_verified}, trace {want}")
+            if ran["pack_rows"] <= 0:
+                raise AssertionError(f"{name}: no pack_rows launch")
+            for k, n in ran.items():
+                launches[k] += n
+            out["traces"][name] = {
+                "digest": card.digest, "counts": card.counts,
+                "bytes_verified": card.bytes_verified,
+                "decisions": len(card.decisions), "card_seconds": card_s,
+                "cpu_seconds": cpu_s, "launches": ran}
+            shutil.rmtree(work / name)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if launches["chunked_to_rowmajor"] <= 0 or \
+            launches["rowmajor_to_chunked"] <= 0:
+        raise AssertionError(f"the replays never ran the relayout pair: "
+                             f"{launches}")
     out["launches"] = launches
     return out
 
@@ -2889,18 +3124,24 @@ def main() -> int:
     t0 = time.perf_counter()
     bypass = engines(torch, dev, K, blocks)
     emit(18, seconds=time.perf_counter() - t0, **bypass)
+
+    t0 = time.perf_counter()
+    replayed = replay(torch, dev, K)
+    emit(19, seconds=time.perf_counter() - t0, **replayed)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    # the copy kernels' launches on their six paths: the slice-1 step
+    # the copy kernels' launches on their seven paths: the slice-1 step
     # (phase 3), the checkpoint path (phase 15), the reorganization path
-    # (phase 16), the staged output (phase 17a), the async checkpoints
-    # (phase 17b) and the kernel-bypass engines with the distributed
-    # fleet (phase 18, the fleet workers' launches included)
+    # with the read service (phase 16), the staged output (phase 17a), the
+    # async checkpoints (phase 17b), the kernel-bypass engines with the
+    # distributed fleet (phase 18, the fleet workers' launches included)
+    # and the trace replays (phase 19)
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              "launches": launches[name] + ckpt["launches"][name]
              + reorganized["launches"][name] + online["launches"][name]
-             + saves["launches"][name] + bypass["launches"][name],
+             + saves["launches"][name] + bypass["launches"][name]
+             + replayed["launches"][name],
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

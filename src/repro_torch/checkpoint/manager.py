@@ -36,8 +36,10 @@ route: each touched extent read once, one copy, ONE ``pack_rows`` launch
 for all of a variable's targets.  Compressed chunks take the host plan and
 one copy a target.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: ``trace=`` (trace capture, S3); bfloat16 leaves (S9).
+``trace=`` (a :class:`~repro_torch.io.trace.TraceRecorder`) journals every
+save and restore, as the JAX package's manager does.  Not ported yet:
+bfloat16 leaves, which raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item (S9).
 """
 
 from __future__ import annotations
@@ -69,14 +71,10 @@ __all__ = ["CheckpointManager", "SaveStats", "RestoreStats",
 MANIFEST = "manifest.json"
 
 
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it waits for "
-                               f"{item}")
-
-
 def _bf16() -> NotImplementedError:
-    return _waits("a bfloat16 checkpoint variable",
-                  "bf16 container variables (S9 in ROADMAP.md queue 1)")
+    return NotImplementedError("a bfloat16 checkpoint variable is not "
+                               "ported yet: it waits for bf16 container "
+                               "variables (S9 in ROADMAP.md queue 1)")
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
@@ -134,9 +132,6 @@ class CheckpointManager:
                  policy: LayoutPolicy | None = None,
                  prior: str | None = None, auto_prior: bool = True,
                  clock=None, trace=None, device="cuda"):
-        if trace is not None:
-            raise _waits("trace=", "trace capture (S3 in ROADMAP.md "
-                         "queue 1)")
         self.device = resolve_device(device)
         self.root = root
         self.strategy = strategy
@@ -147,6 +142,10 @@ class CheckpointManager:
         self.align = align
         self.engine = engine
         self._clock = clock if clock is not None else time.time
+        #: attached :class:`~repro_torch.io.trace.TraceRecorder`: every
+        #: save and restore is journaled to it (a restore's runs and groups
+        #: the host read plans', as the JAX package journals them)
+        self.trace = trace
         os.makedirs(root, exist_ok=True)
         #: restore-pattern history, shared across steps (checkpoint root);
         #: appends are batched and flushed once at the end of every restore
@@ -234,6 +233,7 @@ class CheckpointManager:
                           num_original_blocks=0, per_var_seconds={})
         scalars = {}
         policy_info = {}
+        vars_meta = {}
         for name, t in flat.items():
             if not isinstance(t, torch.Tensor):
                 raise TypeError(f"leaf {name!r} is a {type(t).__name__}, "
@@ -253,6 +253,10 @@ class CheckpointManager:
                 blocks = [Block((0,) * t.dim(), shape, owner=0, block_id=0)]
             hosts = max(b.owner for b in blocks) + 1
             data = {b.block_id: t[b.slices()] for b in blocks}
+            vars_meta[name] = {
+                "shape": [int(s) for s in shape], "dtype": dtype.name,
+                "blocks": [[[int(v) for v in b.lo], [int(v) for v in b.hi],
+                            int(b.owner), int(b.block_id)] for b in blocks]}
             if self.strategy == "auto":
                 # a save stages from memory: no gather term, only the
                 # write-side build cost vs the expected restore mix
@@ -295,6 +299,12 @@ class CheckpointManager:
             json.dump(manifest, f)
         self._retain()
         stats.seconds = time.perf_counter() - t0
+        if self.trace is not None:
+            self.trace.record(
+                "ckpt_save", seconds=stats.seconds, nbytes=stats.bytes,
+                step=int(step), strategy=self.strategy, vars=vars_meta,
+                scalars={k: v["dtype"] for k, v in scalars.items()},
+                align=self.align)
         return stats
 
     def _retain(self) -> None:
@@ -324,6 +334,7 @@ class CheckpointManager:
             manifest = json.load(f)
         agg = RestoreStats()
         flat = {}
+        plan_runs = plan_groups = 0       # the host plans', for the trace
         ds = None
         if manifest["variables"]:
             ds = Dataset.open(d, engine=engine if engine is not None
@@ -342,6 +353,11 @@ class CheckpointManager:
             vstats.seconds += vstats.probe_seconds + vstats.plan_seconds
             if not (target_blocks and name in target_blocks):
                 self._record_restore(name, full, shape, vstats)
+            if self.trace is not None:
+                for b in (target_blocks or {}).get(name, [full]):
+                    plan = ds.plan_read(name, b)
+                    plan_runs += plan.runs
+                    plan_groups += plan.num_groups
             agg.merge(vstats)
             agg.seconds += vstats.seconds
             agg.per_var[name] = vstats
@@ -354,6 +370,17 @@ class CheckpointManager:
             flat[name] = to_tensor(np.asarray(rec["value"],
                                               dtype=rec["dtype"]),
                                    self.device)
+        if self.trace is not None:
+            targets = None
+            if target_blocks:
+                targets = {
+                    name: [[[int(v) for v in b.lo], [int(v) for v in b.hi],
+                            int(b.owner), int(b.block_id)] for b in blks]
+                    for name, blks in target_blocks.items()}
+            self.trace.record(
+                "ckpt_restore", seconds=agg.seconds, nbytes=agg.bytes_read,
+                engine=agg.engine, runs=plan_runs, groups=plan_groups,
+                step=int(step), targets=targets)
         if template is not None:
             return unflatten_like(template, flat), agg
         return flat, agg

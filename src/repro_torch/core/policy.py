@@ -209,7 +209,7 @@ class AccessRecord:
         session and the checkpoint restore path record through.
         ``tenant`` namespaces the record for multi-tenant serving; ``ts``
         pins the record time (replay drives a deterministic clock through
-        here; trace replay, S3, is not ported yet)."""
+        here — see :mod:`repro_torch.io.replay`)."""
         return cls(var=var, kind=kind,
                    shape_class=classify_region(region, global_shape),
                    lo=tuple(int(v) for v in region.lo),

@@ -41,6 +41,16 @@ which crosses to the card in one copy, and ONE ``pack_rows`` launch
 gathers every target.  Compressed chunks take the host ``read_planned``
 followed by one copy to the device.
 
+**Served batch** (:func:`read_super`, for ``Dataset.read_super_planned``,
+which the read service calls once a coalesced batch): the engine reads the
+super-plan's merged spans back to back into one pinned flat buffer, which
+crosses to the card in one copy; ONE ``pack_rows`` launch over bytes then
+gathers every member whose chunks are raw into one output buffer
+(:func:`~repro_torch.kernels.ref.super_row_tables`), wherever its bytes
+start.  A member with compressed chunks, or with stored chunks that
+overlap, is scattered on the host from the same buffer, as the JAX package
+scatters it, and copied to the card once.
+
 **Threads and streams.** Every copy between the host and the card passes
 through the session's :class:`PinnedStaging`, which keeps one grow-only
 pinned buffer for each thread that copies (a staging worker, a reader), so
@@ -74,16 +84,16 @@ from ..core.merge import plan_from_clusters
 from ..interop import to_numpy
 from ..kernels.ops import pack_tables
 from ..kernels.ref import (chunk_row_tables, plan_row_tables,
-                           region_row_tables)
+                           region_row_tables, super_row_tables)
 from ..kernels.relayout import chunked_to_rowmajor, rowmajor_to_chunked
-from .engine import assemble_chunk
+from .engine import assemble_chunk, scatter_row
 from .format import DatasetIndex
 from .planner import build_read_plan, build_span_plan
 
 __all__ = ["PinnedStaging", "LayoutTables", "GATHER_BATCH_BYTES",
            "assemble_chunks",
            "read_route", "read_linearized", "read_regions", "gather_regions",
-           "gather_batches", "to_host"]
+           "gather_batches", "read_super", "to_host"]
 
 #: the most bytes of target chunks ``reorganize`` gathers in one
 #: :func:`gather_regions` call.  A batch holds its engine span and its
@@ -458,3 +468,73 @@ def gather_regions(ds, var: str, regions, device: torch.device,
     stats.h2d_seconds = t2 - t1
     stats.linearize_seconds = time.perf_counter() - t2
     return out, stats
+
+
+def read_super(ds, sp, device: torch.device, engine=None) -> tuple:
+    """Execute the :class:`~repro_torch.serve.coalesce.SuperPlan` ``sp`` on
+    ``device``: ONE engine read of its merged spans, one copy to the
+    device, ONE ``pack_rows`` launch for every member of raw chunks.
+
+    Returns ``(outs, fstats, host)``: a tensor per member (region-shaped;
+    the gathered ones views of one output buffer), the fetch plan's
+    ``ReadStats`` (the JAX package's: ``bytes_read == sp.fetch_bytes``,
+    the spans' runs and groups, the engine and its reason; plus this
+    route's ``lower_seconds``, ``h2d_seconds`` and ``linearize_seconds``)
+    and a bool a member, True where it took the host scatter: compressed
+    chunks, or stored chunks that overlap.  The spans lie back to back as
+    the JAX package reads them and the launch gathers bytes
+    (:func:`~repro_torch.kernels.ref.super_row_tables`), so a raw span
+    after an odd-sized compressed extent is gathered on the device too.
+    Rows no stored chunk covers are zero."""
+    t0 = time.perf_counter()
+    dtype = np.dtype(ds.index.var_dtype(sp.var))
+    isz = dtype.itemsize
+    host = np.array([p.codecs is not None and bool(p.codecs.any())
+                     for p in sp.members], dtype=bool)
+    tables = None
+    while not host.all():
+        members = np.flatnonzero(~host)
+        tables = super_row_tables(sp, members)
+        width, _, dst_rows, n_bytes, bases = tables
+        counts = _row_counts(dst_rows, n_bytes // width)
+        if not counts.size or counts.max() <= 1:
+            break
+        # overlapping stored chunks: the host scatter decides which bytes
+        # win, in plan-row order, as an independent read does
+        twice = np.flatnonzero(counts > 1) * width // isz
+        host[members[np.searchsorted(bases, twice, side="right") - 1]] = \
+            True
+        tables = None
+    lower_seconds = time.perf_counter() - t0
+
+    buf = _host_bytes(int(sp.fetch_bytes), device, ds._staging)
+    flat_np = buf.numpy()
+    _, fstats = ds.read_planned(sp.fetch_plan(), out=flat_np, engine=engine,
+                                note_drift=False)
+    t1 = time.perf_counter()
+    outs = [None] * sp.num_members
+    if tables is not None:
+        flat = buf.to(device)
+    t2 = time.perf_counter()
+    if tables is not None:
+        width, _, dst_rows, n_bytes, bases = tables
+        out = pack_tables(flat, tables,
+                          _covered=len(dst_rows) == n_bytes // width)
+        out = out.view(_torch_dtype(dtype))
+        for i, b in zip(np.flatnonzero(~host), bases):
+            r = sp.members[i].region
+            outs[i] = out[int(b):int(b) + r.volume].view(r.shape)
+    for i in np.flatnonzero(host):
+        plan, span_of = sp.members[i], sp.member_span[i]
+        arr = np.zeros(plan.region.shape, dtype=dtype)
+        base = sp.span_out[span_of] - sp.span_lo[span_of]
+        for row in range(plan.num_chunks):
+            scatter_row(plan, row, flat_np[plan.file_lo[row] + base[row]:
+                                           plan.file_hi[row] + base[row]],
+                        arr)
+        outs[i] = torch.from_numpy(arr).to(device)
+    _sync(device)
+    fstats.lower_seconds = lower_seconds
+    fstats.h2d_seconds = t2 - t1
+    fstats.linearize_seconds = time.perf_counter() - t2
+    return outs, fstats, host

@@ -24,10 +24,19 @@ format (a directory either package wrote opens under the other):
   does (paper §5.1), out of place or in place; ``layout="auto"`` asks the
   :class:`~repro_torch.core.policy.LayoutPolicy` built from the source's
   ``access_log.json`` which layout (and codec) the observed mix favors.
-* **telemetry** — ``read`` / ``read_decomposed`` / ``read_pattern``
-  append one pattern fingerprint each to ``access_log.json`` next to
-  ``index.json`` (:class:`~repro_torch.core.policy.AccessLog`), stamped by
-  the session's ``clock``; ``telemetry=False`` turns it off.
+* **served batches** — ``read_super_planned`` executes a coalesced
+  :class:`~repro_torch.serve.coalesce.SuperPlan` (the multi-tenant read
+  service's batch): one engine read of the merged spans, one copy to the
+  card and ONE ``pack_rows`` launch for every member of raw chunks.
+* **telemetry** — ``read`` / ``read_decomposed`` / ``read_pattern`` (and
+  each served request) append one pattern fingerprint each to
+  ``access_log.json`` next to ``index.json``
+  (:class:`~repro_torch.core.policy.AccessLog`), stamped by the session's
+  ``clock``; ``telemetry=False`` turns it off.
+* **trace capture** — an attached :class:`~repro_torch.io.trace.
+  TraceRecorder` (:meth:`Dataset.attach_trace`) journals every read, served
+  request and write commit losslessly, as the JAX package's session does;
+  ``reorganize(trace=)`` journals the reorganization.
 
 Engines are interchangeable per session or per call, and ``engine="auto"``
 defers the choice to plan-execution time: the session loads (or
@@ -38,9 +47,6 @@ depth from the shape of the plan it executes.  The decision is recorded in
 ``ReadStats``/``WriteStats`` (``engine``, ``engine_reason``,
 ``predicted_seconds``); after persistently divergent auto plans the
 calibration is dropped and re-probed (recalibrate-on-drift).
-
-Not ported yet: ``reorganize``'s ``trace=`` raises ``NotImplementedError``
-naming trace capture (S3 in ``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ from ..device import resolve_device
 from ..interop import to_numpy
 from .device import (LayoutTables, PinnedStaging, _sync, assemble_chunks,
                      gather_batches, gather_regions, read_linearized,
-                     read_regions, read_route, to_host)
+                     read_regions, read_route, read_super, to_host)
 from .engine import (IOEngine, SubfileStore, WriteStats, assemble_chunk,
                      resolve_engine)
 from .format import ChunkRecord, DatasetIndex, INDEX_NAME, extent_checksum
@@ -76,8 +82,6 @@ from .planner import (ReadPlan, WritePlan, build_read_plan, build_write_plan,
                       subset_write_plan)
 
 __all__ = ["ReadStats", "Dataset", "reorganize", "choose_reorg_layout"]
-
-_S3 = "trace capture and replay (S3 in ROADMAP.md queue 1)"
 
 
 @dataclasses.dataclass
@@ -92,11 +96,14 @@ class ReadStats:
     engine: str = ""              # engine spec that executed the plan
     engine_reason: str = ""       # auto decision record, or "pinned"
     predicted_seconds: float = 0.0  # cost-model prediction (engine="auto")
-    #: ``Dataset.read`` only: lowering to row tables (device route), the
-    #: one copy to the device, and the linearizing kernel
+    #: the device route's stages: lowering to row tables, the one copy to
+    #: the device, and the kernel (a served batch's host scatter too)
     lower_seconds: float = 0.0
     h2d_seconds: float = 0.0
     linearize_seconds: float = 0.0
+    #: a served member's route (``read_super_planned``): ``"device"`` when
+    #: ``pack_rows`` gathered it, ``"host"`` when the host scattered it
+    route: str = ""
 
     def merge(self, other: "ReadStats") -> None:
         """Add ``other``'s counts and stage seconds (not ``seconds``, which
@@ -172,6 +179,7 @@ class Dataset:
         self._drift_lock = threading.Lock()
         self._telemetry = telemetry
         self._clock = clock if clock is not None else time.time
+        self._trace = None            # attached TraceRecorder, if capturing
         self._access_log: AccessLog | None = None
         self._index_stat = None
         if index is not None:
@@ -276,11 +284,34 @@ class Dataset:
                                          clock=self._clock)
         return self._access_log
 
+    # -- trace capture -------------------------------------------------------
+    def attach_trace(self, recorder) -> None:
+        """Attach a :class:`~repro_torch.io.trace.TraceRecorder`: every
+        read (plain / decomposed / pattern / served) and write commit — and,
+        through their ``trace=`` parameters, staging submits, reorganizations
+        and checkpoint operations — is journaled losslessly to its sidecar,
+        on top of (never instead of) the ring-bounded access log."""
+        self._trace = recorder
+
+    def detach_trace(self):
+        """Stop capturing; returns the recorder that was attached."""
+        rec, self._trace = self._trace, None
+        return rec
+
     def _record_access(self, var: str, region: Block, stats: "ReadStats",
-                       kind: str = "read", tenant: str = "") -> None:
+                       kind: str = "read", tenant: str = "",
+                       trace_kind: str | None = None,
+                       trace_params: dict | None = None,
+                       parts=None) -> None:
         """Append one pattern fingerprint; telemetry never breaks a read.
         The record's ``runs``/``groups`` are the executed route's own (see
-        :class:`ReadStats`)."""
+        :class:`ReadStats`).  ``tenant`` namespaces the record (the read
+        service).  ``trace_kind``/``trace_params`` name the event an
+        attached trace recorder journals (schema-checked, so unlike the
+        ring append it raises on misuse); its ``runs``/``groups`` are the
+        host read plans' of ``parts`` (the regions the read was split
+        into), as the JAX package's session records them, whatever route
+        ran."""
         if not self._telemetry:
             return
         try:
@@ -289,6 +320,14 @@ class Dataset:
                 tenant=tenant, ts=self._clock()))
         except Exception:               # noqa: BLE001 — telemetry only
             pass
+        if self._trace is not None:
+            if parts is not None:
+                plans = [self.plan_read(var, p) for p in parts]
+                stats = dataclasses.replace(
+                    stats, runs=sum(p.runs for p in plans),
+                    groups=sum(p.num_groups for p in plans))
+            self._trace.record_read(trace_kind or kind, var, region, stats,
+                                    tenant=tenant, **(trace_params or {}))
 
     def _note_drift(self, choice: EngineChoice | None,
                     measured_seconds: float) -> None:
@@ -456,22 +495,26 @@ class Dataset:
                 self.flush()
 
         self._note_drift(choice, write_seconds)
-        return WriteStats(assemble_seconds=assemble_seconds,
-                          write_seconds=write_seconds,
-                          total_seconds=time.perf_counter() - t_start,
-                          bytes_written=int(plan.bytes_total),
-                          num_extents=plan.num_chunks,
-                          num_subfiles=len(plan.file_sizes),
-                          groups=plan.num_groups,
-                          plan_seconds=plan.plan_seconds,
-                          engine=choice.engine if choice else eng.name,
-                          engine_reason=choice.reason if choice
-                          else pinned_reason,
-                          predicted_seconds=choice.predicted_seconds
-                          if choice else 0.0,
-                          lower_seconds=stages.get("lower", 0.0),
-                          kernel_seconds=stages.get("kernel", 0.0),
-                          d2h_seconds=stages.get("d2h", 0.0))
+        wstats = WriteStats(assemble_seconds=assemble_seconds,
+                            write_seconds=write_seconds,
+                            total_seconds=time.perf_counter() - t_start,
+                            bytes_written=int(plan.bytes_total),
+                            num_extents=plan.num_chunks,
+                            num_subfiles=len(plan.file_sizes),
+                            groups=plan.num_groups,
+                            plan_seconds=plan.plan_seconds,
+                            engine=choice.engine if choice else eng.name,
+                            engine_reason=choice.reason if choice
+                            else pinned_reason,
+                            predicted_seconds=choice.predicted_seconds
+                            if choice else 0.0,
+                            lower_seconds=stages.get("lower", 0.0),
+                            kernel_seconds=stages.get("kernel", 0.0),
+                            d2h_seconds=stages.get("d2h", 0.0))
+        if self._trace is not None and plan.num_chunks:
+            extra = {"codec": codec} if codec != "none" else {}
+            self._trace.record_write("write", plan, wstats, **extra)
+        return wstats
 
     def write(self, var: str, layout: LayoutPlan, dtype, data: Mapping, *,
               align: int | None = None, fsync: bool = False,
@@ -562,7 +605,8 @@ class Dataset:
         read is appended to the access log.
         """
         out, stats = self._read(var, region, candidates, engine, device)
-        self._record_access(var, region, stats)
+        self._record_access(var, region, stats, trace_kind="read",
+                            parts=[region])
         return out, stats
 
     def _read(self, var: str, region: Block, candidates, engine,
@@ -586,6 +630,51 @@ class Dataset:
         out = torch.from_numpy(arr).to(dev)
         stats.h2d_seconds = time.perf_counter() - t0
         return out, stats
+
+    def read_super_planned(self, sp, outs: Sequence[torch.Tensor] | None = None,
+                           engine: str | IOEngine | None = None,
+                           device=None) -> tuple:
+        """Execute a :class:`~repro_torch.serve.coalesce.SuperPlan` on
+        ``device`` (default: the session's): ONE engine read of the merged byte spans, one
+        copy to the device, ONE ``pack_rows`` launch gathering every member
+        of raw chunks (:func:`~repro_torch.io.device.read_super`).  A
+        member with compressed or overlapping stored chunks is scattered on
+        the host from the same fetch buffer, as the JAX package scatters
+        it, and copied to the device once.
+
+        Returns ``(outs, fetch_stats, member_stats)`` — a region-shaped
+        tensor per member (the same bytes as independent :meth:`read`
+        calls; rows no stored chunk covers are zero), the ``ReadStats`` of
+        the shared fetch (the JAX package's: ``bytes_read ==
+        sp.fetch_bytes``, the spans' runs and groups, the engine), and one
+        ``ReadStats`` per member whose structural fields are the member's
+        own plan's, whose ``seconds`` apportion the batch wall time by
+        payload bytes and whose ``route`` says which route it took.
+        ``outs``: tensors to copy the results into (and return).  Returns
+        once the calling thread's stream has finished the launch."""
+        dev = self.device if device is None else resolve_device(device)
+        t0 = time.perf_counter()
+        got, fstats, host = read_super(self, sp, dev, engine=engine)
+        if outs is not None:
+            for dst, src in zip(outs, got):
+                dst.copy_(src)
+            _sync(dev)
+        else:
+            outs = got
+        wall = time.perf_counter() - t0
+        fstats.probe_seconds += sp.probe_seconds
+        fstats.plan_seconds += sp.plan_seconds
+        total = max(1, sum(int(p.bytes_needed) for p in sp.members))
+        member_stats = []
+        for plan, on_host in zip(sp.members, host):
+            member_stats.append(ReadStats(
+                seconds=wall * plan.bytes_needed / total,
+                bytes_read=plan.bytes_needed,
+                chunks_touched=plan.num_chunks, runs=plan.runs,
+                groups=plan.num_groups, engine=fstats.engine,
+                engine_reason=fstats.engine_reason,
+                route="host" if on_host else "device"))
+        return outs, fstats, member_stats
 
     def read_decomposed(self, var: str, region: Block,
                         scheme: Sequence[int],
@@ -630,7 +719,10 @@ class Dataset:
         _sync(self.device)
         agg.seconds = time.perf_counter() - t0
         if log_access:
-            self._record_access(var, region, agg)
+            self._record_access(
+                var, region, agg, trace_kind="read_decomposed",
+                trace_params={"scheme": [int(k) for k in scheme]},
+                parts=parts)
         return agg
 
     def read_pattern(self, var: str, pattern: str,
@@ -659,7 +751,13 @@ class Dataset:
         # the one shared index probe is attributed to the reported best;
         # the whole best-of-schemes sweep is ONE logical access pattern
         best[1].probe_seconds += probe_seconds
-        self._record_access(var, region, best[1])
+        trace_params = {"pattern": pattern, "num_readers": int(num_readers),
+                        "best_scheme": [int(k) for k in best[0]]}
+        if slab_thickness is not None:
+            trace_params["slab_thickness"] = int(slab_thickness)
+        self._record_access(var, region, best[1], trace_kind="read_pattern",
+                            trace_params=trace_params,
+                            parts=decompose_region(region, best[0]))
         return best
 
     # -- integrity -----------------------------------------------------------
@@ -834,17 +932,21 @@ def reorganize(src_dir: str, dst_dir: str, var: str,
     lowering, copy to the card, kernel) and ``d2h_seconds`` its copy back.
     The measured per-chunk overhead (gather minus engine seconds) is
     folded into the source's ``reorg_stats.json``.  ``clock`` stamps the
-    destination session's records; ``trace`` waits for trace capture (S3)
-    and raises ``NotImplementedError``.
+    destination session's records; ``trace`` journals one ``reorganize``
+    event — layout request, chosen scheme, decision audit — to an attached
+    :class:`~repro_torch.io.trace.TraceRecorder` after the commit, as the
+    JAX package's ``reorganize`` does.
     """
     if isinstance(layout, str) and layout != "auto":
         raise ValueError(f"layout must be a LayoutPlan or 'auto', "
                          f"got {layout!r}")
-    if trace is not None:
-        raise NotImplementedError("reorganize(trace=...) is not ported "
-                                  f"yet: it waits for {_S3}")
     dev = resolve_device(device)
     in_place = os.path.abspath(src_dir) == os.path.abspath(dst_dir)
+    requested = layout if isinstance(layout, str) else {
+        "strategy": layout.strategy,
+        "chunks": [[[int(v) for v in c.chunk.lo],
+                    [int(v) for v in c.chunk.hi], int(c.subfile)]
+                   for c in layout.chunks]}
     # the source session's bulk chunk reads are mechanical, not an
     # application access pattern: keep them out of the telemetry
     src = Dataset.open(src_dir, engine=engine, telemetry=False, clock=clock,
@@ -966,4 +1068,13 @@ def reorganize(src_dir: str, dst_dir: str, var: str,
         observe_reorg_overhead(
             src_dir, max(0.0, read_seconds - wstats.gather.seconds)
             / len(layout.chunks), num_chunks=len(layout.chunks))
+    if trace is not None:
+        trace.record(
+            "reorganize", var=var,
+            seconds=read_seconds + wstats.total_seconds,
+            engine=wstats.engine, nbytes=wstats.bytes_written,
+            dst="" if in_place else os.path.basename(
+                os.path.abspath(dst_dir)),
+            layout=requested, align=align,
+            decision=decision.to_json() if decision is not None else None)
     return read_seconds, dst, wstats

@@ -42,8 +42,9 @@ Measured per output:
   stall — how long ``submit`` blocked the producer (its return value)
 
 An optional ``link_gbps`` throttle emulates a constrained producer→stager
-interconnect for model-calibration experiments.  ``trace=`` waits for trace
-capture (S3 in ``ROADMAP.md`` queue 1) and raises ``NotImplementedError``.
+interconnect for model-calibration experiments.  ``trace=`` (a
+:class:`~repro_torch.io.trace.TraceRecorder`) journals one ``stage_submit``
+event a ``submit``, as the JAX package's executor does.
 """
 
 from __future__ import annotations
@@ -131,16 +132,16 @@ class StagingExecutor:
                  policy: LayoutPolicy | None = None,
                  prior: str | None = None,
                  trace=None, clock=None, device="cuda"):
-        if trace is not None:
-            raise NotImplementedError(
-                "StagingExecutor(trace=...) is not ported yet: it waits for "
-                "trace capture and replay (S3 in ROADMAP.md queue 1)")
         self.device = resolve_device(device)
         self.dirpath = dirpath
         self.num_workers = num_workers
         self.queue_depth = queue_depth
         self.link_gbps = link_gbps
         self.align = align
+        #: attached :class:`~repro_torch.io.trace.TraceRecorder`: each
+        #: ``submit`` journals one ``stage_submit`` event (producer-side —
+        #: the requested layout, not the worker's wall time)
+        self.trace = trace
         #: layout decision-maker behind ``submit(..., plan="auto")``; by
         #: default a history-less policy (dimension-aware default scheme);
         #: ``prior=`` (a previous run's ``access_log.json`` / exported
@@ -229,10 +230,23 @@ class StagingExecutor:
             if budget > elapsed:
                 time.sleep(budget - elapsed)
         copy_s = time.perf_counter() - t0
+        nbytes = sum(v.nbytes for v in staged.values())
         t1 = time.perf_counter()
         self._q.put((step, var, np.dtype(dtype), plan, staged, event,
                      copy_s))
-        return time.perf_counter() - t1
+        stall = time.perf_counter() - t1
+        if self.trace is not None:
+            chunks = [[[int(v) for v in c.chunk.lo],
+                       [int(v) for v in c.chunk.hi], int(c.subfile)]
+                      for c in plan.chunks]
+            bbox = bounding_box([c.chunk for c in plan.chunks])
+            self.trace.record(
+                "stage_submit", var=var, region=bbox,
+                seconds=copy_s + stall, nbytes=nbytes, step=int(step),
+                chunks=chunks, dtype=np.dtype(dtype).name,
+                global_shape=[int(s) for s in plan.global_shape],
+                strategy=plan.strategy)
+        return stall
 
     def drain(self) -> list:
         """Wait for all submitted outputs; returns StageResults in step order."""

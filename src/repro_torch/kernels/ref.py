@@ -24,7 +24,8 @@ __all__ = ["pack_rows_ref", "chunked_to_rowmajor_ref",
            "rowmajor_to_chunked_ref", "flash_attention_ref",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
            "flash_attention_bwd_ref",
-           "plan_row_tables", "region_row_tables", "chunk_row_tables"]
+           "plan_row_tables", "region_row_tables", "super_row_tables",
+           "chunk_row_tables"]
 
 
 def pack_rows_ref(src: torch.Tensor, src_rows: torch.Tensor,
@@ -308,10 +309,26 @@ def region_row_tables(plans, max_width: int = 4096) -> tuple:
     origin = (base - (lo - cat("extent_offsets")[first])) // itemsize
     total_src = int(size.sum()) // itemsize
 
+    origins = np.split(origin[inv], np.cumsum([p.num_chunks
+                                               for p in plans])[:-1])
+    width, src_rows, dst_rows, dst_base = _read_tables(
+        plans, origins, total_src, max_width)
+    return width, src_rows, dst_rows, dst_base, (sub[order], lo[order],
+                                                  hi[order])
+
+
+def _read_tables(plans, origins, total_src: int, max_width: int,
+                 unit: int = 1) -> tuple:
+    """``(width, src_rows, dst_rows, dst_total)`` gathering the read plans'
+    regions, row-major and back to back in plan order, out of a flat
+    source in which row ``r`` of ``plans[i]`` has its stored extent's first
+    element at ``origins[i][r]``.  Each run is one intersection row along
+    the last axis.  Positions, lengths and totals count units of ``unit``
+    elements' size: 1 for a source of elements, the item size for a
+    source of bytes (``origins`` and ``total_src`` then in bytes too)."""
     starts_s, starts_d, lengths = [], [], []
     dst_base = 0
-    k = 0
-    for p in plans:
+    for p, org in zip(plans, origins):
         rlo = np.asarray(p.region.lo, dtype=np.int64)
         rstr = np.asarray(_row_major_strides(p.region.shape), dtype=np.int64)
         for r in range(p.num_chunks):
@@ -324,21 +341,51 @@ def region_row_tables(plans, max_width: int = 4096) -> tuple:
                 a = np.arange(n, dtype=np.int64)
                 lead_s = (lead_s[:, None] + a[None, :] * ss).reshape(-1)
                 lead_d = (lead_d[:, None] + a[None, :] * ds).reshape(-1)
-            starts_s.append(origin[inv[k]]
-                            + int(((ilo - p.chunk_los[r]) * cst).sum())
-                            + lead_s)
-            starts_d.append(dst_base + int(((ilo - rlo) * rstr).sum())
-                            + lead_d)
-            lengths.append(np.full(lead_s.size, ish[-1], dtype=np.int64))
-            k += 1
+            starts_s.append(int(org[r]) + unit * (
+                int(((ilo - p.chunk_los[r]) * cst).sum()) + lead_s))
+            starts_d.append(unit * (dst_base + int(((ilo - rlo) * rstr).sum())
+                                    + lead_d))
+            lengths.append(np.full(lead_s.size, unit * ish[-1],
+                                   dtype=np.int64))
         dst_base += p.region.volume
     s = np.concatenate(starts_s) if starts_s else np.empty(0, np.int64)
     d = np.concatenate(starts_d) if starts_d else np.empty(0, np.int64)
     ln = np.concatenate(lengths) if lengths else np.empty(0, np.int64)
-    width, src_rows, dst_rows = _tables_from_runs(s, d, ln, total_src,
-                                                  dst_base, max_width)
-    return width, src_rows, dst_rows, dst_base, (sub[order], lo[order],
-                                                  hi[order])
+    width, src_rows, dst_rows = _tables_from_runs(
+        s, d, ln, total_src, unit * dst_base, unit * max_width)
+    return width, src_rows, dst_rows, unit * dst_base
+
+
+def super_row_tables(sp, members, max_width: int = 4096) -> tuple:
+    """Lower the ``members`` (positions into ``sp.members``) of a
+    :class:`~repro_torch.serve.coalesce.SuperPlan` to ``(width, src_rows,
+    dst_rows, dst_bytes, bases)`` for one ``pack_rows`` launch over BYTES
+    — the read service's counterpart of :func:`region_row_tables`.
+
+    Source: the super-plan's fetch buffer, ``sp.fetch_bytes`` bytes, the
+    merged spans back to back as the JAX package reads them (span ``k`` at
+    byte ``sp.span_out[k]``).  Each member row's stored extent starts at
+    byte ``extent_offset + span_out[span_of] - span_lo[span_of]``: the
+    reference's scatter base, never a hull of its own, so the fetch reads
+    exactly ``sp.fetch_bytes``.  The tables count bytes because a span
+    after an odd-sized compressed extent starts off an element; where
+    every run is element-aligned the width is a whole number of elements
+    as :func:`region_row_tables` takes it (``max_width`` elements).
+    Destination: the members' regions row-major, back to back in
+    ``members`` order; ``bases`` holds each one's first element.  The
+    members' rows must be raw."""
+    plans = [sp.members[i] for i in members]
+    if any(p.codecs is not None and p.codecs.any() for p in plans):
+        raise ValueError("compressed chunks cannot be gathered from their "
+                         "stored bytes")
+    itemsize = sp.members[0].dtype.itemsize
+    origins = [sp.span_out[sp.member_span[i]] + p.extent_offsets
+               - sp.span_lo[sp.member_span[i]]
+               for i, p in zip(members, plans)]
+    width, src_rows, dst_rows, dst_bytes = _read_tables(
+        plans, origins, int(sp.fetch_bytes), max_width, unit=itemsize)
+    vol = np.asarray([p.region.volume for p in plans], dtype=np.int64)
+    return width, src_rows, dst_rows, dst_bytes, np.cumsum(vol) - vol
 
 
 def chunk_row_tables(layout, max_width: int = 4096) -> tuple:

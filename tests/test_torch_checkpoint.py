@@ -271,12 +271,20 @@ def test_scalars_keep_shape_and_dtype(tmp_path, dtype):
     assert jr["s"].dtype == t["s"].numpy().dtype and jr["s"] == t["s"].item()
 
 
-# -- (g) what waits for a later slice ------------------------------------------------
+# -- (g) what waits for a later slice, and trace capture ------------------------------------------------
 
 def test_unported_options_name_their_item(tmp_path):
-    root = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="S3"):
-        CheckpointManager(root, trace=object(), device="cpu")
+    root = str(tmp_path / "root")
+    # trace capture is ported: ``trace=`` journals saves and restores
+    from repro_torch.io import TraceHeader, TraceRecorder, load_trace
+    rec = TraceRecorder(str(tmp_path / "t.jsonl"), TraceHeader())
+    traced = CheckpointManager(str(tmp_path / "traced"), trace=rec,
+                               device="cpu")
+    traced.save(0, {"w": torch.ones(4)})
+    traced.restore(0)
+    rec.close()
+    assert [e.kind for e in load_trace(str(tmp_path / "t.jsonl")).events] \
+        == ["ckpt_save", "ckpt_restore"]
     mgr = CheckpointManager(root, device="cpu")
     with pytest.raises(NotImplementedError, match="S9"):
         mgr.save(2, {"w": torch.ones(4, dtype=torch.bfloat16)})

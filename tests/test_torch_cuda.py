@@ -916,3 +916,138 @@ def test_training_step_through_the_kernels(cuda):
     assert counts["flash_attention_simt"] == 0
     assert counts["flash_attention_dq_simt"] == 0
     assert counts["flash_attention_dkv_simt"] == 0
+
+
+def _served_world(tmp_path, cuda):
+    """A raw 3-D field (``merged_process`` over load-balanced boxes) and
+    the same field compressed, written from tensors on the card."""
+    shape = (40, 48, 36)
+    blocks = tc.simulate_load_balance(
+        tc.uniform_grid_blocks(shape, (10, 12, 9)), num_procs=6, seed=2)
+    field = torch.randn(shape, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    ds = Dataset.create(str(tmp_path), engine="pread", device=cuda)
+    layout = tc.plan_layout("merged_process", blocks, num_procs=6)
+    data = {b.block_id: field[b.slices()] for b in blocks}
+    ds.write("E", layout, np.float32, data)
+    ds.write("Z", layout, np.float32, data, codec="zlib")
+    ds.close()
+    return field
+
+
+SERVED = [Block((0, 0, 0), (20, 48, 36)), Block((10, 5, 0), (30, 40, 36)),
+          Block((0, 24, 18), (40, 25, 19)), Block((39, 0, 0), (40, 48, 36))]
+
+
+def test_read_super_planned_on_the_card(cuda, tmp_path):
+    """One super-plan of raw chunks: ONE ``pack_rows`` launch gathers
+    every member on the card, each equal to the CPU route's bytes and to
+    the field; compressed members take the host scatter (no launch)."""
+    from repro_torch.serve import build_super_plan
+    field = _served_world(tmp_path, cuda)
+    gpu = Dataset.open(str(tmp_path), engine="pread", device=cuda)
+    cpu = Dataset.open(str(tmp_path), engine="pread", device="cpu")
+    for var, launches, route in (("E", 1, "device"), ("Z", 0, "host")):
+        sp = build_super_plan(gpu.index, var, SERVED)
+        K.reset_launch_counts()
+        outs, fstats, members = gpu.read_super_planned(sp)
+        assert K.launch_counts()["pack_rows"] == launches
+        assert fstats.bytes_read == sp.fetch_bytes
+        want, _, _ = cpu.read_super_planned(sp)
+        for r, got, w, st in zip(SERVED, outs, want, members):
+            assert got.device == cuda and st.route == route
+            assert torch.equal(got.cpu(), w)
+            assert torch.equal(got, field[r.slices()])
+    gpu.close()
+    cpu.close()
+
+
+def test_read_super_planned_gathers_misaligned_spans_on_the_card(
+        cuda, tmp_path):
+    """A raw extent that follows an odd-sized compressed one in the same
+    merged span starts off an element of the fetch buffer: ONE
+    ``pack_rows`` launch over bytes still gathers its member on the card,
+    and the compressed member takes the host scatter."""
+    from repro_torch.io.replay import _identity_layout
+    from repro_torch.serve import build_super_plan
+    field = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (48, 48)).astype(np.float32)).to(cuda)
+    ds = Dataset.create(str(tmp_path), engine="pread", device=cuda)
+    for chunks, codec in (([[[0, 0], [24, 48], 0]], "zlib"),
+                          ([[[24, 0], [48, 48], 0]], "none")):
+        layout = _identity_layout(chunks, (48, 48))
+        ds.write("N", layout, np.float32,
+                 {cp.chunk.block_id: field[cp.chunk.slices()]
+                  for cp in layout.chunks}, codec=codec)
+    assert [r.nbytes % 4 for r in ds.index.chunks][0], \
+        "the compressed extent must have an odd size"
+    ds.close()
+    ds = Dataset.open(str(tmp_path), engine="pread", device=cuda)
+    regions = [Block((30, 0), (48, 48)), Block((0, 0), (48, 48))]
+    sp = build_super_plan(ds.index, "N", regions)
+    K.reset_launch_counts()
+    outs, fstats, members = ds.read_super_planned(sp)
+    assert K.launch_counts()["pack_rows"] == 1
+    assert fstats.bytes_read == sp.fetch_bytes
+    assert [m.route for m in members] == ["device", "host"]
+    for r, got in zip(regions, outs):
+        assert got.device == cuda and torch.equal(got, field[r.slices()])
+    ds.close()
+
+
+def test_read_service_on_the_card(cuda, tmp_path):
+    """Eight client threads submit at once: the service gathers each
+    coalesced batch with one ``pack_rows`` launch (launches ==
+    ``super_plans``), and every future's tensor is complete when it
+    resolves — a client reads it on its own stream at once."""
+    import threading
+    from repro_torch.serve import ReadService
+    field = _served_world(tmp_path, cuda)
+    ds = Dataset.open(str(tmp_path), engine="pread", device=cuda)
+    results, errors = {}, []
+    K.reset_launch_counts()
+    with ReadService(ds, window_s=0.05) as svc:
+        def client(t):
+            try:
+                stream = torch.cuda.Stream(cuda)
+                futs = [svc.submit(f"t{t}", "E", r) for r in SERVED]
+                for i, f in enumerate(futs):
+                    got, st = f.result(timeout=120)
+                    with torch.cuda.stream(stream):
+                        results[t, i] = got.clone()
+                    stream.synchronize()
+            except Exception as exc:          # noqa: BLE001 — reported below
+                errors.append(exc)
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    assert not errors and len(results) == 8 * len(SERVED)
+    assert K.launch_counts()["pack_rows"] == svc.stats.super_plans >= 1
+    assert svc.stats.requests == 8 * len(SERVED)
+    for (t, i), got in results.items():
+        assert torch.equal(got, field[SERVED[i].slices()])
+    ds.close()
+
+
+@pytest.mark.parametrize("name", ["dims_small", "serve_paged_small",
+                                  "restore_storm_small"])
+def test_replayed_trace_on_the_card_gives_the_cpu_digest(cuda, tmp_path,
+                                                        name):
+    """A committed trace replayed on the card and on the CPU: one digest,
+    the copy kernels launched on the card."""
+    import os
+    from repro_torch.io import load_trace, replay_trace
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "traces", f"{name}.jsonl")
+    K.reset_launch_counts()
+    on_card = replay_trace(load_trace(path), str(tmp_path / "card"),
+                           device=cuda)
+    assert K.launch_counts()["pack_rows"] > 0
+    on_cpu = replay_trace(load_trace(path), str(tmp_path / "cpu"),
+                          device="cpu")
+    assert (on_card.digest, on_card.counts, on_card.bytes_verified,
+            on_card.decisions) == (on_cpu.digest, on_cpu.counts,
+                                   on_cpu.bytes_verified, on_cpu.decisions)

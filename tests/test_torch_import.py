@@ -18,7 +18,8 @@ from repro_torch.device import resolve_device
 from repro_torch.interop import tensors_from_numpy, to_tensor
 from repro_torch.checkpoint import AsyncCheckpointer
 from repro_torch.examples import layout_reorg_demo
-from repro_torch.io import Dataset, StagingExecutor
+from repro_torch.io import (Dataset, StagingExecutor, Trace, TraceHeader,
+                            replay_trace)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -59,7 +60,9 @@ def test_import_leaves_jax_and_repro_unloaded():
                                  "io.staging", "checkpoint.async_ckpt",
                                  "io.direct", "io.uring", "io.journal",
                                  "distributed.fault_tolerance",
-                                 "distributed.reorg"])
+                                 "distributed.reorg", "serve.coalesce",
+                                 "serve.read_service", "io.trace",
+                                 "io.replay"])
 def test_mirrored_modules_are_scanned(mod):
     """The port keeps its own copy of each module it mirrors, at the same
     path, and the scans above cover it."""
@@ -108,6 +111,8 @@ def test_entry_points_need_a_gpu_unless_cpu(tmp_path, monkeypatch):
         AsyncCheckpointer(str(tmp_path / "a"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         layout_reorg_demo.main(["--tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replay_trace(Trace(TraceHeader()), str(tmp_path / "r"))
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")

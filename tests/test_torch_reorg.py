@@ -167,13 +167,16 @@ def test_reorganize_refusals_name_their_items(tmp_path, source):
     with pytest.raises(ValueError):
         tio.reorganize(source, str(tmp_path / "x"), "E", "merged",
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="S3"):
-        tio.reorganize(source, str(tmp_path / "x"), "E", device="cpu",
-                       trace=object())
-    with pytest.raises(NotImplementedError, match="S3"):
-        tio.reorganize(source, str(tmp_path / "x"), "E", tl, device="cpu",
-                       trace=object())
     assert not (tmp_path / "x").exists()
+    # trace capture is ported: ``trace=`` journals the reorganization
+    rec = tio.TraceRecorder(str(tmp_path / "t.jsonl"), tio.TraceHeader())
+    tio.reorganize(source, str(tmp_path / "y"), "E", tl, device="cpu",
+                   trace=rec)
+    rec.close()
+    ev, = tio.load_trace(str(tmp_path / "t.jsonl")).events
+    assert (ev.kind, ev.var, ev.params["dst"], ev.params["decision"]) == \
+        ("reorganize", "E", "y", None)
+    assert len(ev.params["layout"]["chunks"]) == len(tl.chunks)
 
 
 # -- decomposed and pattern reads ---------------------------------------------

@@ -240,8 +240,8 @@ def test_a_failed_step_is_retryable(tmp_path):
 
 def test_auto_plan_and_refusals(tmp_path):
     """``plan="auto"`` takes the policy's cached decision (a prior seeds
-    it); ``"auto"`` without blocks, another string, and ``trace=`` are
-    refused as the reference refuses them (``trace`` waits for S3)."""
+    it); ``"auto"`` without blocks and another string are refused as the
+    reference refuses them; ``trace=`` journals each submit."""
     jl, tl, data, field = _world("3d")
     blocks = [s for cp in tl.chunks for s in cp.sources]
     blocks = list({b.block_id: b for b in blocks}.values())
@@ -272,9 +272,15 @@ def test_auto_plan_and_refusals(tmp_path):
         got, _ = ds.read(f"B@{step}", Block((0, 0, 0), field.shape))
         assert np.array_equal(got.numpy(), field)
     ds.close()
-    with pytest.raises(NotImplementedError, match="S3"):
-        tio.StagingExecutor(str(tmp_path / "x"), trace=object(),
-                            device="cpu")
+    # trace capture is ported: each submit journals one stage_submit
+    rec = tio.TraceRecorder(str(tmp_path / "t.jsonl"), tio.TraceHeader())
+    ex = tio.StagingExecutor(str(tmp_path / "x"), trace=rec, device="cpu")
+    ex.submit(7, "B", np.float32, d.layout, tdata)
+    ex.close()
+    rec.close()
+    ev, = tio.load_trace(str(tmp_path / "t.jsonl")).events
+    assert (ev.kind, ev.var, ev.params["step"], ev.nbytes) == \
+        ("stage_submit", "B", 7, field.nbytes)
 
 
 def _train(tmp_path, ckpt, steps=3):
