@@ -27,12 +27,12 @@ Phases, each printing one JSON line:
    call computing the same function; ``pack_rows`` as its kernel, its
    public wrapper and ``pack_tables`` as the main path calls it;
 5. launch counts of the main-path run; every kernel must have run (the
-   summary's copy-kernel rows add the launches of phases 15, 16, 17a and
-   17b);
+   summary's copy-kernel rows add the launches of phases 15-19 and 20c);
 6. the flash-attention forward's kernels against their plain version on
-   the card, within tolerance: masks, GQA groups, head dims 16-256
-   (padded ones too), ragged lengths, f32 and bf16, the serving paths'
-   shapes (qwen2.5-3b's in bf16 and f32, gemma2-2b's) with scores of std
+   the card, within tolerance: masks, GQA groups of 1, 2, 4, 5 and 8,
+   head dims 16-256 (padded ones too), ragged lengths, f32 and bf16, the
+   serving paths' shapes (qwen2.5-3b's in bf16 and f32, gemma2-2b's,
+   hymba-1.5b's groups of 5 under a window of 1024) with scores of std
    2, and two more bf16 cases (D 80 at L 200; D 128 at L 2048 with a
    window of 512 and a softcap); the launch counts show that each bf16
    case ran the sm90 route (``csrc/flash_fwd_sm90.cu`` up to head_dim
@@ -56,7 +56,8 @@ Phases, each printing one JSON line:
    softcap, which SDPA lacks); and on f32 inputs at the same three shapes
    the 3xTF32 kernel beside the CUDA-core kernel on the same inputs, both
    bounds (three TF32 products at the TF32 peak, and f32 on the CUDA
-   cores), the plain version and SDPA in f32;
+   cores), the plain version and SDPA in f32; and the sm90 route at
+   hymba-1.5b's shape beside SDPA with the window as a mask;
 9. launch counts of the serving run; the sm90 kernel must have run once
    per layer at least, the head_dim-256, 3xTF32 and CUDA-core forwards
    never;
@@ -79,7 +80,7 @@ Phases, each printing one JSON line:
     flash route's loss and gradients against the q-chunked route's (f32
     and bf16 compute; the bf16 route's backward runs the sm90 kernels, the
     f32 one the 3xTF32 kernels after the 3xTF32 forward), then
-    ``Trainer.run`` for 6 AdamW steps
+    ``Trainer.run`` for 4 AdamW steps
     on one batch (``TRAIN_OPT``), launch counts reset just before it and
     read just after (36 sm90 dq and 36 sm90 dkv launches a step, none on
     the CUDA-core route), the step times, peak memory, and a profile of
@@ -99,10 +100,11 @@ Phases, each printing one JSON line:
     CUDA-core forward never, the f32 route comparison the 3xTF32 forward
     once per layer, and the profile names the flash forward's device time
     in the prefill;
-14. the training path at gemma2-2b's full width, as phase 11 trains
-    qwen2.5-3b (the same traffic, steps and checks): 26 launches a step
-    of each head_dim-256 sm90 backward kernel
-    (``csrc/flash_bwd_sm90_d256.cu``), 52 of the head_dim-256 forward,
+14. the training path at gemma2-2b's full width and 8 of its 26 layers
+    (4 ``pair_lg`` steps: the kernels' shapes are the full model's), as
+    phase 11 trains qwen2.5-3b (the same traffic, steps and checks): 8
+    launches a step of each head_dim-256 sm90 backward kernel
+    (``csrc/flash_bwd_sm90_d256.cu``), 16 of the head_dim-256 forward,
     none on a CUDA-core route; the f32 route comparison runs the 3xTF32
     forward and backward once per layer, and the profile
     names the flash backward's device time in a step;
@@ -132,7 +134,7 @@ Phases, each printing one JSON line:
     ``merged_process``, reorganized out of place to the default 4 x 4 x 4
     (one ``pack_rows`` launch a gather batch), its six Fig.-6 patterns
     read under both layouts by ``Dataset.read`` (``torch.equal`` to the
-    source) and by ``read_pattern`` with 4 readers and
+    source) and by ``read_pattern`` with 8 readers and
     ``engine="auto"`` (best scheme, seconds, bytes, chunks, the engine and
     its reason; the calibration's terms), and reorganized in place to 2 x
     8 x 4 (generation up by one, seen by a session opened before the
@@ -148,9 +150,9 @@ Phases, each printing one JSON line:
     (16d), the multi-tenant read service (``ReadService``, default 2 ms
     window, ``max_batch`` 64, 256 MiB in flight, ``engine="auto"``):
     8 tenant threads each submit the regions of ``sub_area``,
-    ``plane_yz``, ``plane_xz``, ``plane_xy`` and ``line_z`` (round A:
-    the same regions; round B: tenant t's moved 8 t along axis 0, clamped
-    to the domain), then one ``read_batch`` of round B's 40 requests and
+    ``plane_yz``, ``plane_xz``, ``plane_xy`` and ``line_z`` (round B:
+    tenant t's moved 8 t along axis 0, clamped to the domain), then one
+    ``read_batch`` of round B's 40 requests and
     one of round C's 16 (each tenant's ``line_z`` and ``plane_yz``,
     moved as in round B, which fit the in-flight limit together: fewer
     coalesced batches than requests, or the phase fails); every result
@@ -200,14 +202,31 @@ Phases, each printing one JSON line:
     warm-up), the card's name and the spawn, import, warm-up and work
     seconds; the destination bit-identical to a single-process
     ``reorganize`` and read back ``torch.equal``;
-19. (last) trace replay: every committed trace under ``traces/`` replayed
+19. trace replay: every committed trace under ``traces/`` replayed
     by ``replay_trace`` with ``engine="memmap"`` on the card and on the
     CPU under ``build/chip_smoke/replay`` (removed): the two digests equal
     (the digest covers every read's bytes, every policy decision and the
     final index and manifest tables), the event counts the trace's own,
     nonzero verified bytes; each trace's seconds both ways and its
     copy-kernel launches on the card (``pack_rows`` in every trace, the
-    relayout pair where a replayed read or write meets an even 2-D grid).
+    relayout pair where a replayed read or write meets an even 2-D grid);
+20. (last) the SSD and hybrid families at full width and depth, served as
+    phase 7 serves qwen2.5-3b (4 prompts of 2048 tokens, 32 new tokens),
+    each then checked decode against forward in f32 compute (prefill 255
+    tokens, decode the 256th, max |d| / max |ref| < 0.05).  20a:
+    mamba2-780m (48 SSD layers): no flash kernel may launch.  20b:
+    hymba-1.5b (32 layers of parallel attention and SSM heads, 25 q-heads
+    over 5 kv-heads, windows of 1024 but in 3 layers): the bf16 prefill
+    launches the sm90 forward once a layer, the f32 comparison the 3xTF32
+    forward once a layer, none other, and the flash route's logits stay
+    within 2e-2 of the q-chunked route's.  20c: hymba-1.5b's live serving
+    state (its f32 params and a prefill's cache: ring and full bf16 KV,
+    the f32 SSM state, the bf16 conv window) saved by
+    ``CheckpointManager`` under ``merged_process`` into
+    ``build/chip_smoke/serve_snap`` and restored onto the card, every leaf
+    ``torch.equal``, then 8 greedy tokens decoded from the restored state
+    equal to those from the original; save and restore seconds, bytes,
+    chunks and copy-kernel launches; the directory removed.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -262,6 +281,10 @@ FLASH_MAIN = dict(B=4, Hq=16, Hkv=2, L=2048, D=128, causal=True,
                   window=None, softcap=None)
 FLASH_GEMMA2 = dict(B=4, Hq=8, Hkv=4, L=2048, D=256, causal=True,
                     window=4096, softcap=50.0)
+#: and at hymba-1.5b's: 25 q-heads over 5 kv-heads (GQA groups of 5, B·Hq
+#: 100), head_dim 64, its config's window of 1024
+FLASH_HYMBA = dict(B=4, Hq=25, Hkv=5, L=2048, D=64, causal=True,
+                   window=1024, softcap=None)
 #: (rtol, atol) on O per input dtype, and the LSE's.  f32: the reference's
 #: own.  bf16: kernel and plain version both compute in f32 and round once
 #: to bf16, so they may differ by one bf16 step, at most 2^-7 of |O|; the
@@ -286,11 +309,16 @@ LOGIT_GAP = 2e-2
 #: per-q-head dK, dV are f32 in both and are held to the f32 tolerance
 BWD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
 
-#: the training path: qwen2.5-3b, global batch 2 x 2048 tokens, 6 steps
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 6
+#: the training path: qwen2.5-3b, global batch 2 x 2048 tokens, 4 steps
+#: (the steady step is the median of steps 2-4)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+#: phase 14 trains gemma2-2b at its full width and 4 of its 13 ``pair_lg``
+#: steps (8 of 26 layers): the head_dim-256 kernels run at their real
+#: shapes, the launch counts follow the layer count
+GEMMA2_TRAIN_DEPTH = 4
 #: AdamW for the training run.  Its first steps move each of the 3.1e9
 #: weights by about lr whatever its gradient's size; with a 2-step warmup
-#: to 3e-4 the loss went 12.25, 8.91, 16.65, 16.39, 17.93, 13.68 on the
+#: to 3e-4 the loss went (6 steps) 12.25, 8.91, 16.65, 16.39, 17.93, 13.68 on the
 #: flash route and 12.25, 8.91, 16.70, 16.43, 17.89, 14.10 on the
 #: q-chunked route (an H100 80GB HBM3 at 700 W, tools/train_lr_probe.py):
 #: AdamW's overshoot, not the kernels'.  A 100-step warmup to the same
@@ -419,17 +447,24 @@ def device_ms(fn, reps: int = REPS) -> float:
     where events would time the host."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def device_profile():
+    """``torch.profiler`` over the card's activity only: every reading
+    here is a kernel's device time, and recording the host's operators as
+    well took seconds to aggregate a profile of a few thousand kernels
+    and stretched the host clock under it."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
 
 
 def smi_line() -> str:
@@ -856,7 +891,7 @@ def check_flash(torch, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for name, (causal, window, softcap) in masks.items():
             worst = [0.0, 0.0]
-            for g in (1, 2, 4, 8):
+            for g in (1, 2, 4, 5, 8):
                 for D in (16, 24, 32, 48, 80, 128, 136, 200, 256):
                     q, k, v = _qkv(torch, gen, dev, dtype, B=2, Hq=2 * g,
                                    Hkv=2, L=200, D=D,
@@ -871,12 +906,14 @@ def check_flash(torch, dev) -> dict:
             groups[f"{name}/{str(dtype).split('.')[-1]}"] = {
                 "o": worst[0], "lse": worst[1]}
     shapes = {}
-    # bf16 on the sm90 route (gemma2's on its head_dim-256 kernel); f32 at
+    # bf16 on the sm90 route (gemma2's on its head_dim-256 kernel, hymba's
+    # GQA groups of 5 on the head_dim-128 one); f32 at
     # the serving prefill's and gemma2-2b's shapes on the 3xTF32 route; the
     # CUDA-core forward, which no path runs now, named at the serving shape
     for name, shp, dtype, want, named in (
             ("serving", FLASH_MAIN, torch.bfloat16, "sm90", None),
             ("gemma2", FLASH_GEMMA2, torch.bfloat16, "sm90", None),
+            ("hymba", FLASH_HYMBA, torch.bfloat16, "sm90", None),
             ("d80", FLASH_D80, torch.bfloat16, "sm90", None),
             ("long_window", FLASH_LONG_WINDOW, torch.bfloat16, "sm90", None),
             ("serving_f32", FLASH_MAIN, torch.float32, "f32tc", None),
@@ -914,14 +951,18 @@ def check_flash(torch, dev) -> dict:
 
 # -- phase 7 -------------------------------------------------------------------
 
-def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
+def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
+          hand_over=None) -> dict:
     """``ServeEngine.generate`` on the full ``arch`` with the flash route
     on, weights from ``init`` (by default ``serving_params``); the launch
     counts of that one call; then the flash route's prefill logits against
     the q-chunked route's on the same weights and prompts, in the model's
     bf16 compute and in f32, each held to LOGIT_GAP, each flash prefill's
     launches read on their own: one per layer on the kernel of the route
-    its dtype takes (``flash_kernel``), none on any other."""
+    its dtype takes (``flash_kernel``), none on any other.  A model without
+    attention (mamba2-780m) has no second route: its prefill must launch
+    no flash kernel.  With a ``hand_over`` dict the model and its params
+    go into it instead of being freed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -941,7 +982,10 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
         0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    spans = {}
+    t0 = time.perf_counter()
     out, stats = engine.generate(prompts, NEW_TOKENS)
+    spans["generate"] = time.perf_counter() - t0
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if out.shape != (SERVE_BATCH, NEW_TOKENS) or out.min() < 0 or \
@@ -950,9 +994,11 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
                              f"[{out.min()}, {out.max()}]")
     _, again = engine.generate(prompts, NEW_TOKENS)
 
+    t0 = time.perf_counter()
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
     routes = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    attention = cfg.family != "ssm"
+    for dtype in (torch.bfloat16, torch.float32) if attention else ():
         with compute_dtype(dtype), torch.inference_mode():
             K.reset_launch_counts()
             flash_logits, _ = model.prefill(params, batch)
@@ -983,10 +1029,17 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
             raise AssertionError(
                 f"{name}: flash route's prefill logits differ from the "
                 f"q-chunked route's by {r['logit_gap']} of their max")
+    spans["route_comparison"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     profile = profile_serving(torch, model, params, batch)
-    del params, engine, flash_logits, base_logits
+    spans["profile"] = time.perf_counter() - t0
+    if hand_over is not None:
+        hand_over.update(model=model, params=params)
+    del params, engine
+    if attention:
+        del flash_logits, base_logits
     torch.cuda.empty_cache()
-    return {"arch": arch, "layers": cfg.n_layers,
+    return {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
             "head_dim": cfg.head_dim, "flash": True,
             "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
             "new_tokens": NEW_TOKENS, "init_seconds": init_s,
@@ -998,6 +1051,7 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None) -> dict:
             "cache_bytes": cache_bytes(model, SERVE_BATCH, max_len),
             "peak_memory_bytes": peak,
             "flash_vs_q_chunked": routes, "profile": profile,
+            "span_seconds": spans,
             "first_tokens": out[:, :4].tolist(), "launches": launches}
 
 
@@ -1051,13 +1105,11 @@ def profile_serving(torch, model, params, batch) -> dict:
     the device's busy share, the kernel count, the kernels that take the
     most of it, and the flash forward kernels' time and launches."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     out = {}
 
     def run(name, fn):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1112,7 +1164,9 @@ def flash_timings(torch, dev) -> dict:
     ``ms_no_softcap``, as SDPA has none) and the CUDA-core kernel on the
     same inputs (``simt_ms``, through the wrapper's module-private launcher
     that names the route), beside the bound, the plain version and SDPA
-    (causal; gemma2-2b's window of 4096 masks nothing at L 2048).  Then
+    (causal; gemma2-2b's window of 4096 masks nothing at L 2048); and the
+    sm90 route at hymba-1.5b's shape (GQA groups of 5, window 1024), where
+    SDPA, which has no window, takes the window as a boolean mask.  Then
     f32 inputs at the same three shapes, the f32 prefill's and the f32
     training comparison's: the 3xTF32 kernel (``ms``, through the
     wrapper) beside the CUDA-core kernel on the same inputs
@@ -1135,6 +1189,12 @@ def flash_timings(torch, dev) -> dict:
                                             shp["window"])
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
             + B * Hq * L * 4                # O like q, and the f32 LSE
+        # SDPA has no window: a window shorter than L goes in as a mask
+        sdpa = dict(is_causal=True)
+        if shp["window"] is not None and shp["window"] < L:
+            pos = torch.arange(L, device=dev)
+            d = pos[:, None] - pos[None, :]
+            sdpa = dict(attn_mask=(d >= 0) & (d < shp["window"]))
         res = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
                "flops": flops, "bytes": nbytes,
                **{key: time_ms(lambda fn=fn: fn(q, k, v, scale, *masks))
@@ -1142,7 +1202,8 @@ def flash_timings(torch, dev) -> dict:
                "plain_ms": time_ms(lambda: flash_attention_ref(
                    q, k, v, scale, *masks)),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+                   q, k, v, scale=scale, enable_gqa=True, **sdpa)),
+               "library_masked": "attn_mask" in sdpa,
                "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
                "bound_by": "operations" if flops / peak >
                nbytes / HBM_BYTES_PER_S else "bytes"}
@@ -1167,6 +1228,8 @@ def flash_timings(torch, dev) -> dict:
            "training": timed(FLASH_TRAIN, torch.bfloat16, BF16_FLOPS, both),
            "gemma2": timed(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS,
                            {**both, "ms_no_softcap": no_softcap}),
+           "hymba": timed(FLASH_HYMBA, torch.bfloat16, BF16_FLOPS,
+                          {"ms": flash_attention}),
            "f32_serving": timed(FLASH_MAIN, torch.float32, TF32X3_FLOPS,
                                 both, F32_FLOPS),
            "f32_training": timed(FLASH_TRAIN, torch.float32, TF32X3_FLOPS,
@@ -1334,12 +1397,14 @@ def check_flash_bwd(torch, dev) -> dict:
 
 # -- phase 11 ------------------------------------------------------------------
 
-def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None) -> dict:
+def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
+          depth=None) -> dict:
     """The training path at ``arch``'s full width: the flash route's
     gradients against the q-chunked route's, then ``Trainer.run`` with the
     launch counts of that one call, then a profile of one more step.  With
     a ``hand_over`` dict, the trained params and AdamW state go into it
-    (the checkpoint phase saves them) instead of being freed."""
+    (the checkpoint phase saves them) instead of being freed.  ``depth``
+    cuts the config's one segment to that many layer steps."""
     import dataclasses
     import itertools
     from repro_torch.configs import get_config
@@ -1347,6 +1412,10 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None) -> dict:
     from repro_torch.models import LM
     from repro_torch.train import OptimizerConfig, Trainer, adamw_init
     cfg = dataclasses.replace(get_config(arch), flash=True)
+    if depth is not None:
+        (kind, _), = cfg.program
+        cfg = dataclasses.replace(cfg, program=((kind, depth),),
+                                  n_layers=depth * cfg.layers_per_step(kind))
     if TRAIN_SEQ % cfg.flash_block or cfg.remat != "dots":
         raise ValueError("the training run must take the flash route under "
                          "remat='dots'")
@@ -1494,7 +1563,6 @@ def compare_train_routes(torch, model, params, batch) -> dict:
     import dataclasses
     import repro_torch.kernels as K
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import LM
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.trainer import value_and_grad
@@ -1506,8 +1574,7 @@ def compare_train_routes(torch, model, params, batch) -> dict:
         f32 = dtype == torch.float32
         with compute_dtype(dtype):
             before = K.launch_counts()
-            with (profile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) if f32
+            with (device_profile() if f32
                   else contextlib.nullcontext()) as prof:
                 fl, _, fg = value_and_grad(model, params, batch)
                 torch.cuda.synchronize()
@@ -1569,11 +1636,9 @@ def profile_train_step(torch, trainer, params, opt, K) -> dict:
     beside its host-clock time under the profiler: the busy share, the
     top kernels, the flash kernels' shares, and that step's launches."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         trainer.run(params, opt, 1, log_every=0)
         torch.cuda.synchronize()
@@ -2197,8 +2262,9 @@ def _shifted(region, shift: int):
 def serve_reads(torch, d: Path, field, counted) -> dict:
     """16d: the multi-tenant read service on one layout of the 3-D
     component.  SERVICE_TENANTS client threads each submit the five
-    pattern regions (round A: the same regions; round B: each tenant's
-    shifted), then one ``read_batch`` of round B's requests and one of
+    pattern regions (round B: each tenant's shifted; round A of earlier
+    runs, the same regions for every tenant, was cut for the time limit),
+    then one ``read_batch`` of round B's requests and one of
     round C's (each tenant's SERVICE_SMALL regions, shifted as in round
     B: small enough that the admission limit takes several tenants'
     members into one batch, which the check demands); every result
@@ -2215,8 +2281,7 @@ def serve_reads(torch, d: Path, field, counted) -> dict:
     from repro_torch.serve import ReadService, Request
     base = [pattern_region(p, REORG_FIELD) for p in SERVICE_PATTERNS]
     small = [pattern_region(p, REORG_FIELD) for p in SERVICE_SMALL]
-    rounds = {"A": [base] * SERVICE_TENANTS,
-              "B": [[_shifted(r, SERVICE_SHIFT * t) for r in base]
+    rounds = {"B": [[_shifted(r, SERVICE_SHIFT * t) for r in base]
                     for t in range(SERVICE_TENANTS)],
               "C": [[_shifted(r, SERVICE_SHIFT * t) for r in small]
                     for t in range(SERVICE_TENANTS)]}
@@ -2244,7 +2309,7 @@ def serve_reads(torch, d: Path, field, counted) -> dict:
     with ReadService(ds, max_batch=SERVICE_MAX_BATCH,
                      max_inflight_bytes=SERVICE_INFLIGHT,
                      engine="auto") as svc:
-        for name in ("A", "B"):
+        for name in ("B",):
             regions = rounds[name]
             errors = []
 
@@ -2985,6 +3050,156 @@ def engines(torch, dev, K, blocks2d) -> dict:
     return out
 
 
+# -- phase 20 ------------------------------------------------------------------
+
+#: phase 20: the SSD and hybrid families at full width and depth, serving
+#: the same traffic as phase 7 (4 prompts of 2048 tokens, 32 new tokens)
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "hymba-1.5b"
+#: decode against the forward, in f32 compute: prefill DECODE_CHECK_LEN - 1
+#: tokens, decode the last, held to the reference's own bound on
+#: max |d| / max |ref| (``tests/test_models.py``)
+DECODE_CHECK_LEN, DECODE_GAP = 256, 0.05
+#: tokens decoded from the restored serving state and from the original
+SNAPSHOT_DECODE = 8
+
+
+def decode_check(torch, model, params) -> dict:
+    """prefill(L-1) + decode(token L) against the last position of the
+    forward over all L tokens, in f32 compute, on the card."""
+    from repro_torch.models.layers import unembed_chunked
+    cfg = model.cfg
+    L = DECODE_CHECK_LEN
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (SERVE_BATCH, L)), device=params["embed"].device)
+    table = params.get("lm_head", params["embed"])
+    with compute_dtype(torch.float32), torch.inference_mode():
+        h, _, _ = model.hidden(params, {"tokens": toks})
+        ref = unembed_chunked(h[:, -1:], table, final_cap=cfg.final_cap)
+        _, cache = model.prefill(params, {"tokens": toks[:, :L - 1]},
+                                 cache_len=L)
+        dec, _ = model.decode_step(params, cache, toks[:, L - 1:], L - 1)
+    gap = float((dec - ref).abs().max() / ref.abs().max())
+    if not (torch.isfinite(dec).all() and gap < DECODE_GAP):
+        raise AssertionError(f"{cfg.name}: decode differs from the forward "
+                             f"by {gap} of its max logit")
+    return {"tokens": L, "gap": gap, "bound": DECODE_GAP,
+            "same_argmax_share": float((dec.argmax(-1) == ref.argmax(-1))
+                                       .float().mean())}
+
+
+def serve_ssm(torch, dev, K, arch) -> tuple:
+    """20a / 20b: ``serve`` on the full ``arch`` (phase 7's traffic and
+    checks; mamba2-780m has no attention, so no flash kernel may launch),
+    then ``decode_check``.  Returns the phase's dict and the hand-over
+    (model, params) for 20c."""
+    state = {}
+    out = serve(torch, dev, K, arch, hand_over=state)
+    got = {n: out["launches"][n] for n in FLASH_KERNELS}
+    n_attn = 0 if out["family"] == "ssm" else out["layers"]
+    want = {n: n_attn * (n == flash_kernel("fwd", "sm90", out["head_dim"]))
+            for n in FLASH_KERNELS}
+    if got != want:
+        raise AssertionError(f"{arch}: serving launched {got}, expected "
+                             f"{want}")
+    out["decode_check"] = decode_check(torch, state["model"],
+                                       state["params"])
+    return out, state
+
+
+def snapshot(torch, dev, K, model, params) -> dict:
+    """20c: the live serving state of ``model`` — its params and the cache
+    of a prefill of phase 7's prompts (ring KV for the windowed layers,
+    full KV, the f32 SSM state and the bf16 conv window) — saved by
+    ``CheckpointManager`` under ``merged_process`` into
+    ``build/chip_smoke/serve_snap`` and restored onto the card: every leaf
+    ``torch.equal`` to its source, then SNAPSHOT_DECODE greedy tokens
+    decoded from the restored state and from the original must be equal.
+    The launch counts of the save and the restore; the directory
+    removed."""
+    from repro_torch.checkpoint import CheckpointManager, flatten_pytree
+    from repro_torch.serve import cache_bytes
+    cfg = model.cfg
+    max_len = PROMPT_LEN + NEW_TOKENS
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN)), device=dev)
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      cache_len=max_len)
+    tree = {"params": params, "cache": cache}
+    flat = flatten_pytree(tree)
+    dtypes = sorted({str(t.dtype).split(".")[-1] for t in flat.values()})
+    root = ROOT / "build" / "chip_smoke" / "serve_snap"
+    shutil.rmtree(root, ignore_errors=True)
+    launches = dict.fromkeys(COPY_KERNELS, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {k: K.launch_counts()[k] for k in COPY_KERNELS}
+        for k, n in got.items():
+            launches[k] += n
+        return res, time.perf_counter() - t0, got
+
+    try:
+        mgr = CheckpointManager(str(root), strategy="merged_process",
+                                keep=1)
+        st, save_s, save_ran = counted(lambda: mgr.save(0, tree))
+        (back, rs), restore_s, restore_ran = counted(
+            lambda: mgr.restore(0, template=tree))
+        back_flat = flatten_pytree(back)
+        differ = [n for n, t in flat.items()
+                  if back_flat[n].dtype != t.dtype
+                  or not torch.equal(back_flat[n], t)]
+        if differ:
+            raise AssertionError(f"restored leaves differ: {differ[:8]}")
+        stored = sum(p.stat().st_size for p in
+                     Path(mgr.step_dir(0)).iterdir())
+
+        def decode(p, c):
+            cur = logits[:, -1].argmax(-1)[:, None]
+            toks = []
+            with torch.inference_mode():
+                for i in range(SNAPSHOT_DECODE):
+                    lg, c = model.decode_step(p, c, cur, PROMPT_LEN + i)
+                    cur = lg[:, -1].argmax(-1)[:, None]
+                    toks.append(cur)
+            return torch.cat(toks, 1).cpu().numpy()
+
+        restored_toks = decode(back["params"], back["cache"])
+        original_toks = decode(params, cache)
+        if not np.array_equal(restored_toks, original_toks):
+            raise AssertionError(f"decode from the restored state gave "
+                                 f"{restored_toks.tolist()}, from the "
+                                 f"original {original_toks.tolist()}")
+        if not (save_ran["pack_rows"] and restore_ran["pack_rows"]):
+            raise AssertionError(f"save {save_ran}, restore {restore_ran}: "
+                                 f"pack_rows never launched")
+        del back, back_flat
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"arch": cfg.name, "leaves": len(flat), "dtypes": dtypes,
+            "bf16_leaves": sum(t.dtype == torch.bfloat16
+                               for t in flat.values()),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for n, t in flat.items()
+                               if n.startswith("params/")),
+            "cache_bytes": cache_bytes(model, SERVE_BATCH, max_len),
+            "ring_slots": cfg.window,
+            "save": {"seconds": save_s, "bytes": st.bytes,
+                     "chunks": st.num_chunks, "stored_bytes": stored,
+                     "write_seconds": st.write_seconds,
+                     "commit_seconds": st.commit_seconds,
+                     "launches": save_ran},
+            "restore": {"seconds": restore_s, "bytes": rs.bytes_read,
+                        "chunks": rs.chunks_touched,
+                        "launches": restore_ran},
+            "decoded_tokens": original_toks.tolist(),
+            "restored_equal": True, "launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3099,7 +3314,7 @@ def main() -> int:
     check_gemma2_serving(gemma2)
 
     t0 = time.perf_counter()
-    trained_g = train(torch, dev, K, GEMMA2_ARCH)
+    trained_g = train(torch, dev, K, GEMMA2_ARCH, depth=GEMMA2_TRAIN_DEPTH)
     emit(14, seconds=time.perf_counter() - t0, **trained_g)
     check_training(trained_g)
     torch.cuda.empty_cache()
@@ -3128,38 +3343,53 @@ def main() -> int:
     t0 = time.perf_counter()
     replayed = replay(torch, dev, K)
     emit(19, seconds=time.perf_counter() - t0, **replayed)
+
+    t0 = time.perf_counter()
+    ssd, _ = serve_ssm(torch, dev, K, SSM_ARCH)
+    torch.cuda.empty_cache()
+    emit("20a", seconds=time.perf_counter() - t0, **ssd)
+    t0 = time.perf_counter()
+    hybrid, state = serve_ssm(torch, dev, K, HYBRID_ARCH)
+    emit("20b", seconds=time.perf_counter() - t0, **hybrid)
+    t0 = time.perf_counter()
+    snap = snapshot(torch, dev, K, state.pop("model"), state.pop("params"))
+    torch.cuda.empty_cache()
+    emit("20c", seconds=time.perf_counter() - t0, **snap)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    # the copy kernels' launches on their seven paths: the slice-1 step
+    # the copy kernels' launches on their eight paths: the slice-1 step
     # (phase 3), the checkpoint path (phase 15), the reorganization path
     # with the read service (phase 16), the staged output (phase 17a), the
     # async checkpoints (phase 17b), the kernel-bypass engines with the
-    # distributed fleet (phase 18, the fleet workers' launches included)
-    # and the trace replays (phase 19)
+    # distributed fleet (phase 18, the fleet workers' launches included),
+    # the trace replays (phase 19) and the serving-state snapshot (20c)
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              "launches": launches[name] + ckpt["launches"][name]
              + reorganized["launches"][name] + online["launches"][name]
              + saves["launches"][name] + bypass["launches"][name]
-             + replayed["launches"][name],
+             + replayed["launches"][name] + snap["launches"][name],
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
              "library_ms": times[name]["library_ms"]}
             for name, (source, replaces) in KERNELS.items()
             if not name.startswith("flash_attention")]
-    # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's
-    # head_dim 128, gemma2-2b's 256); the 3xTF32 forward on the f32
-    # serving prefill, the path that runs it here.  The CUDA-core forward
-    # runs on no path, so the summary, the kernels of the paths, leaves it
-    # out: phase 6 checks it against its plain version, phase 8 times it
+    # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's and
+    # hymba-1.5b's head_dim up to 128, gemma2-2b's 256); the 3xTF32
+    # forward on the f32 serving prefills (qwen2.5-3b's and hymba-1.5b's),
+    # the paths that run it here.  The CUDA-core forward runs on no path,
+    # so the summary, the kernels of the paths, leaves it out: phase 6
+    # checks it against its plain version, phase 8 times it
+    f32_prefill = [r["flash_vs_q_chunked"]["float32"]["flash_launches"]
+                   ["flash_attention_f32tc"] for r in (served, hybrid)]
     for name, launched, t in (
-            ("flash_attention", serve_launches["flash_attention"],
+            ("flash_attention", serve_launches["flash_attention"]
+             + hybrid["launches"]["flash_attention"],
              flash_times["serving"]),
             ("flash_attention_d256", gemma2["launches"]["flash_attention_d256"],
              flash_times["gemma2"]),
-            ("flash_attention_f32tc", served["flash_vs_q_chunked"]["float32"]
-             ["flash_launches"]["flash_attention_f32tc"],
+            ("flash_attention_f32tc", sum(f32_prefill),
              flash_times["f32_serving"])):
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,

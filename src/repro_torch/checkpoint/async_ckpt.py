@@ -24,9 +24,9 @@ from ..core import cost_model
 from ..core.blocks import Block
 from ..core.layouts import plan_layout
 from ..core.reorg import ReorgDecision, decide
+from ..io.format import storage_dtype
 from ..io.staging import StagingExecutor
 from .blocks_map import blocks_from_sharding, flatten_pytree
-from .manager import _np_dtype
 
 __all__ = ["AsyncCheckpointer"]
 
@@ -87,7 +87,7 @@ class AsyncCheckpointer:
         flat_sh = flatten_pytree(shardings) if shardings is not None else {}
         for name, arr in flat.items():
             if isinstance(arr, torch.Tensor):
-                dtype = _np_dtype(arr.dtype)
+                dtype = storage_dtype(arr.dtype)
             else:
                 arr = np.asarray(arr)
                 dtype = arr.dtype

@@ -37,9 +37,10 @@ for all of a variable's targets.  Compressed chunks take the host plan and
 one copy a target.
 
 ``trace=`` (a :class:`~repro_torch.io.trace.TraceRecorder`) journals every
-save and restore, as the JAX package's manager does.  Not ported yet:
-bfloat16 leaves, which raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item (S9).
+save and restore, as the JAX package's manager does.  bfloat16 leaves (a
+serving state's KV and conv caches) are stored as ``"bfloat16"``, as the
+JAX package stores them, and restore as ``torch.bfloat16``; a 0-d bf16
+scalar is stored as the float it holds and rounded back, exactly.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from ..core.policy import (ACCESS_PRIOR_NAME, AccessLog, AccessRecord,
 from ..device import resolve_device
 from ..interop import to_tensor
 from ..io.device import read_regions, read_route
+from ..io.format import dtype_name, storage_dtype
 from ..io.engine import IOEngine
 from ..io.reader import Dataset, ReadStats
 from .blocks_map import blocks_from_sharding, flatten_pytree, unflatten_like
@@ -69,18 +71,6 @@ __all__ = ["CheckpointManager", "SaveStats", "RestoreStats",
            "ACCESS_PRIOR_NAME"]
 
 MANIFEST = "manifest.json"
-
-
-def _bf16() -> NotImplementedError:
-    return NotImplementedError("a bfloat16 checkpoint variable is not "
-                               "ported yet: it waits for bf16 container "
-                               "variables (S9 in ROADMAP.md queue 1)")
-
-
-def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    if dtype == torch.bfloat16:
-        raise _bf16()
-    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 @dataclasses.dataclass
@@ -239,9 +229,10 @@ class CheckpointManager:
                 raise TypeError(f"leaf {name!r} is a {type(t).__name__}, "
                                 f"not a tensor")
             tv = time.perf_counter()
-            dtype = _np_dtype(t.dtype)
+            dtype = storage_dtype(t.dtype)
             if t.dim() == 0:
-                scalars[name] = {"dtype": dtype.name, "value": t.item()}
+                scalars[name] = {"dtype": dtype_name(dtype),
+                                 "value": t.item()}
                 continue
             shape = tuple(t.shape)
             if block_map and name in block_map:
@@ -254,7 +245,8 @@ class CheckpointManager:
             hosts = max(b.owner for b in blocks) + 1
             data = {b.block_id: t[b.slices()] for b in blocks}
             vars_meta[name] = {
-                "shape": [int(s) for s in shape], "dtype": dtype.name,
+                "shape": [int(s) for s in shape],
+                "dtype": dtype_name(dtype),
                 "blocks": [[[int(v) for v in b.lo], [int(v) for v in b.hi],
                             int(b.owner), int(b.block_id)] for b in blocks]}
             if self.strategy == "auto":
@@ -341,8 +333,6 @@ class CheckpointManager:
                               else self.engine, telemetry=False,
                               device=self.device)
         for name in manifest["variables"]:
-            if ds.index.variables[name]["dtype"] == "bfloat16":
-                raise _bf16()
             shape = ds.index.var_shape(name)
             full = Block((0,) * len(shape), shape)
             if target_blocks and name in target_blocks:
@@ -365,8 +355,10 @@ class CheckpointManager:
             ds.close()
         self.access_log.flush()
         for name, rec in manifest["scalars"].items():
-            if rec["dtype"] == "bfloat16":
-                raise _bf16()
+            if rec["dtype"] == "bfloat16":      # the float it held, exactly
+                flat[name] = torch.tensor(rec["value"], dtype=torch.bfloat16,
+                                          device=self.device)
+                continue
             flat[name] = to_tensor(np.asarray(rec["value"],
                                               dtype=rec["dtype"]),
                                    self.device)
@@ -408,7 +400,7 @@ class CheckpointManager:
                 st.merge(s)
                 st.seconds += s.seconds
                 t1 = time.perf_counter()
-                tensors.append(torch.from_numpy(arr).to(self.device))
+                tensors.append(to_tensor(arr, self.device))
                 st.h2d_seconds += time.perf_counter() - t1
         else:
             tensors, st = got

@@ -15,22 +15,21 @@ __all__ = ["ARCHS", "get_config", "get_smoke_config", "shapes_for",
 
 #: arch id -> config module (one file per ported architecture)
 ARCHS = {
+    "hymba-1.5b": "hymba_1_5b",
     "gemma2-2b": "gemma2_2b",
     "qwen2.5-3b": "qwen2_5_3b",
     "yi-9b": "yi_9b",
     "stablelm-3b": "stablelm_3b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 #: the reference's archs not ported yet -> what they wait for
 NOT_PORTED = {
-    "hymba-1.5b": "hybrid attention+SSM blocks (ROADMAP.md queue 1, "
-                  "item 10)",
     "hubert-xlarge": "encoder blocks and the frames frontend (ROADMAP.md "
                      "queue 1, item 10)",
     "llama-3.2-vision-90b": "cross-attention (ROADMAP.md queue 1, item 8)",
     "arctic-480b": "MoE blocks (ROADMAP.md queue 1, item 10)",
     "deepseek-moe-16b": "MoE blocks (ROADMAP.md queue 1, item 10)",
-    "mamba2-780m": "Mamba-2 SSD blocks (ROADMAP.md queue 1, item 10)",
 }
 
 

@@ -33,11 +33,13 @@ def blocks_from_records(records: Iterable) -> list:
 
 
 def to_tensor(arr: np.ndarray, device="cuda") -> torch.Tensor:
-    """One ndarray as a tensor on ``device`` (bfloat16 bit-exact)."""
+    """One ndarray as a tensor on ``device`` (bfloat16 bit-exact: an
+    ``ml_dtypes`` array, or the container's 2-byte stand-in)."""
+    from .io.format import dtype_name     # the io package imports this one
     dev = resolve_device(device)
     arr = np.asarray(arr)
     arr = np.ascontiguousarray(arr).reshape(arr.shape)   # keeps 0-d 0-d
-    if arr.dtype.name == "bfloat16":
+    if dtype_name(arr.dtype) == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)

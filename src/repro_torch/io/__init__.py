@@ -7,8 +7,10 @@ card (:mod:`.device`), the :class:`StagingExecutor` that assembles a
 staged layout on the card while the producer computes, and workload traces:
 capture (:class:`TraceRecorder`, copied from the JAX package) and
 :func:`replay_trace`, which drives a trace through the port's stack on the
-card to the JAX package's digest."""
+card to the JAX package's digest; :func:`gather_to_nodes`, the intra-node
+aggregation, copies each non-leader block on its own device."""
 
+from .aggregation import gather_to_nodes
 from .engine import (ENGINES, IOEngine, MemmapEngine, ODirectEngine,
                      OverlappedPreadEngine, PreadEngine, SubfileStore,
                      UringEngine, WriteStats, assemble_chunk, get_engine,

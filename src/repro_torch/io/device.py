@@ -81,13 +81,13 @@ from ..core.blocks import Block
 from ..core.clustering import Cluster
 from ..core.layouts import LayoutPlan
 from ..core.merge import plan_from_clusters
-from ..interop import to_numpy
+from ..interop import to_numpy, to_tensor
 from ..kernels.ops import pack_tables
 from ..kernels.ref import (chunk_row_tables, plan_row_tables,
                            region_row_tables, super_row_tables)
 from ..kernels.relayout import chunked_to_rowmajor, rowmajor_to_chunked
 from .engine import assemble_chunk, scatter_row
-from .format import DatasetIndex
+from .format import DatasetIndex, dtype_name, storage_dtype
 from .planner import build_read_plan, build_span_plan
 
 __all__ = ["PinnedStaging", "LayoutTables", "GATHER_BATCH_BYTES",
@@ -169,8 +169,10 @@ def _host_bytes(nbytes: int, device: torch.device,
 
 
 def _torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a numpy dtype."""
-    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+    """The torch dtype of a numpy dtype or a stored name."""
+    if dtype_name(dtype) == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, storage_dtype(dtype))).dtype
 
 
 def _grid(shape: tuple, los: np.ndarray, his: np.ndarray):
@@ -247,6 +249,8 @@ def to_host(flat: torch.Tensor,
     a CPU tensor's own memory."""
     if flat.device.type == "cpu":
         return to_numpy(flat)
+    if flat.dtype == torch.bfloat16:       # numpy has no bf16: its bits
+        flat = flat.view(torch.int16)
     host = _host_bytes(flat.numel() * flat.element_size(), flat.device,
                        staging).view(flat.dtype)
     host.copy_(flat)
@@ -275,7 +279,7 @@ def assemble_chunks(layout: LayoutPlan, data: Mapping[int, torch.Tensor],
     order; views of ``staging`` on the device route) from block tensors,
     and the stage times ``{"lower", "kernel", "d2h"}`` of the device route
     ({} on the host route).  ``lowered``: the session's lowered layouts."""
-    dtype = np.dtype(dtype)
+    dtype = storage_dtype(dtype)
     want = _torch_dtype(dtype)
     sources = {s.block_id: s for cp in layout.chunks for s in cp.sources}
     devices = set()
@@ -487,7 +491,7 @@ def read_super(ds, sp, device: torch.device, engine=None) -> tuple:
     after an odd-sized compressed extent is gathered on the device too.
     Rows no stored chunk covers are zero."""
     t0 = time.perf_counter()
-    dtype = np.dtype(ds.index.var_dtype(sp.var))
+    dtype = ds.index.var_dtype(sp.var)
     isz = dtype.itemsize
     host = np.array([p.codecs is not None and bool(p.codecs.any())
                      for p in sp.members], dtype=bool)
@@ -532,7 +536,7 @@ def read_super(ds, sp, device: torch.device, engine=None) -> tuple:
             scatter_row(plan, row, flat_np[plan.file_lo[row] + base[row]:
                                            plan.file_hi[row] + base[row]],
                         arr)
-        outs[i] = torch.from_numpy(arr).to(device)
+        outs[i] = to_tensor(arr, device)
     _sync(device)
     fstats.lower_seconds = lower_seconds
     fstats.h2d_seconds = t2 - t1

@@ -36,7 +36,8 @@ from ..core.codecs import codec_code
 from .spatial import SpatialChunkIndex
 
 __all__ = ["ChunkRecord", "DatasetIndex", "VarRows", "GPFS_BLOCK",
-           "subfile_name", "align_up", "extent_checksum"]
+           "subfile_name", "align_up", "extent_checksum", "dtype_name",
+           "storage_dtype", "BF16_STORAGE"]
 
 GPFS_BLOCK = 16 * 1024 * 1024
 INDEX_NAME = "index.json"
@@ -46,6 +47,42 @@ INDEX_VERSION = 4
 #: optional per-chunk codec + logical size) — all older versions load
 #: transparently, unknown *newer* versions fail loudly
 SUPPORTED_INDEX_VERSIONS = (1, 2, 3, 4)
+
+
+#: the host's stand-in for a bfloat16 variable: numpy has no bfloat16 of
+#: its own, so the host's byte work (planning, engines, checksums) runs on
+#: 2-byte integers holding the bf16 bits.  The metadata carries the stored
+#: name, so :func:`dtype_name` gives ``"bfloat16"`` back for it, and for
+#: arrays made with it; on the card the tensors are ``torch.bfloat16``
+BF16_STORAGE = np.dtype("<i2", metadata={"stored_as": "bfloat16"})
+
+
+def dtype_name(dtype) -> str:
+    """The name a variable's dtype is stored under in ``index.json``, the
+    journal, the trace and ``manifest.json``: numpy's name, and
+    ``"bfloat16"`` for the string, ``torch.bfloat16``, the host stand-in
+    :data:`BF16_STORAGE` (or an array dtype made from it) and a numpy
+    extension type of that name."""
+    if isinstance(dtype, str):
+        return dtype if dtype == "bfloat16" else np.dtype(dtype).name
+    if type(dtype).__module__ == "torch":            # a torch.dtype
+        name = str(dtype).rpartition(".")[2]
+        return name if name == "bfloat16" else np.dtype(name).name
+    meta = getattr(dtype, "metadata", None)
+    if meta and "stored_as" in meta:
+        return meta["stored_as"]
+    if getattr(dtype, "__name__", None) == "bfloat16" or \
+            getattr(dtype, "name", None) == "bfloat16":
+        return "bfloat16"
+    return np.dtype(dtype).name
+
+
+def storage_dtype(dtype) -> np.dtype:
+    """The numpy dtype the host works in for ``dtype`` (a numpy dtype, a
+    torch dtype or a stored name): :data:`BF16_STORAGE` for bfloat16,
+    else the dtype itself."""
+    name = dtype_name(dtype)
+    return BF16_STORAGE if name == "bfloat16" else np.dtype(name)
 
 
 def extent_checksum(buf) -> int:
@@ -165,14 +202,14 @@ class DatasetIndex:
     def add_variable(self, name: str, shape: Sequence[int], dtype,
                      strategy: str = "") -> None:
         self.variables[name] = {"shape": list(shape),
-                                "dtype": np.dtype(dtype).name,
+                                "dtype": dtype_name(dtype),
                                 "strategy": strategy}
 
     def var_shape(self, name: str) -> tuple:
         return tuple(self.variables[name]["shape"])
 
     def var_dtype(self, name: str) -> np.dtype:
-        return np.dtype(self.variables[name]["dtype"])
+        return storage_dtype(self.variables[name]["dtype"])
 
     def chunks_of(self, name: str) -> list:
         return [c for c in self.chunks if c.var == name]

@@ -45,6 +45,7 @@ import numpy as np
 from ..core.blocks import Block
 from ..core.layouts import ChunkPlan, LayoutPlan
 from ..distributed.fault_tolerance import HeartbeatMonitor
+from .format import dtype_name, storage_dtype
 from .planner import WritePlan
 
 __all__ = ["REORG_JOURNAL_NAME", "WorkUnit", "ReorgJournal",
@@ -73,7 +74,7 @@ def serialize_write_plan(plan: WritePlan) -> dict:
     lay = plan.layout
     return {
         "var": plan.var,
-        "dtype": np.dtype(plan.dtype).name,
+        "dtype": dtype_name(plan.dtype),
         "strategy": lay.strategy,
         "global_shape": [int(g) for g in lay.global_shape],
         "num_subfiles": int(lay.num_subfiles),
@@ -121,7 +122,7 @@ def deserialize_write_plan(d: dict) -> WritePlan:
                         chunks=chunks, num_subfiles=int(d["num_subfiles"]),
                         inter_process_moved=0, intra_node_moved=0)
     return WritePlan(
-        var=d["var"], layout=layout, dtype=np.dtype(d["dtype"]),
+        var=d["var"], layout=layout, dtype=storage_dtype(d["dtype"]),
         chunk_ids=chunk_ids, chunk_los=los, chunk_his=his, writers=writers,
         subfiles=subfiles, file_lo=file_lo, file_hi=file_lo + nbytes,
         nbytes=nbytes,

@@ -36,7 +36,7 @@ import numpy as np
 
 from ..core.blocks import Block
 from ..core.layouts import LayoutPlan
-from .format import DatasetIndex, VarRows, align_up
+from .format import DatasetIndex, VarRows, align_up, storage_dtype
 from .spatial import aabb_mask
 
 __all__ = ["ReadPlan", "WritePlan", "build_read_plan", "build_write_plan",
@@ -337,7 +337,7 @@ def build_write_plan(layout: LayoutPlan, var: str, dtype,
     so encoding happens *before* planning and the plan stays pure metadata.
     """
     t0 = time.perf_counter()
-    dtype = np.dtype(dtype)
+    dtype = storage_dtype(dtype)
     m = layout.num_chunks
     ndim = len(layout.global_shape)
     if m == 0:

@@ -70,13 +70,14 @@ from ..core.layouts import ChunkPlan, LayoutPlan
 from ..core.policy import AccessLog, AccessRecord, LayoutPolicy
 from ..core.read_patterns import best_decompositions, decompose_region
 from ..device import resolve_device
-from ..interop import to_numpy
+from ..interop import to_numpy, to_tensor
 from .device import (LayoutTables, PinnedStaging, _sync, assemble_chunks,
                      gather_batches, gather_regions, read_linearized,
                      read_regions, read_route, read_super, to_host)
 from .engine import (IOEngine, SubfileStore, WriteStats, assemble_chunk,
                      resolve_engine)
-from .format import ChunkRecord, DatasetIndex, INDEX_NAME, extent_checksum
+from .format import (BF16_STORAGE, ChunkRecord, DatasetIndex, INDEX_NAME,
+                     dtype_name, extent_checksum, storage_dtype)
 from .patterns import resolve_pattern
 from .planner import (ReadPlan, WritePlan, build_read_plan, build_write_plan,
                       subset_write_plan)
@@ -423,6 +424,9 @@ class Dataset:
         if any(isinstance(v, torch.Tensor) for v in data.values()):
             return assemble_chunks(layout, data, dtype, self._staging,
                                    self._tables)
+        if dtype_name(dtype) == "bfloat16":     # the bits, never a cast
+            data = {k: np.asarray(v).view(BF16_STORAGE)
+                    for k, v in data.items()}
         return [assemble_chunk(cp, data, dtype) for cp in layout.chunks], {}
 
     def write_planned(self, plan: WritePlan, data: Mapping, *,
@@ -528,7 +532,7 @@ class Dataset:
             return self.write_planned(self.plan_write(var, layout, dtype,
                                                       align=align),
                                       data, fsync=fsync)
-        dtype = np.dtype(dtype)
+        dtype = storage_dtype(dtype)
         t0 = time.perf_counter()
         bufs, _ = self._assemble(layout, data, dtype)
         enc = [np.frombuffer(encode(codec, np.ascontiguousarray(b)),
@@ -627,7 +631,7 @@ class Dataset:
         plan = self.plan_read(var, region, candidates=candidates)
         arr, stats = self.read_planned(plan, engine=engine)
         t0 = time.perf_counter()
-        out = torch.from_numpy(arr).to(dev)
+        out = to_tensor(arr, dev)
         stats.h2d_seconds = time.perf_counter() - t0
         return out, stats
 
@@ -792,7 +796,7 @@ def sample_codec_ratios(src: Dataset, var: str, *,
         return {}
     lo = np.array(rows.los[0], dtype=np.int64)
     hi = np.array(rows.his[0], dtype=np.int64)
-    itemsize = np.dtype(src.index.var_dtype(var)).itemsize
+    itemsize = src.index.var_dtype(var).itemsize
     vol = int((hi - lo).prod()) * itemsize
     if vol > max_bytes and hi[0] - lo[0] > 1:
         keep = max(1, int((hi[0] - lo[0]) * max_bytes // vol))

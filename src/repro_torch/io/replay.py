@@ -61,6 +61,7 @@ from ..core.layouts import ChunkPlan, LayoutPlan
 from ..core.policy import LayoutPolicy
 from ..device import resolve_device
 from ..interop import to_numpy, to_tensor
+from .format import dtype_name, storage_dtype
 from .patterns import resolve_pattern
 from .reader import Dataset, reorganize
 from .trace import Trace
@@ -117,8 +118,12 @@ class ReplayResult:
 
 def _synth(seed: int, salt: int, shape, dtype) -> np.ndarray:
     """Deterministic synthetic content for one variable."""
-    dt = np.dtype(dtype)
+    dt = storage_dtype(dtype)
     rng = np.random.default_rng([int(seed) & 0x7FFFFFFF, int(salt)])
+    if dtype_name(dt) == "bfloat16":
+        # the reference's bfloat16 is of kind "V": zeros and ones, as bits
+        x = torch.from_numpy(rng.integers(0, 2, size=shape))
+        return x.to(torch.bfloat16).view(torch.int16).numpy().view(dt)
     if dt.kind == "f":
         return rng.standard_normal(shape).astype(dt)
     if dt.kind in "iu":
@@ -336,7 +341,7 @@ class _Replayer:
         self._count("write")
         p = ev.params
         shape = tuple(int(s) for s in p["global_shape"])
-        dt = np.dtype(p["dtype"])
+        dt = storage_dtype(p["dtype"])
         arr = self.oracle.get(ev.var)
         if arr is None or arr.shape != shape or arr.dtype != dt:
             arr = _synth(self.seed, self._next_salt(), shape, dt)
@@ -418,7 +423,7 @@ class _Replayer:
         block_map: dict = {}
         for name, meta in p["vars"].items():
             shape = tuple(int(s) for s in meta["shape"])
-            dt = np.dtype(meta["dtype"])
+            dt = storage_dtype(meta["dtype"])
             arr = self.ckpt_oracle.get(name)
             if arr is None or arr.shape != shape or arr.dtype != dt:
                 arr = _synth(self.seed, self._next_salt(), shape, dt)
@@ -451,7 +456,8 @@ class _Replayer:
         for name in sorted(flat):
             val = flat[name]
             if name in self.ckpt_scalars:
-                exp = np.zeros((), dtype=self.ckpt_scalars[name])
+                exp = np.zeros((), dtype=storage_dtype(
+                    self.ckpt_scalars[name]))
                 self._check(f"ckpt_restore:{ev.seq}:{name}", val, exp)
                 continue
             oracle = self.ckpt_oracle[name]

@@ -64,7 +64,7 @@ from ..core.layouts import LayoutPlan
 from ..core.policy import LayoutPolicy
 from ..device import resolve_device
 from .engine import IOEngine
-from .format import DatasetIndex
+from .format import DatasetIndex, dtype_name, storage_dtype
 from .reader import Dataset
 
 __all__ = ["StageResult", "StagingExecutor"]
@@ -232,7 +232,7 @@ class StagingExecutor:
         copy_s = time.perf_counter() - t0
         nbytes = sum(v.nbytes for v in staged.values())
         t1 = time.perf_counter()
-        self._q.put((step, var, np.dtype(dtype), plan, staged, event,
+        self._q.put((step, var, storage_dtype(dtype), plan, staged, event,
                      copy_s))
         stall = time.perf_counter() - t1
         if self.trace is not None:
@@ -243,7 +243,7 @@ class StagingExecutor:
             self.trace.record(
                 "stage_submit", var=var, region=bbox,
                 seconds=copy_s + stall, nbytes=nbytes, step=int(step),
-                chunks=chunks, dtype=np.dtype(dtype).name,
+                chunks=chunks, dtype=dtype_name(dtype),
                 global_shape=[int(s) for s in plan.global_shape],
                 strategy=plan.strategy)
         return stall

@@ -58,6 +58,7 @@ import numpy as np
 
 from ..core.blocks import Block
 from ..core.policy import ACCESS_LOG_VERSION, AccessRecord, classify_region
+from .format import dtype_name, storage_dtype
 
 __all__ = ["TRACE_NAME", "TRACE_VERSION", "EVENT_KINDS", "READ_KINDS",
            "TraceError", "TraceSchemaError", "TraceCorruptError",
@@ -256,7 +257,7 @@ def header_for_dataset(ds, name: str = "", seed: int = 0,
         rows = ds.index.var_rows(var)
         variables[var] = {
             "shape": [int(s) for s in ds.index.var_shape(var)],
-            "dtype": np.dtype(ds.index.var_dtype(var)).name,
+            "dtype": dtype_name(ds.index.var_dtype(var)),
             "chunks": [[[int(v) for v in rows.los[i]],
                         [int(v) for v in rows.his[i]],
                         int(rows.subfiles[i])] for i in range(rows.n)],
@@ -448,7 +449,7 @@ class Trace:
                 for name, meta in ev.params["vars"].items():
                     ckpt_shapes[name] = (tuple(meta["shape"]),
                                          meta["blocks"],
-                                         np.dtype(meta["dtype"]).itemsize)
+                                         storage_dtype(meta["dtype"]).itemsize)
             elif ev.kind == "ckpt_restore":
                 targets = ev.params.get("targets") or {
                     name: blocks
@@ -570,7 +571,7 @@ class TraceRecorder:
             predicted_seconds=stats.predicted_seconds,
             groups=stats.groups, runs=stats.num_extents,
             nbytes=stats.bytes_written,
-            chunks=chunks, dtype=np.dtype(plan.dtype).name,
+            chunks=chunks, dtype=dtype_name(plan.dtype),
             global_shape=[int(s) for s in plan.global_shape],
             strategy=plan.strategy,
             align=plan.align, **params)

@@ -5,9 +5,12 @@ segment's parameters are stacked along a leading "layers" dim and the
 model walks the segment one layer at a time (the reference scans it).
 Composite kinds nest simple blocks inside one layer step.
 
-Kinds ported so far (the dense decoders):
+Kinds ported so far (the dense decoders, the SSD and hybrid families):
   attn      pre-norm self-attention (full, causal) + MLP
   swa       sliding-window self-attention + MLP
+  ssd       Mamba-2 SSD block                                 [mamba2]
+  hyb_full  parallel attention+SSM heads, full attention      [hymba]
+  hyb_swa   parallel attention+SSM heads, windowed attention  [hymba]
   pair_lg   composite: swa block then attn block              [gemma2]
 
 The reference's other kinds raise ``NotImplementedError`` naming the
@@ -21,6 +24,7 @@ import dataclasses
 import torch
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import (layer_norm, layer_norm_defs, mlp_defs, mlp_forward,
                      rms_norm, rms_norm_def)
 
@@ -30,13 +34,11 @@ __all__ = ["ModelConfig", "block_defs", "block_forward", "block_decode",
 COMPOSITE = {"pair_lg": ("local:swa", "global:attn"),
              "group_sx": ("self_0:attn", "self_1:attn", "self_2:attn",
                           "self_3:attn", "cross:xattn")}
-_PORTED = ("attn", "swa", "pair_lg")
+_HYBRID = ("hyb_full", "hyb_swa")
+_PORTED = ("attn", "swa", "ssd", *_HYBRID, "pair_lg")
 #: kinds not ported yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {"enc": "queue 1, item 10 (encoder blocks)",
                "moe": "queue 1, item 10 (MoE)",
-               "ssd": "queue 1, item 10 (Mamba-2 SSD)",
-               "hyb_full": "queue 1, item 10 (hybrid attention+SSM)",
-               "hyb_swa": "queue 1, item 10 (hybrid attention+SSM)",
                "xattn": "queue 1, item 8 (cross-attention)",
                "group_sx": "queue 1, item 8 (cross-attention)"}
 
@@ -78,10 +80,10 @@ class ModelConfig:
     post_norm: bool = False         # gemma2 post-attn/post-ffn norms
     embed_scale: bool = False
     tie_embed: bool = True
-    # moe / ssm / vlm (their dims come with their slices)
+    # moe / ssm / vlm (MoE's dims come with its slice)
     moe: object | None = None
     dense_residual: bool = False
-    ssm: object | None = None
+    ssm: ssm_mod.SSMDims | None = None
     ssd_chunk: int = 256
     n_memory_tokens: int = 0        # vision/audio memory length (vlm)
     frontend: str = "tokens"        # tokens | frames
@@ -129,9 +131,15 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
     _require_ported(kind)
     if kind in COMPOSITE:
         return {nm: block_defs(cfg, sub) for nm, sub in _subs(kind)}
+    if kind == "ssd":
+        return {"norm": _norm_def(cfg), "ssm": ssm_mod.ssd_defs(cfg.ssm)}
     d = {"ln1": _norm_def(cfg), "ln2": _norm_def(cfg)}
     d["attn"] = attn.attn_defs(cfg.d_model, cfg.n_heads, cfg.n_kv,
                                cfg.head_dim, qkv_bias=cfg.qkv_bias)
+    if kind in _HYBRID:
+        d["ssm"] = ssm_mod.ssd_defs(cfg.ssm)
+        d["mix_na"] = rms_norm_def(cfg.d_model)
+        d["mix_ns"] = rms_norm_def(cfg.d_model)
     if cfg.post_norm:
         d["post1"] = _norm_def(cfg)
         d["post2"] = _norm_def(cfg)
@@ -144,7 +152,7 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def _attn_kwargs(cfg: ModelConfig, kind: str) -> dict:
-    window = cfg.window if kind == "swa" else None
+    window = cfg.window if kind in ("swa", "hyb_swa") else None
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
                 causal=cfg.causal, window=window, rope_theta=cfg.rope_theta,
                 rotary_dim=cfg.rotary_dim, use_rope=cfg.use_rope,
@@ -169,9 +177,29 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
                 kvs[nm] = kv
         return x, aux, (kvs if collect_kv else None)
 
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssd":
+        h = _norm(cfg, p["norm"], x)
+        if collect_kv:
+            y, kv = ssm_mod.ssd_forward_with_state(p["ssm"], h, cfg.ssm,
+                                                   chunk=cfg.ssd_chunk)
+        else:
+            y, kv = ssm_mod.ssd_forward(p["ssm"], h, cfg.ssm,
+                                        chunk=cfg.ssd_chunk), None
+        return x + y, zero, kv
+
     h = _norm(cfg, p["ln1"], x)
     y, kv = _attn_with_kv(cfg, p["attn"], h, positions,
                           _attn_kwargs(cfg, kind), collect_kv)
+    if kind in _HYBRID:
+        if collect_kv:
+            ys, kvs = ssm_mod.ssd_forward_with_state(p["ssm"], h, cfg.ssm,
+                                                     chunk=cfg.ssd_chunk)
+            kv = {"attn": kv, "ssm": kvs}
+        else:
+            ys = ssm_mod.ssd_forward(p["ssm"], h, cfg.ssm,
+                                     chunk=cfg.ssd_chunk)
+        y = 0.5 * (rms_norm(y, p["mix_na"]) + rms_norm(ys, p["mix_ns"]))
     if cfg.post_norm:
         y = _norm(cfg, p["post1"], y)
     x = x + y
@@ -179,7 +207,7 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
     y2 = mlp_forward(p["mlp"], h2, act=cfg.act)
     if cfg.post_norm:
         y2 = _norm(cfg, p["post2"], y2)
-    return x + y2, torch.zeros((), dtype=torch.float32, device=x.device), kv
+    return x + y2, zero, kv
 
 
 def _attn_with_kv(cfg, p, h, positions, kwargs, collect_kv):
@@ -205,11 +233,16 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
     if kind in COMPOSITE:
         return {nm: block_cache_defs(cfg, sub, batch, cache_len)
                 for nm, sub in _subs(kind)}
+    if kind == "ssd":
+        return ssm_mod.ssd_cache_defs(batch, cfg.ssm)
     seq_sharded = batch == 1           # long-context: shard cache over seq
-    win = cfg.window if kind == "swa" else None
+    win = cfg.window if kind in ("swa", "hyb_swa") else None
     S = min(win, cache_len) if win else cache_len
-    return attn.init_kv_cache_defs(batch, S, cfg.n_kv, cfg.head_dim,
-                                   seq_sharded=seq_sharded and win is None)
+    kv = attn.init_kv_cache_defs(batch, S, cfg.n_kv, cfg.head_dim,
+                                 seq_sharded=seq_sharded and win is None)
+    if kind in _HYBRID:
+        return {"attn": kv, "ssm": ssm_mod.ssd_cache_defs(batch, cfg.ssm)}
+    return kv
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
@@ -221,11 +254,22 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
             x, new[nm] = block_decode(cfg, sub, p[nm], x, cache[nm], pos)
         return x, new
 
+    if kind == "ssd":
+        h = _norm(cfg, p["norm"], x)
+        y, c = ssm_mod.ssd_decode(p["ssm"], h, cache, cfg.ssm)
+        return x + y, c
+
     h = _norm(cfg, p["ln1"], x)
     kw = _attn_kwargs(cfg, kind)
     for drop in ("causal", "flash", "flash_block"):
         kw.pop(drop)
-    y, new_cache = attn.attn_decode(p["attn"], h, cache, pos, **kw)
+    if kind in _HYBRID:
+        ya, ca = attn.attn_decode(p["attn"], h, cache["attn"], pos, **kw)
+        ys, cs = ssm_mod.ssd_decode(p["ssm"], h, cache["ssm"], cfg.ssm)
+        y = 0.5 * (rms_norm(ya, p["mix_na"]) + rms_norm(ys, p["mix_ns"]))
+        new_cache = {"attn": ca, "ssm": cs}
+    else:
+        y, new_cache = attn.attn_decode(p["attn"], h, cache, pos, **kw)
     if cfg.post_norm:
         y = _norm(cfg, p["post1"], y)
     x = x + y
@@ -242,14 +286,19 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
 
 def block_prefill(cfg: ModelConfig, kind: str, kv, cache_defs_tree,
                   batch: int, L: int):
-    """Convert collected prefill k/v into the cache layout of
-    ``block_cache_defs``.  ``kv`` comes from block_forward with
+    """Convert collected prefill k/v (or SSM state) into the cache layout
+    of ``block_cache_defs``.  ``kv`` comes from block_forward with
     collect_kv=True; returns a tree of tensors."""
     _require_ported(kind)
     if kind in COMPOSITE:
         return {nm: block_prefill(cfg, sub, kv[nm], cache_defs_tree[nm],
                                   batch, L)
                 for nm, sub in _subs(kind)}
+    if kind == "ssd":
+        return kv                      # already {"S":..., "conv":...}
+    if kind in _HYBRID:
+        return {"attn": _kv_to_cache(kv["attn"], cache_defs_tree["attn"], L),
+                "ssm": kv["ssm"]}
     return _kv_to_cache(kv, cache_defs_tree, L)
 
 

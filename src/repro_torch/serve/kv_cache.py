@@ -1,8 +1,9 @@
 """KV-cache accounting and naming.
 
-The cache is built by the model (full or ring-window per layer kind);
-this module adds byte accounting per (arch, shape) and the name -> tensor
-map used to checkpoint a live cache, under the reference's names.
+The cache is built by the model (full / ring-window KV, or the SSM's f32
+state and bf16 conv window, per layer kind); this module adds byte
+accounting per (arch, shape) and the name -> tensor map used to checkpoint
+a live cache, under the reference's names.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def cache_bytes(model: LM, batch: int, cache_len: int) -> int:
 
 
 def cache_spec_summary(model: LM, batch: int, cache_len: int) -> dict:
-    """Per-kind byte breakdown (full attn vs window)."""
+    """Per-kind byte breakdown (full attn vs window vs SSM state)."""
     out: dict = {}
     for (kind, _), seg in zip(model.cfg.program,
                               model.cache_skeleton(batch, cache_len)):

@@ -286,8 +286,12 @@ def test_unported_options_name_their_item(tmp_path):
     assert [e.kind for e in load_trace(str(tmp_path / "t.jsonl")).events] \
         == ["ckpt_save", "ckpt_restore"]
     mgr = CheckpointManager(root, device="cpu")
-    with pytest.raises(NotImplementedError, match="S9"):
-        mgr.save(2, {"w": torch.ones(4, dtype=torch.bfloat16)})
+    # bf16 leaves are ported (S9): a round trip, bit for bit
+    w = torch.randn(4, 6, generator=torch.Generator().manual_seed(0)
+                    ).to(torch.bfloat16)
+    mgr.save(2, {"w": w})
+    back, _ = mgr.restore(2)
+    assert back["w"].dtype == torch.bfloat16 and torch.equal(back["w"], w)
     with pytest.raises(TypeError, match="'w' is a ndarray"):
         mgr.save(3, {"w": np.ones(4)})
 

@@ -1051,3 +1051,129 @@ def test_replayed_trace_on_the_card_gives_the_cpu_digest(cuda, tmp_path,
     assert (on_card.digest, on_card.counts, on_card.bytes_verified,
             on_card.decisions) == (on_cpu.digest, on_cpu.counts,
                                    on_cpu.bytes_verified, on_cpu.decisions)
+
+
+# -- bf16 container variables, the SSD and hybrid blocks ------------------------
+
+@pytest.mark.parametrize("strategy", ["merged_process", "reorganized"])
+def test_bf16_dataset_on_the_card(cuda, tmp_path, strategy):
+    """bf16 blocks on the card written through the device route and read
+    back whole (linearized) and in part (the region route): ``torch.equal``
+    to the source, the stored dtype ``"bfloat16"``."""
+    x = torch.randn(256, 384, device=cuda).to(torch.bfloat16)
+    blocks = tc.simulate_load_balance(tc.uniform_grid_blocks((256, 384),
+                                                             (64, 96)),
+                                      num_procs=6, seed=0)
+    lay = tc.plan_layout(strategy, blocks, num_procs=6, procs_per_node=2,
+                         global_shape=(256, 384), reorg_scheme=(4, 4))
+    ds = Dataset.create(str(tmp_path), device=cuda)
+    before = K.pack_rows.launches
+    ds.write("K", lay, torch.bfloat16,
+             {b.block_id: x[b.slices()] for b in blocks})
+    ds.close()
+    ds = Dataset.open(str(tmp_path), device=cuda)
+    assert ds.index.variables["K"]["dtype"] == "bfloat16"
+    got, _ = ds.read("K", Block((0, 0), (256, 384)))
+    part, _ = ds.read("K", Block((17, 30), (200, 333)))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.device.type == "cuda"
+    assert torch.equal(got, x) and torch.equal(part, x[17:200, 30:333])
+    assert K.pack_rows.launches > before
+    ds.close()
+
+
+def _ssm_block(arch, kind, cuda):
+    """One block of ``arch``'s smoke config with seeded weights, on the CPU
+    and on the card (the same values)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import materialize, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), flash=True,
+                              flash_block=16)
+    p = materialize(tfm.block_defs(cfg, kind), torch.Generator()
+                    .manual_seed(0))
+    return cfg, p, tree_map(lambda t: t.to(cuda), p)
+
+
+@pytest.mark.parametrize("arch,kind", [("mamba2-780m", "ssd"),
+                                       ("hymba-1.5b", "hyb_full"),
+                                       ("hymba-1.5b", "hyb_swa")])
+def test_ssd_and_hybrid_blocks_on_the_card(cuda, arch, kind):
+    """An SSD block and the hybrid blocks (flash route on) in f32 on the
+    card against their CPU run: the forward, the prefill cache and one
+    decode step written into it (rtol 1e-3, atol 1e-4: the card's f32
+    products sum in another order, and the hybrid's attention runs the
+    3xTF32 kernel, held to its plain version at 1e-4 itself)."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import flatten_cache
+    cfg, p_cpu, p_gpu = _ssm_block(arch, kind, cuda)
+    x = torch.randn(2, 32, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1)) * 0.5
+    x1 = torch.randn(2, 1, cfg.d_model, generator=torch.Generator()
+                     .manual_seed(2)) * 0.5
+    saved, layers._COMPUTE = layers._COMPUTE, torch.float32
+    try:
+        outs = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            pos = torch.arange(32, device=dev)
+            y, _, kv = tfm.block_forward(cfg, kind, p, x.to(dev), pos,
+                                         collect_kv=True)
+            defs = tfm.block_cache_defs(cfg, kind, 2, 40)
+            cache = tfm.block_prefill(cfg, kind, kv, defs, 2, 32)
+            y1, cache = tfm.block_decode(cfg, kind, p, x1.to(dev), cache, 32)
+            outs[dev] = (y, y1, flatten_cache(cache))
+    finally:
+        layers._COMPUTE = saved
+    tol = dict(rtol=1e-3, atol=1e-4)
+    for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    for name, b in outs["cpu"][2].items():
+        a = outs["cuda"][2][name]
+        assert a.dtype == b.dtype and a.device.type == "cuda"
+        if b.dtype == torch.bfloat16:       # one bf16 step of the f32 gap
+            torch.testing.assert_close(a.cpu().float(), b.float(),
+                                       rtol=2 ** -7, atol=1e-4)
+        else:
+            torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+def test_gather_to_nodes_on_the_card(cuda):
+    """Leaders' blocks pass through, every other block is a copy on the
+    card with its bytes."""
+    from repro_torch.io import gather_to_nodes
+    blocks = tc.simulate_load_balance(tc.uniform_grid_blocks((128, 128),
+                                                             (32, 32)),
+                                      num_procs=6, seed=1)
+    x = torch.randn(128, 128, device=cuda)
+    data = {b.block_id: x[b.slices()] for b in blocks}
+    node_blocks, out, seconds = gather_to_nodes(blocks, data, 2)
+    assert seconds > 0
+    for b, nb in zip(blocks, node_blocks):
+        assert nb.owner == b.owner // 2
+        t = out[b.block_id]
+        assert t.device.type == "cuda" and torch.equal(t, data[b.block_id])
+        assert (t is data[b.block_id]) == (b.owner % 2 == 0)
+
+
+def test_flash_sm90_forward_at_hymbas_shape(cuda):
+    """The sm90 forward at hymba-1.5b's serving shape: B 4, 25 q-heads over
+    5 kv-heads (GQA groups of 5, B·Hq 100), L 2048, D 64, causal with a
+    window of 1024; bf16 O within one bf16 step of the plain version, LSE
+    within 1e-4, one launch on the sm90 route's head_dim-128 kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    q, k, v = (std * torch.randn((4, h, 2048, 64), generator=gen,
+                                 device=cuda)
+               for std, h in ((2 ** 0.5, 25), (2 ** 0.5, 5), (0.5, 5)))
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2).to(
+        torch.bfloat16) for t in (q, k, v))
+    (o, lse), ran = _launches(lambda: K.flash_attention(
+        q, k, v, None, True, 1024, None, return_lse=True))
+    torch.cuda.synchronize()
+    assert ran["flash_attention"] == 1 and sum(ran.values()) == 1
+    ro, rlse = flash_attention_ref(q, k, v, None, True, 1024, None)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)

@@ -17,7 +17,7 @@ import repro_torch
 from repro_torch.device import resolve_device
 from repro_torch.interop import tensors_from_numpy, to_tensor
 from repro_torch.checkpoint import AsyncCheckpointer
-from repro_torch.examples import layout_reorg_demo
+from repro_torch.examples import layout_reorg_demo, serve_batched
 from repro_torch.io import (Dataset, StagingExecutor, Trace, TraceHeader,
                             replay_trace)
 
@@ -38,6 +38,26 @@ def _modules() -> list:
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         names.append(".".join(parts))
     return names
+
+
+def test_import_refuses_ml_dtypes():
+    """Every module imports, and bf16 crosses to and from the host, in a
+    process where ``import ml_dtypes`` fails (the card's machine has
+    none)."""
+    code = ("import importlib, sys\n"
+            "sys.modules['ml_dtypes'] = None\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np, torch\n"
+            "from repro_torch.interop import to_numpy, to_tensor\n"
+            "from repro_torch.io.format import storage_dtype\n"
+            "x = torch.tensor([1.5, -2.0]).to(torch.bfloat16)\n"
+            "h = to_numpy(x).view(storage_dtype('bfloat16'))\n"
+            "assert torch.equal(to_tensor(h, 'cpu'), x)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_import_leaves_jax_and_repro_unloaded():
@@ -62,7 +82,9 @@ def test_import_leaves_jax_and_repro_unloaded():
                                  "distributed.fault_tolerance",
                                  "distributed.reorg", "serve.coalesce",
                                  "serve.read_service", "io.trace",
-                                 "io.replay"])
+                                 "io.replay", "io.aggregation", "models.ssm",
+                                 "configs.mamba2_780m",
+                                 "configs.hymba_1_5b"])
 def test_mirrored_modules_are_scanned(mod):
     """The port keeps its own copy of each module it mirrors, at the same
     path, and the scans above cover it."""
@@ -111,6 +133,8 @@ def test_entry_points_need_a_gpu_unless_cpu(tmp_path, monkeypatch):
         AsyncCheckpointer(str(tmp_path / "a"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         layout_reorg_demo.main(["--tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_batched.main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         replay_trace(Trace(TraceHeader()), str(tmp_path / "r"))
     with pytest.raises(ValueError):

@@ -31,6 +31,9 @@ from repro_torch.models import LM
 from repro_torch.models.params import count_params
 
 ARCHS = ["qwen2.5-3b", "yi-9b", "stablelm-3b", "gemma2-2b"]
+#: the SSD and hybrid families (their layers and models: test_torch_ssm.py,
+#: test_torch_hybrid.py)
+SSM_ARCHS = ["mamba2-780m", "hymba-1.5b"]
 
 
 def _np(tree):
@@ -263,7 +266,7 @@ def test_lm_hidden_bf16_gemma2():
     assert d / np.abs(np.asarray(jh, np.float32)).max() < 0.05
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 def test_model_config_and_param_count(arch, smoke):
     get = "get_smoke_config" if smoke else "get_config"
@@ -277,7 +280,7 @@ def test_model_config_and_param_count(arch, smoke):
 def test_skeleton_paths_match_the_reference():
     """The parameter tree has the reference's path names and shapes (what
     a checkpoint's ``blocks_map`` keys on)."""
-    for arch in ARCHS:
+    for arch in ARCHS + SSM_ARCHS:
         jc, tc = _cfgs(arch)
         jsk = JLM(jc).skeleton()
         tsk = LM(tc, device="cpu").skeleton()
@@ -329,8 +332,8 @@ def test_materialize_laws():
     assert torch.equal(p["wq"], q["wq"])
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "deepseek-moe-16b",
-                                  "llama-3.2-vision-90b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama-3.2-vision-90b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(KeyError, match="ROADMAP.md"):
         tcfg.get_config(arch)

@@ -5,6 +5,7 @@ same weights (JAX-initialized, moved across with ``params_from_numpy``)
 and the same seeded prompts go to both."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +30,8 @@ from repro_torch.models.layers import unembed_chunked
 from repro_torch.serve import (ServeEngine, cache_bytes, cache_spec_summary,
                                flatten_cache)
 
-ARCHS = ["qwen2.5-3b", "yi-9b", "stablelm-3b", "gemma2-2b"]
+ARCHS = ["qwen2.5-3b", "yi-9b", "stablelm-3b", "gemma2-2b", "mamba2-780m",
+         "hymba-1.5b"]
 #: logit tolerance of the cross-package checks (f32 compute, see below)
 RTOL = ATOL = 2e-2
 #: logit tolerance along a greedy path (f32 compute; measured gaps ~1e-4)
@@ -199,6 +201,50 @@ def test_gemma2_full_config_cache_bytes():
     tm = LM(tcfg.get_config("gemma2-2b"), device="cpu")
     assert cache_bytes(tm, 4, 2080) == 26 * 2 * 4 * 2080 * 4 * 256 * 2 == \
         jcache_bytes(JLM(jcfg.get_config("gemma2-2b")), 4, 2080)
+
+
+def test_ssm_full_config_cache_bytes():
+    """mamba2-780m's cache is its state, whatever the cache length: 48
+    layers x (f32 S (4, 48, 128, 64) + bf16 conv (4, 3, 3328)).  hymba-1.5b
+    at the chip run's batch: 3 full layers' KV of 2080 slots, 29 windowed
+    layers' rings of 1024, and every layer's state."""
+    tm = LM(tcfg.get_config("mamba2-780m"), device="cpu")
+    ssm = 48 * (4 * 48 * 128 * 64 * 4 + 4 * 3 * 3328 * 2)
+    assert cache_bytes(tm, 4, 2080) == cache_bytes(tm, 4, 256) == ssm == \
+        jcache_bytes(JLM(jcfg.get_config("mamba2-780m")), 4, 2080)
+    tm = LM(tcfg.get_config("hymba-1.5b"), device="cpu")
+    kv = 2 * 4 * 5 * 64 * 2
+    state = 4 * 25 * 16 * 64 * 4 + 4 * 3 * (1600 + 32) * 2
+    assert cache_bytes(tm, 4, 2080) == 3 * 2080 * kv + 29 * 1024 * kv + \
+        32 * state == jcache_bytes(JLM(jcfg.get_config("hymba-1.5b")), 4,
+                                   2080)
+    assert cache_spec_summary(tm, 4, 2080) == jcache_spec_summary(
+        JLM(jcfg.get_config("hymba-1.5b")), 4, 2080)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_serve_launcher_offers_the_ssm_archs(arch, capsys):
+    serve_cli.main(["--arch", arch, "--smoke", "--batch", "2",
+                    "--prompt-len", "8", "--new-tokens", "4",
+                    "--device", "cpu"])
+    assert f"arch={arch}-smoke device=cpu generated=(2, 4)" in \
+        capsys.readouterr().out
+
+
+def test_serve_batched_example_runs_on_cpu(tmp_path, capsys):
+    """The twin of ``examples/serve_batched.py``: the four smoke configs
+    serve, and the live serving state (qwen2.5-3b's params and its bf16
+    KV cache) snapshots through the checkpoint manager and restores
+    equal."""
+    from repro_torch.examples import serve_batched
+    serve_batched.main(["--device", "cpu", "--snap-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    for arch in serve_batched.ARCHS:
+        assert f"{arch:14s} generated (4, 16)" in out
+    assert "restored equal: True" in out
+    with open(next(tmp_path.glob("step_*")) / "index.json") as f:
+        dtypes = {v["dtype"] for v in json.load(f)["variables"].values()}
+    assert dtypes == {"float32", "bfloat16"}
 
 
 def test_entry_points_need_a_gpu_unless_cpu(monkeypatch, capsys):
