@@ -5,6 +5,11 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
+or, for phase 22 alone (after phases 0 and 1; it is not in the default
+run, see below):
+
+    python3 chip_smoke.py --moe-serving
+
 Phases, each printing one JSON line:
 
 0. device probe (torch, CUDA, nvcc, card, power limit);
@@ -63,7 +68,7 @@ Phases, each printing one JSON line:
    never;
 10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
-    forward's sweep, the training shape and gemma2-2b's full-length shape
+    forward's sweep (GQA groups of 1, 2, 4, 5 and 8), the training shape and gemma2-2b's full-length shape
     given as strided views in bf16 and in f32 (the training shape's f32
     inputs also on the CUDA-core route, named), and
     ``flash_attention``'s gradients against autograd through the plain
@@ -73,16 +78,16 @@ Phases, each printing one JSON line:
     ones (``csrc/flash_bwd_f32tc.cu``), the named case the CUDA-core ones
     (``csrc/flash_bwd.cu``), and each route's count equals the cases the
     sweep sends it;
-11. the training path at full width: qwen2.5-3b (36 layers, random
-    weights from a seed: see ``training_params``; ``remat="dots"``) with
-    the flash route on, at
+11. the training path at full width: qwen2.5-3b (24 of its 36 layers,
+    ``QWEN_TRAIN_DEPTH``; random weights from a seed: see
+    ``training_params``; ``remat="dots"``) with the flash route on, at
     global batch 2 x 2048 tokens from the synthetic pipeline: first the
     flash route's loss and gradients against the q-chunked route's (f32
     and bf16 compute; the bf16 route's backward runs the sm90 kernels, the
     f32 one the 3xTF32 kernels after the 3xTF32 forward), then
     ``Trainer.run`` for 4 AdamW steps
     on one batch (``TRAIN_OPT``), launch counts reset just before it and
-    read just after (36 sm90 dq and 36 sm90 dkv launches a step, none on
+    read just after (24 sm90 dq and 24 sm90 dkv launches a step, none on
     the CUDA-core route), the step times, peak memory, and a profile of
     one more step;
 12. the backward kernels' times (as phase 4's): at the training shape and
@@ -93,6 +98,9 @@ Phases, each printing one JSON line:
     them); and at both shapes on f32 inputs, those of the f32 route
     comparisons, the 3xTF32 kernels beside the CUDA-core ones, both
     bounds (3xTF32 and f32 on the CUDA cores) and SDPA's backward in f32;
+    and at hymba-1.5b's training shape (B 2, GQA groups of 5, head_dim 64,
+    window 1024) the sm90 kernels beside their bound and SDPA's backward
+    with the window as a boolean mask;
 13. the serving path at gemma2-2b's full width (26 layers, head_dim 256,
     local and global layers, softcaps; random weights: see
     ``training_params``), as phase 7 serves qwen2.5-3b: the bf16 prefill
@@ -110,12 +118,13 @@ Phases, each printing one JSON line:
     names the flash backward's device time in a step;
 15. (run right after phase 11, on its trained tree: the later phases have
     no room for it beside their own) the checkpoint path at full width:
-    qwen2.5-3b's params and AdamW state (42 f32 leaves, 37 GB, and the
-    int32 step count) saved by ``CheckpointManager`` under
-    ``merged_process`` into ``build/chip_smoke/ckpt`` from
-    ``MeshSharding``s of 2 simulated hosts x 4 devices (each leaf split 8
-    ways, the blocks from ``blocks_from_sharding``: 2 chunks a leaf, one
-    ``pack_rows`` launch a leaf at least), restored whole onto the card
+    qwen2.5-3b's params and AdamW state (42 f32 leaves, 24 of its 36
+    layers: 25.93 GB, and the int32 step count) saved by
+    ``CheckpointManager`` under ``merged_process`` into
+    ``build/chip_smoke/ckpt`` from ``MeshSharding``s of 2 simulated
+    hosts x 4 devices (each leaf split 8 ways, the blocks from
+    ``blocks_from_sharding``: 2 chunks a leaf, one ``pack_rows`` launch a
+    leaf at least), restored whole onto the card
     (every leaf ``torch.equal``, the count 0-d), restored elastically (the
     embedding and one MLP weight 4 ways on another axis, through the
     region route: one launch a variable, every shard ``torch.equal``, with
@@ -173,12 +182,14 @@ Phases, each printing one JSON line:
     (``pack_rows`` one a step at least: the layout is assembled on the
     card); the peak device memory; every step read back ``torch.equal``
     to the field as it was at its submit;
-17b. async checkpoints at full width: qwen2.5-3b trained for 2 steps by
+17b. async checkpoints at full width: qwen2.5-3b at 12 of its 36 layers
+    (``ASYNC_TRAIN_DEPTH``) trained for 2 steps by
     ``Trainer.run`` with an ``AsyncCheckpointer`` (``reorganized`` (4,
     4), 1 worker, queue depth 1) as its checkpoint manager, which stages
-    the params (14 f32 leaves, 12.3 GB) after each step; per save the
+    the params (14 f32 leaves, 4.94 GB) after each step; per save the
     stall, ``t_s``, ``t_w`` and stages, the recommendation (the direct
-    write: phase 15's save of the same leaves), the launches of the run,
+    write: a synchronous save of these params as phase 15 saves its tree,
+    timed before the run), the launches of the run,
     the peak memory; every staged leaf read back ``torch.equal`` to a host
     copy of the params at its save; the directory removed;
 18. (after 17b) the kernel-bypass engines and the distributed fleet on the
@@ -210,7 +221,7 @@ Phases, each printing one JSON line:
     nonzero verified bytes; each trace's seconds both ways and its
     copy-kernel launches on the card (``pack_rows`` in every trace, the
     relayout pair where a replayed read or write meets an even 2-D grid);
-20. (last) the SSD and hybrid families at full width and depth, served as
+20. the SSD and hybrid families at full width and depth, served as
     phase 7 serves qwen2.5-3b (4 prompts of 2048 tokens, 32 new tokens),
     each then checked decode against forward in f32 compute (prefill 255
     tokens, decode the 256th, max |d| / max |ref| < 0.05).  20a:
@@ -226,7 +237,26 @@ Phases, each printing one JSON line:
     ``build/chip_smoke/serve_snap`` and restored onto the card, every leaf
     ``torch.equal``, then 8 greedy tokens decoded from the restored state
     equal to those from the original; save and restore seconds, bytes,
-    chunks and copy-kernel launches; the directory removed.
+    chunks and copy-kernel launches; the directory removed;
+21. the SSD and hybrid families trained at full width and depth, as
+    phase 11 trains qwen2.5-3b (2 x 2048 tokens, ``remat="dots"``, 4
+    AdamW steps on one batch, a profile of one more step): 21a
+    mamba2-780m (no attention: no route comparison, and no flash kernel
+    may launch), 21b hymba-1.5b (the f32 and bf16 route comparisons, 32
+    sm90 dq and 32 sm90 dkv launches a step, 61 of the sm90 forward: its
+    3 single-layer segments run without remat, as in the reference); every
+    loss and grad norm finite (the SSD's chunk of 256 gave nan gradients
+    before its exponent was masked), the last loss below the first;
+22. only with ``--moe-serving``: deepseek-moe-16b at full width and depth
+    (28 layers of 64 routed and 2 shared experts, MHA head_dim 128;
+    16.9e9 f32 params), served as phase 7 serves qwen2.5-3b: 28 sm90
+    forward launches a bf16 prefill, the route comparison in bf16 and f32
+    held to LOGIT_GAP with the routing decisions that differ between the
+    routes counted, decode against forward at capacity factor 16, a
+    profile, and the phase's peak device memory under 80 GiB.  Its bf16
+    route gap (0.0703 on an H100: bf16 compute settles routing near-ties
+    apart and the flips cascade) fails the gate, so the default run leaves
+    the phase out (``ROADMAP.md`` section 3).
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -316,6 +346,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 #: steps (8 of 26 layers): the head_dim-256 kernels run at their real
 #: shapes, the launch counts follow the layer count
 GEMMA2_TRAIN_DEPTH = 4
+#: phase 11 trains qwen2.5-3b at its full width and 24 of its 36 layers,
+#: and phase 15 checkpoints that tree (a third smaller than the whole
+#: model's 37.03 GB); 17b trains and stages 12 of them
+QWEN_TRAIN_DEPTH, ASYNC_TRAIN_DEPTH = 24, 12
 #: AdamW for the training run.  Its first steps move each of the 3.1e9
 #: weights by about lr whatever its gradient's size; with a 2-step warmup
 #: to 3e-4 the loss went (6 steps) 12.25, 8.91, 16.65, 16.39, 17.93, 13.68 on the
@@ -326,6 +360,9 @@ GEMMA2_TRAIN_DEPTH = 4
 TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=100, total_steps=1000)
 FLASH_TRAIN = dict(B=TRAIN_BATCH, Hq=16, Hkv=2, L=TRAIN_SEQ, D=128,
                    causal=True, window=None, softcap=None)
+#: hymba-1.5b's training shape (phase 21b's windowed layers): GQA groups
+#: of 5, head_dim 64, a window of 1024
+FLASH_HYMBA_TRAIN = dict(FLASH_HYMBA, B=TRAIN_BATCH)
 #: flash vs q-chunked training gradients in f32: max |d| / max |q-chunked|
 #: per leaf; the loss in bf16 compute: |d| / |q-chunked|
 GRAD_GAP_F32, LOSS_GAP_BF16 = 1e-3, 1e-2
@@ -959,10 +996,15 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
     the q-chunked route's on the same weights and prompts, in the model's
     bf16 compute and in f32, each held to LOGIT_GAP, each flash prefill's
     launches read on their own: one per layer on the kernel of the route
-    its dtype takes (``flash_kernel``), none on any other.  A model without
-    attention (mamba2-780m) has no second route: its prefill must launch
-    no flash kernel.  With a ``hand_over`` dict the model and its params
-    go into it instead of being freed."""
+    its dtype takes (``flash_kernel``), none on any other; the first
+    route's cache is freed before the second prefill.  For an MoE model
+    the experts each route's prefill picks are compared too (routing is
+    discrete: a near-tie that the two routes' rounding settles apart sends
+    a token to another expert, and the flip cascades), the counts that
+    differ reported beside the gap.  A model without attention
+    (mamba2-780m) has no second route: its prefill must launch no flash
+    kernel.  With a ``hand_over`` dict the
+    model and its params go into it instead of being freed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
@@ -976,6 +1018,7 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
                                       .manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     max_len = PROMPT_LEN + NEW_TOKENS
     engine = ServeEngine(model, params, max_len=max_len)
     prompts = np.random.default_rng(SEED).integers(
@@ -998,13 +1041,15 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
     routes = {}
     attention = cfg.family != "ssm"
-    for dtype in (torch.bfloat16, torch.float32) if attention else ():
+    base = LM(dataclasses.replace(cfg, flash=False))
+    for dtype in (torch.float32, torch.bfloat16) if attention else ():
         with compute_dtype(dtype), torch.inference_mode():
             K.reset_launch_counts()
-            flash_logits, _ = model.prefill(params, batch)
+            with routing_log(cfg) as flash_picks:
+                flash_logits = model.prefill(params, batch)[0]
             flash_launches = K.launch_counts()
-            base_logits, _ = LM(dataclasses.replace(cfg, flash=False)
-                                ).prefill(params, batch)
+            with routing_log(cfg) as base_picks:
+                base_logits = base.prefill(params, batch)[0]
         for lg in (flash_logits, base_logits):
             if not torch.isfinite(lg).all():
                 raise AssertionError("non-finite prefill logits")
@@ -1017,18 +1062,22 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
             raise AssertionError(f"{dtype} flash prefill: launches {ran}, "
                                  f"expected {want} (one {kernel} launch per "
                                  f"layer)")
-        routes[str(dtype).split(".")[-1]] = {
+        routes[str(dtype).split(".")[-1]] = r = {
             "logit_gap": float((flash_logits - base_logits).abs().max()
                                / base_logits.abs().max()),
             "same_greedy_first_token_share": float(
                 (flash_logits.argmax(-1) == base_logits.argmax(-1))
                 .float().mean()),
             "flash_launches": flash_launches}
+        if base_picks:
+            r.update(routing_differences(flash_picks, base_picks,
+                                         cfg.moe.n_experts))
+        del flash_picks, base_picks
     for name, r in routes.items():
         if r["logit_gap"] >= LOGIT_GAP:
             raise AssertionError(
                 f"{name}: flash route's prefill logits differ from the "
-                f"q-chunked route's by {r['logit_gap']} of their max")
+                f"q-chunked route's by {r['logit_gap']} of their max ({r})")
     spans["route_comparison"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     profile = profile_serving(torch, model, params, batch)
@@ -1049,10 +1098,53 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
             "second_call": {"prefill_seconds": again.prefill_seconds,
                             "decode_tok_per_s": again.decode_tps},
             "cache_bytes": cache_bytes(model, SERVE_BATCH, max_len),
+            "init_peak_memory_bytes": init_peak,
             "peak_memory_bytes": peak,
             "flash_vs_q_chunked": routes, "profile": profile,
             "span_seconds": spans,
             "first_tokens": out[:, :4].tolist(), "launches": launches}
+
+
+@contextlib.contextmanager
+def routing_log(cfg):
+    """The experts ``models.moe._route`` picks, one (T, k) tensor a call,
+    in call order, while the block runs; empty for a model without
+    MoE."""
+    picks = []
+    if cfg.moe is None:
+        yield picks
+        return
+    from repro_torch.models import moe
+    inner = moe._route
+
+    def spy(p, xf, dims):
+        out = inner(p, xf, dims)
+        picks.append(out[1])
+        return out
+    moe._route = spy
+    try:
+        yield picks
+    finally:
+        moe._route = inner
+
+
+def routing_differences(picks, other, n_experts: int) -> dict:
+    """Routing decisions (one a token and choice) of two prefills: how
+    many, how many differ in place (an order swap among a token's experts
+    counts), how many of a token's experts differ as a set, and the set
+    differences in the first layer, before any flip cascades."""
+    import torch
+
+    def sets(t):
+        return torch.zeros(t.shape[0], n_experts, dtype=torch.bool,
+                           device=t.device).scatter_(1, t, True)
+    per_layer = [int((sets(a) != sets(b)).sum()) // 2
+                 for a, b in zip(picks, other)]
+    return {"routing_decisions": sum(t.numel() for t in picks),
+            "routing_decisions_differing": sum(
+                int((a != b).sum()) for a, b in zip(picks, other)),
+            "routing_experts_differing": sum(per_layer),
+            "routing_experts_differing_first_layer": per_layer[0]}
 
 
 def serving_params(model, generator) -> dict:
@@ -1320,7 +1412,7 @@ def check_flash_bwd(torch, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for name, (causal, window, softcap) in masks.items():
             worst = [0.0, 0.0, 0.0]
-            for g in (1, 2, 4, 8):
+            for g in (1, 2, 4, 5, 8):
                 for D in (16, 24, 32, 48, 80, 128, 200, 256):
                     q, k, v = _qkv(torch, gen, dev, dtype, B=2, Hq=2 * g,
                                    Hkv=2, L=200, D=D,
@@ -1399,12 +1491,14 @@ def check_flash_bwd(torch, dev) -> dict:
 
 def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
           depth=None) -> dict:
-    """The training path at ``arch``'s full width: the flash route's
-    gradients against the q-chunked route's, then ``Trainer.run`` with the
-    launch counts of that one call, then a profile of one more step.  With
-    a ``hand_over`` dict, the trained params and AdamW state go into it
-    (the checkpoint phase saves them) instead of being freed.  ``depth``
-    cuts the config's one segment to that many layer steps."""
+    """The training path at ``arch``'s full width under ``remat="dots"``:
+    the flash route's gradients against the q-chunked route's (a model
+    without attention, mamba2-780m, has no second route), then
+    ``Trainer.run`` with the launch counts of that one call, then a
+    profile of one more step.  With a ``hand_over`` dict, the trained
+    params and AdamW state go into it (the checkpoint phase saves them)
+    instead of being freed.  ``depth`` cuts a one-segment program to that
+    many layer steps; a program of several segments runs whole."""
     import dataclasses
     import itertools
     from repro_torch.configs import get_config
@@ -1413,12 +1507,20 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
     from repro_torch.train import OptimizerConfig, Trainer, adamw_init
     cfg = dataclasses.replace(get_config(arch), flash=True)
     if depth is not None:
+        if len(cfg.program) != 1:
+            raise ValueError(f"depth= cuts a one-segment program; {arch} "
+                             f"has {len(cfg.program)} segments")
         (kind, _), = cfg.program
         cfg = dataclasses.replace(cfg, program=((kind, depth),),
                                   n_layers=depth * cfg.layers_per_step(kind))
-    if TRAIN_SEQ % cfg.flash_block or cfg.remat != "dots":
-        raise ValueError("the training run must take the flash route under "
-                         "remat='dots'")
+    attention = cfg.family != "ssm"
+    if cfg.remat != "dots":
+        raise ValueError(f"the training run needs remat='dots', {arch} has "
+                         f"{cfg.remat!r}")
+    if attention and TRAIN_SEQ % cfg.flash_block:
+        raise ValueError(f"the training run must take the flash route: "
+                         f"{TRAIN_SEQ} tokens are no multiple of "
+                         f"{arch}'s flash_block {cfg.flash_block}")
     model = LM(cfg)
     t0 = time.perf_counter()
     params = training_params(model, torch.Generator(device=dev)
@@ -1430,7 +1532,8 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
         seed=SEED)))
     batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
 
-    routes = compare_train_routes(torch, model, params, batch)
+    routes = compare_train_routes(torch, model, params, batch) \
+        if attention else None
 
     trainer = Trainer(model, OptimizerConfig(**TRAIN_OPT),
                       itertools.repeat(host_batch))
@@ -1451,8 +1554,12 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
         hand_over.update(params=params, opt=opt)
     del params, opt, trainer
     torch.cuda.empty_cache()
-    return {"arch": arch, "layers": cfg.n_layers,
-            "head_dim": cfg.head_dim, "flash": True,
+    return {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+            # layers under remat: a segment of one layer runs without it,
+            # as in the reference, so its forward is not recomputed
+            "recomputed_layers": sum(cfg.layers_per_step(k) * c
+                                     for k, c in cfg.program if c > 1),
+            "head_dim": cfg.head_dim, "flash": attention,
             "remat": cfg.remat, "global_batch": TRAIN_BATCH,
             "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
             "optimizer": TRAIN_OPT,
@@ -1467,18 +1574,32 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
 
 def check_training(trained: dict) -> None:
     """A training run's gates, for its arch's layer count and head dim:
-    f32 gradients of the flash route within GRAD_GAP_F32 of the q-chunked
-    route's per leaf and bf16 losses within LOSS_GAP_BF16; the bf16 route
-    comparison's backward on the sm90 kernels (``flash_kernel``: the
-    head_dim-256 ones above 128) and the f32 one's on the 3xTF32 kernels,
-    one dq and one dkv a layer (none on the CUDA-core ones), after the
-    3xTF32 forward as many times as the bf16 one's sm90 forward; every
-    loss and grad norm finite
-    and positive; the last loss below the first; per step one launch a
-    layer of the sm90 dq and dkv kernels for this head dim, two of its
-    sm90 forward, none on any other flash kernel (the CUDA-core ones
+    every loss and grad norm finite and positive; the last loss below the
+    first.  A model without attention launches no flash kernel.  With
+    attention: f32 gradients of the flash route within GRAD_GAP_F32 of the
+    q-chunked route's per leaf (per layer) and bf16 losses within
+    LOSS_GAP_BF16; the bf16 route comparison's backward on the sm90
+    kernels (``flash_kernel``: the head_dim-256 ones above 128) and the
+    f32 one's on the 3xTF32 kernels, one dq and one dkv a layer (none on
+    the CUDA-core ones), after the 3xTF32 forward as many times as the
+    bf16 one's sm90 forward; per step one launch a layer of the sm90 dq
+    and dkv kernels for this head dim, one of its sm90 forward a layer
+    and one more for each layer under remat (the recompute runs its
+    forward again), none on any other flash kernel (the CUDA-core ones
     included)."""
+    losses, norms = trained["losses"], trained["grad_norms"]
+    if not all(math.isfinite(x) and x > 0 for x in losses + norms):
+        raise AssertionError(f"losses {losses}, grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    per_step = trained["launches_per_step"]
     routes = trained["flash_vs_q_chunked"]
+    if routes is None:          # no attention, so no second route
+        ran = {k: per_step[k] for k in FLASH_KERNELS if per_step[k]}
+        if ran:
+            raise AssertionError(f"{trained['arch']} has no attention but "
+                                 f"launched {ran} a step")
+        return
     n, D = trained["layers"], trained["head_dim"]
     bwd = [name for name in FLASH_KERNELS if "_dq" in name or "_dkv" in name]
     for dtype, route in (("bfloat16", "sm90"), ("float32", "f32tc")):
@@ -1503,21 +1624,16 @@ def check_training(trained: dict) -> None:
                              f"{routes['float32']['over_limit']}")
     if not routes["bfloat16"]["loss_gap"] < LOSS_GAP_BF16:
         raise AssertionError(f"bf16 losses differ: {routes['bfloat16']}")
-    losses, norms = trained["losses"], trained["grad_norms"]
-    if not all(math.isfinite(x) and x > 0 for x in losses + norms):
-        raise AssertionError(f"losses {losses}, grad norms {norms}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    per_step = trained["launches_per_step"]
     want = dict.fromkeys(FLASH_KERNELS, 0)
-    want[flash_kernel("fwd", "sm90", D)] = 2 * n
+    want[flash_kernel("fwd", "sm90", D)] = n + trained["recomputed_layers"]
     want[flash_kernel("dq", "sm90", D)] = n
     want[flash_kernel("dkv", "sm90", D)] = n
     if {k: per_step[k] for k in want} != want:
         raise AssertionError(f"launches per step {per_step}, not {want}: "
                              f"one sm90 dq and one sm90 dkv per layer and "
-                             f"two sm90 forwards (the dots recompute runs "
-                             f"it again), none on any other flash kernel")
+                             f"one sm90 forward per layer, two under remat "
+                             f"(the dots recompute runs it again), none on "
+                             f"any other flash kernel")
 
 
 def check_gemma2_serving(served: dict) -> None:
@@ -1603,9 +1719,10 @@ def compare_train_routes(torch, model, params, batch) -> dict:
                 "device_ms": sum(t for _, t in rows) / 1e3,
                 **{f"{tag}_ms": sum(t for k, t in rows if tag in k) / 1e3
                    for tag in ("flash_fwd", "flash_dq", "flash_dkv")}}
-        last = counts[0] - 1
+        # each stacked segment's first and last layer
         shown = {k: v for k, v in gaps.items()
-                 if "[" not in k or k.endswith(("[0]", f"[{last}]"))}
+                 if "[" not in k or k.endswith(
+                     ("[0]", f"[{counts[int(k.split('/')[1])] - 1}]"))}
         out[str(dtype).split(".")[-1]] = {
             "loss_flash": float(fl), "loss_q_chunked": float(bl),
             "loss_gap": abs(float(fl) - float(bl)) / abs(float(bl)),
@@ -1693,7 +1810,10 @@ def bwd_timings(torch, dev) -> dict:
     ones on the same inputs (``simt_ms``), the 3xTF32 bound (``bound_ms``:
     three TF32 products a useful flop at the TF32 peak) and the CUDA-core
     one (``simt_bound_ms``: f32 at 67 TFLOP/s), the plain versions and
-    SDPA's backward in f32."""
+    SDPA's backward in f32.  ``hymba``: hymba-1.5b's training shape
+    (``FLASH_HYMBA_TRAIN``: GQA groups of 5, head_dim 64, window 1024) on
+    the sm90 kernels beside the CUDA-core ones, their bound and SDPA's
+    backward with the window as a boolean mask (SDPA has no window)."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
@@ -1732,10 +1852,16 @@ def bwd_timings(torch, dev) -> dict:
                   for x in (q, k, v, do, lse, delta))
         per_head = B * Hq * k.shape[2] * D * 4      # one f32 dK or dV
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        # SDPA has no window: a window shorter than L goes in as a mask
+        mask = dict(is_causal=True)
+        if window is not None and window < L:
+            pos = torch.arange(L, device=dev)
+            d = pos[:, None] - pos[None, :]
+            mask = dict(attn_mask=(d >= 0) & (d < window))
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=True, scale=scale, enable_gqa=True)
+                qg, kg, vg, scale=scale, enable_gqa=True, **mask)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa(), (qg, kg, vg), do)
@@ -1744,7 +1870,8 @@ def bwd_timings(torch, dev) -> dict:
             fwd = device_ms(sdpa)
         library = device_ms(sdpa_fwd_bwd) - fwd
         res = {"shape": {**shp, "dtype": str(dtype).split(".")[-1]},
-               "library_fwd_ms": fwd, "library_bwd_ms": library}
+               "library_fwd_ms": fwd, "library_bwd_ms": library,
+               "library_masked": "attn_mask" in mask}
         for kind, kernel, plain, flops, nbytes in (
                 ("dq", flash_attention_dq, flash_attention_dq_ref,
                  6 * D * pairs, ins + q.numel() * size),
@@ -1768,7 +1895,8 @@ def bwd_timings(torch, dev) -> dict:
             "gemma2": shape(FLASH_GEMMA2, torch.bfloat16, BF16_FLOPS,
                             "_d256"),
             "gemma2_f32": shape(FLASH_GEMMA2, torch.float32, TF32X3_FLOPS,
-                                "_f32tc")}
+                                "_f32tc"),
+            "hymba": shape(FLASH_HYMBA_TRAIN, torch.bfloat16, BF16_FLOPS, "")}
 
 
 # -- driver --------------------------------------------------------------------
@@ -1794,6 +1922,23 @@ def _split_axis(shape, ways, skip=None, last=False):
     return (axes[-1] if last else axes[0]) if axes else None
 
 
+def _ckpt_shardings(tree):
+    """Every leaf of ``tree`` split over CKPT_MESH's devices along the
+    axis ``_split_axis`` picks: the flat leaves, the split axis of each
+    leaf that is not a scalar, its ``MeshSharding``, and the shardings as
+    a tree like ``tree``."""
+    from repro_torch.checkpoint import (MeshSharding, flatten_pytree,
+                                        unflatten_like)
+    flat = flatten_pytree(tree)
+    ids = np.arange(math.prod(CKPT_MESH)).reshape(CKPT_MESH)
+    axis = {n: _split_axis(t.shape, ids.size) for n, t in flat.items()
+            if t.dim()}
+    sh = {n: MeshSharding(ids, CKPT_AXES, () if d is None
+                          else (None,) * d + (CKPT_AXES,))
+          for n, d in axis.items()}
+    return flat, axis, sh, unflatten_like(tree, {n: sh.get(n) for n in flat})
+
+
 def checkpoint(torch, dev, K, state: dict) -> dict:
     """The checkpoint path at full width on phase 11's trained tree (its
     params and AdamW state, popped from ``state``): ``save`` under
@@ -1802,19 +1947,12 @@ def checkpoint(torch, dev, K, state: dict) -> dict:
     embedding alone under ``reorganized`` through the relayout kernels.
     Each step's launch counts are reset just before it and read just
     after; every check raises."""
-    from repro_torch.checkpoint import (CheckpointManager, MeshSharding,
+    from repro_torch.checkpoint import (CheckpointManager,
                                         blocks_from_sharding, flatten_pytree,
-                                        reshard_cost_report, unflatten_like)
+                                        reshard_cost_report)
     from repro_torch.core import plan_layout, regular_decomposition
     tree = {"params": state.pop("params"), "opt_state": state.pop("opt")}
-    flat = flatten_pytree(tree)
-    ids = np.arange(math.prod(CKPT_MESH)).reshape(CKPT_MESH)
-    axis = {n: _split_axis(t.shape, ids.size) for n, t in flat.items()
-            if t.dim()}
-    sh = {n: MeshSharding(ids, CKPT_AXES, () if d is None
-                          else (None,) * d + (CKPT_AXES,))
-          for n, d in axis.items()}
-    shardings = unflatten_like(tree, {n: sh.get(n) for n in flat})
+    flat, axis, sh, shardings = _ckpt_shardings(tree)
     root = ROOT / "build" / "chip_smoke" / "ckpt"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -2596,16 +2734,33 @@ class _HostCopies:
         return stall
 
 
-def async_checkpoints(torch, dev, K, direct_s: float) -> dict:
-    """Async checkpoints at full width: qwen2.5-3b (flash route,
+def _direct_save(torch, params, root: Path) -> float:
+    """Seconds of a synchronous ``CheckpointManager.save`` of ``params``
+    as phase 15 saves its tree (``merged_process`` from the CKPT_MESH
+    shardings), summed over the leaves; the directory removed after."""
+    from repro_torch.checkpoint import CheckpointManager
+    tree = {"params": params}
+    *_, shardings = _ckpt_shardings(tree)
+    mgr = CheckpointManager(str(root), keep=1, devices_per_host=CKPT_MESH[1])
+    torch.cuda.synchronize()
+    try:
+        st = mgr.save(0, tree, shardings=shardings)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return sum(st.per_var_seconds.values())
+
+
+def async_checkpoints(torch, dev, K) -> dict:
+    """Async checkpoints at full width: qwen2.5-3b at ASYNC_TRAIN_DEPTH of
+    its 36 layers (flash route,
     ``remat="dots"``) trained for ASYNC_SAVES steps by ``Trainer.run``
     with an ``AsyncCheckpointer`` (reorganized ASYNC_SCHEME) as its
     checkpoint manager, saving after every step; launch counts reset just
     before the run and read after the last staged write.  Every staged
     leaf is read back and held to a host copy of the params at its step
-    (AdamW updates them in place in the next step).  ``direct_s`` is the
-    synchronous save of the same leaves (phase 15), the recommendation's
-    direct write."""
+    (AdamW updates them in place in the next step).  The recommendation's
+    direct write is a synchronous save of the same params, timed before
+    the run (``_direct_save``)."""
     import dataclasses
     import itertools
     from repro_torch.checkpoint import AsyncCheckpointer
@@ -2617,10 +2772,15 @@ def async_checkpoints(torch, dev, K, direct_s: float) -> dict:
     from repro_torch.train import OptimizerConfig, Trainer, adamw_init
     root = ROOT / "build" / "chip_smoke" / "async"
     shutil.rmtree(root, ignore_errors=True)
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), flash=True)
+    cfg = get_config(SERVE_ARCH)
+    (kind, _), = cfg.program
+    cfg = dataclasses.replace(cfg, flash=True,
+                              program=((kind, ASYNC_TRAIN_DEPTH),),
+                              n_layers=ASYNC_TRAIN_DEPTH)
     model = LM(cfg)
     params = training_params(model, torch.Generator(device=dev)
                              .manual_seed(SEED + 17))
+    direct_s = _direct_save(torch, params, root / "direct")
     host_batch = next(SyntheticTokens(PipelineConfig(
         global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
         seed=SEED)))
@@ -2684,7 +2844,7 @@ def async_checkpoints(torch, dev, K, direct_s: float) -> dict:
         steps = [m["step_seconds"] for _, m in hist]
         t_c = statistics.median(steps)
         rec = ac.recommendation(t_c, ASYNC_SAVES, ac.timings(results))
-        return {"arch": SERVE_ARCH, "params": sum(
+        return {"arch": SERVE_ARCH, "layers": cfg.n_layers, "params": sum(
                     t.numel() for t in witness.seen[1].values()),
                 "leaves": n_leaves, "scheme": list(ASYNC_SCHEME),
                 "saves": ASYNC_SAVES, "num_workers": ASYNC_WORKERS,
@@ -3200,8 +3360,58 @@ def snapshot(torch, dev, K, model, params) -> dict:
             "restored_equal": True, "launches": launches}
 
 
-def main() -> int:
+# -- phase 22 ------------------------------------------------------------------
+
+#: phase 22: deepseek-moe-16b at full width and depth (28 layers of 64
+#: routed and 2 shared experts, 16.9e9 f32 params), phase 7's traffic.
+#: Its decode check runs at capacity factor 16, as the reference's own
+#: decode test does: the forward over L tokens and the prefill over L-1
+#: then drop no token, so capacity drops cannot differ between them
+MOE_ARCH, MOE_DECODE_CAPACITY = "deepseek-moe-16b", 16.0
+#: the card's memory: phase 22's peak must stay under it
+CARD_BYTES = 80 * 2 ** 30
+
+
+def serve_moe(torch, dev, K) -> dict:
+    """22: ``serve`` on the full deepseek-moe-16b (phase 7's traffic and
+    checks, the routing decisions of each route comparison's prefills
+    counted), its ``generate`` launching the sm90 forward once a layer and
+    no other flash kernel, then ``decode_check`` at MOE_DECODE_CAPACITY on
+    the same weights; the phase's peak device memory, the init's
+    included, held under CARD_BYTES."""
+    import dataclasses
+    from repro_torch.models import LM
+    state = {}
+    out = serve(torch, dev, K, MOE_ARCH, hand_over=state)
+    got = {n: out["launches"][n] for n in FLASH_KERNELS}
+    want = {n: out["layers"] * (n == flash_kernel("fwd", "sm90",
+                                                  out["head_dim"]))
+            for n in FLASH_KERNELS}
+    if got != want:
+        raise AssertionError(f"{MOE_ARCH}: serving launched {got}, "
+                             f"expected {want}")
+    cfg = state["model"].cfg
+    model = LM(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DECODE_CAPACITY)))
+    out["decode_check"] = dict(decode_check(torch, model, state["params"]),
+                               capacity_factor=MOE_DECODE_CAPACITY)
+    out["params"] = model.num_params()
+    out["phase_peak_memory_bytes"] = max(out["init_peak_memory_bytes"],
+                                         torch.cuda.max_memory_allocated())
+    del state
+    torch.cuda.empty_cache()
+    if out["phase_peak_memory_bytes"] >= CARD_BYTES:
+        raise AssertionError(f"{MOE_ARCH} peaked at "
+                             f"{out['phase_peak_memory_bytes']} bytes")
+    return out
+
+
+def main(argv) -> int:
     t_start = time.perf_counter()
+    moe_serving = argv == ["--moe-serving"]
+    if argv and not moe_serving:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3222,6 +3432,13 @@ def main() -> int:
     info = probe(torch)
     emit(0, **info)
     emit(1, **build())
+    if moe_serving:
+        t0 = time.perf_counter()
+        moe = serve_moe(torch, dev, K)
+        emit(22, seconds=time.perf_counter() - t0, **moe)
+        emit("total", seconds=time.perf_counter() - t_start)
+        print(smi_line(), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     blocks = simulate_load_balance(uniform_grid_blocks(FIELD, BLOCK),
@@ -3291,7 +3508,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     state = {}
-    trained = train(torch, dev, K, hand_over=state)
+    trained = train(torch, dev, K, hand_over=state, depth=QWEN_TRAIN_DEPTH)
     emit(11, seconds=time.perf_counter() - t0, **trained)
     check_training(trained)
 
@@ -3332,7 +3549,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    saves = async_checkpoints(torch, dev, K, ckpt["save"]["params_seconds"])
+    saves = async_checkpoints(torch, dev, K)
     emit("17b", seconds=time.perf_counter() - t0, **saves)
     torch.cuda.empty_cache()
 
@@ -3355,6 +3572,16 @@ def main() -> int:
     snap = snapshot(torch, dev, K, state.pop("model"), state.pop("params"))
     torch.cuda.empty_cache()
     emit("20c", seconds=time.perf_counter() - t0, **snap)
+
+    t0 = time.perf_counter()
+    trained_s = train(torch, dev, K, SSM_ARCH)
+    emit("21a", seconds=time.perf_counter() - t0, **trained_s)
+    check_training(trained_s)
+    t0 = time.perf_counter()
+    trained_h = train(torch, dev, K, HYBRID_ARCH)
+    emit("21b", seconds=time.perf_counter() - t0, **trained_h)
+    check_training(trained_h)
+    torch.cuda.empty_cache()
     emit("total", seconds=time.perf_counter() - t_start)
 
     # the copy kernels' launches on their eight paths: the slice-1 step
@@ -3376,20 +3603,29 @@ def main() -> int:
             for name, (source, replaces) in KERNELS.items()
             if not name.startswith("flash_attention")]
     # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's and
-    # hymba-1.5b's head_dim up to 128, gemma2-2b's 256); the 3xTF32
-    # forward on the f32 serving prefills (qwen2.5-3b's and hymba-1.5b's),
+    # hymba-1.5b's head_dim up to 128, gemma2-2b's 256) and the training
+    # runs (forward and remat recompute); the 3xTF32 forward on the f32
+    # serving prefills (qwen2.5-3b's, gemma2-2b's, hymba-1.5b's) and the
+    # f32 training comparisons,
     # the paths that run it here.  The CUDA-core forward runs on no path,
     # so the summary, the kernels of the paths, leaves it out: phase 6
     # checks it against its plain version, phase 8 times it
-    f32_prefill = [r["flash_vs_q_chunked"]["float32"]["flash_launches"]
-                   ["flash_attention_f32tc"] for r in (served, hybrid)]
+    served_runs = (served, gemma2, hybrid)
+    trained_runs = (trained, trained_g, trained_h)
+    f32_runs = [r["flash_vs_q_chunked"]["float32"]["flash_launches"]
+                for r in served_runs + trained_runs]
+
+    def total(name):
+        """``name``'s launches on the serving and training runs."""
+        return sum(r["launches"][name] for r in served_runs + trained_runs)
+
     for name, launched, t in (
-            ("flash_attention", serve_launches["flash_attention"]
-             + hybrid["launches"]["flash_attention"],
+            ("flash_attention", total("flash_attention"),
              flash_times["serving"]),
-            ("flash_attention_d256", gemma2["launches"]["flash_attention_d256"],
+            ("flash_attention_d256", total("flash_attention_d256"),
              flash_times["gemma2"]),
-            ("flash_attention_f32tc", sum(f32_prefill),
+            ("flash_attention_f32tc",
+             sum(r["flash_attention_f32tc"] for r in f32_runs),
              flash_times["f32_serving"])):
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -3398,27 +3634,25 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    # the sm90 backward on the training runs (qwen2.5-3b's head_dim 128,
-    # gemma2-2b's 256); the 3xTF32 backward on qwen2.5-3b's f32 route
-    # comparison, the path that runs it here.  The CUDA-core backward runs
-    # on no path: phase 10 checks it, phase 12 times it
-    f32_launches = trained["flash_vs_q_chunked"]["float32"]["flash_launches"]
+    # the sm90 backward on the training runs (qwen2.5-3b's and
+    # hymba-1.5b's head_dim up to 128, gemma2-2b's 256); the 3xTF32
+    # backward on the f32 route comparisons, the paths that run it here.
+    # The CUDA-core backward runs on no path: phase 10 checks it, phase 12
+    # times it
     for name, launched, t in (
-            ("flash_attention_dq", trained["launches"]["flash_attention_dq"],
+            ("flash_attention_dq", total("flash_attention_dq"),
              bwd_times["training"]["flash_attention_dq"]),
-            ("flash_attention_dq_d256",
-             trained_g["launches"]["flash_attention_dq_d256"],
+            ("flash_attention_dq_d256", total("flash_attention_dq_d256"),
              bwd_times["gemma2"]["flash_attention_dq_d256"]),
             ("flash_attention_dq_f32tc",
-             f32_launches["flash_attention_dq_f32tc"],
+             sum(r["flash_attention_dq_f32tc"] for r in f32_runs),
              bwd_times["training_f32"]["flash_attention_dq_f32tc"]),
-            ("flash_attention_dkv", trained["launches"]["flash_attention_dkv"],
+            ("flash_attention_dkv", total("flash_attention_dkv"),
              bwd_times["training"]["flash_attention_dkv"]),
-            ("flash_attention_dkv_d256",
-             trained_g["launches"]["flash_attention_dkv_d256"],
+            ("flash_attention_dkv_d256", total("flash_attention_dkv_d256"),
              bwd_times["gemma2"]["flash_attention_dkv_d256"]),
             ("flash_attention_dkv_f32tc",
-             f32_launches["flash_attention_dkv_f32tc"],
+             sum(r["flash_attention_dkv_f32tc"] for r in f32_runs),
              bwd_times["training_f32"]["flash_attention_dkv_f32tc"])):
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -3436,4 +3670,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -20,6 +20,8 @@ ARCHS = {
     "qwen2.5-3b": "qwen2_5_3b",
     "yi-9b": "yi_9b",
     "stablelm-3b": "stablelm_3b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "mamba2-780m": "mamba2_780m",
 }
 
@@ -28,8 +30,6 @@ NOT_PORTED = {
     "hubert-xlarge": "encoder blocks and the frames frontend (ROADMAP.md "
                      "queue 1, item 10)",
     "llama-3.2-vision-90b": "cross-attention (ROADMAP.md queue 1, item 8)",
-    "arctic-480b": "MoE blocks (ROADMAP.md queue 1, item 10)",
-    "deepseek-moe-16b": "MoE blocks (ROADMAP.md queue 1, item 10)",
 }
 
 

@@ -1,6 +1,6 @@
 """The model stack: layer primitives, attention, the layer program and
-``LM`` (dense decoders, Mamba-2 SSD and the attention+SSM hybrid so
-far)."""
+``LM`` (dense decoders, MoE, Mamba-2 SSD and the attention+SSM hybrid
+so far)."""
 
 from .model import LM
 from .transformer import ModelConfig

@@ -106,6 +106,7 @@ def materialize(skel, generator: torch.Generator):
         else:
             raise ValueError(f"unknown init {d.init!r}")
         x = torch.randn(d.shape, generator=generator, device=dev)
-        return (x * s).to(dtype)
+        # in place: a stacked expert weight is a quarter of a card
+        return x.mul_(s).to(dtype)
 
     return tree_map(mk, skel)

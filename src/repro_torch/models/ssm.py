@@ -125,11 +125,17 @@ def _ssd_full(p, x, dims: SSMDims, chunk: int = 256):
         acum = torch.cumsum(a, dim=1)            # (B,Q,H)
         # intra-chunk (quadratic in Q)
         cb = torch.einsum("bqhn,bkhn->bhqk", Cc, Bc)
-        decay = torch.exp(acum[:, :, None] - acum[:, None, :])  # (B,Q,K,H)
-        decay = decay.permute(0, 3, 1, 2)                       # (B,H,Q,K)
-        # above the diagonal decay overflows to inf: select, never multiply
-        # by a 0/1 mask (inf * 0 is nan)
-        w = torch.where(mask, cb * decay, 0.0)
+        # above the diagonal acum_q - acum_k is positive and its exp
+        # overflows to inf once a chunk's |dt*A| sums past ~88; masking
+        # the product afterwards keeps the forward finite but the backward
+        # then multiplies a zero cotangent by inf (nan).  Mask the exponent
+        # instead: exp(-inf) = 0, whose gradient is 0 too.  (The reference
+        # masks the product and gives nan gradients at chunk 256.)
+        diff = torch.where(mask[:, :, None],
+                           acum[:, :, None] - acum[:, None, :],
+                           float("-inf"))                       # (B,Q,K,H)
+        decay = torch.exp(diff).permute(0, 3, 1, 2)             # (B,H,Q,K)
+        w = cb * decay
         w = w * dtc.transpose(1, 2)[:, :, None, :]              # * dt_j
         y_intra = torch.einsum("bhqk,bkhp->bqhp", w, xc)
         # inter-chunk: contribution of incoming state

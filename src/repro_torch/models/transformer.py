@@ -5,9 +5,11 @@ segment's parameters are stacked along a leading "layers" dim and the
 model walks the segment one layer at a time (the reference scans it).
 Composite kinds nest simple blocks inside one layer step.
 
-Kinds ported so far (the dense decoders, the SSD and hybrid families):
+Kinds ported so far (the dense decoders, MoE, the SSD and hybrid
+families):
   attn      pre-norm self-attention (full, causal) + MLP
   swa       sliding-window self-attention + MLP
+  moe       self-attention + MoE FFN (+ dense residual)  [arctic/deepseek]
   ssd       Mamba-2 SSD block                                 [mamba2]
   hyb_full  parallel attention+SSM heads, full attention      [hymba]
   hyb_swa   parallel attention+SSM heads, windowed attention  [hymba]
@@ -24,6 +26,7 @@ import dataclasses
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (layer_norm, layer_norm_defs, mlp_defs, mlp_forward,
                      rms_norm, rms_norm_def)
@@ -35,10 +38,9 @@ COMPOSITE = {"pair_lg": ("local:swa", "global:attn"),
              "group_sx": ("self_0:attn", "self_1:attn", "self_2:attn",
                           "self_3:attn", "cross:xattn")}
 _HYBRID = ("hyb_full", "hyb_swa")
-_PORTED = ("attn", "swa", "ssd", *_HYBRID, "pair_lg")
+_PORTED = ("attn", "swa", "moe", "ssd", *_HYBRID, "pair_lg")
 #: kinds not ported yet -> the ROADMAP.md item that ports them
 _NOT_PORTED = {"enc": "queue 1, item 10 (encoder blocks)",
-               "moe": "queue 1, item 10 (MoE)",
                "xattn": "queue 1, item 8 (cross-attention)",
                "group_sx": "queue 1, item 8 (cross-attention)"}
 
@@ -80,8 +82,8 @@ class ModelConfig:
     post_norm: bool = False         # gemma2 post-attn/post-ffn norms
     embed_scale: bool = False
     tie_embed: bool = True
-    # moe / ssm / vlm (MoE's dims come with its slice)
-    moe: object | None = None
+    # moe / ssm / vlm
+    moe: moe_mod.MoEDims | None = None
     dense_residual: bool = False
     ssm: ssm_mod.SSMDims | None = None
     ssd_chunk: int = 256
@@ -143,7 +145,12 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
     if cfg.post_norm:
         d["post1"] = _norm_def(cfg)
         d["post2"] = _norm_def(cfg)
-    d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
+    if kind == "moe":
+        d["moe"] = moe_mod.moe_defs(cfg.moe)
+        if cfg.dense_residual:
+            d["dense"] = mlp_defs(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
+    else:
+        d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
     return d
 
 
@@ -158,6 +165,17 @@ def _attn_kwargs(cfg: ModelConfig, kind: str) -> dict:
                 rotary_dim=cfg.rotary_dim, use_rope=cfg.use_rope,
                 attn_cap=cfg.attn_cap, flash=cfg.flash,
                 flash_block=cfg.flash_block)
+
+
+def _ffn(cfg: ModelConfig, kind: str, p, h, zero):
+    """The block's FFN and its auxiliary loss (MoE's load balance; else
+    ``zero``)."""
+    if kind == "moe":
+        y, aux = moe_mod.moe_forward(p["moe"], h, cfg.moe)
+        if cfg.dense_residual:
+            y = y + mlp_forward(p["dense"], h, act=cfg.act)
+        return y, aux
+    return mlp_forward(p["mlp"], h, act=cfg.act), zero
 
 
 def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
@@ -204,10 +222,10 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
         y = _norm(cfg, p["post1"], y)
     x = x + y
     h2 = _norm(cfg, p["ln2"], x)
-    y2 = mlp_forward(p["mlp"], h2, act=cfg.act)
+    y2, aux = _ffn(cfg, kind, p, h2, zero)
     if cfg.post_norm:
         y2 = _norm(cfg, p["post2"], y2)
-    return x + y2, zero, kv
+    return x + y2, aux, kv
 
 
 def _attn_with_kv(cfg, p, h, positions, kwargs, collect_kv):
@@ -274,7 +292,7 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
         y = _norm(cfg, p["post1"], y)
     x = x + y
     h2 = _norm(cfg, p["ln2"], x)
-    y2 = mlp_forward(p["mlp"], h2, act=cfg.act)
+    y2, _ = _ffn(cfg, kind, p, h2, None)
     if cfg.post_norm:
         y2 = _norm(cfg, p["post2"], y2)
     return x + y2, new_cache

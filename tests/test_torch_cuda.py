@@ -1177,3 +1177,82 @@ def test_flash_sm90_forward_at_hymbas_shape(cuda):
     torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
                                atol=1e-5)
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+def _grads_on(dev, fn, params, *inputs):
+    """``fn(params, *inputs)``'s output and the gradients of its sum
+    against a seeded cotangent with respect to every param, on ``dev``."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+    out, *rest = fn(p, *(t.to(dev) for t in inputs))
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
+    loss = (out * ct.to(dev)).sum() + sum(r.sum() for r in rest)
+    leaves = tree_leaves(p)
+    return [out, *rest], torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("case", ["moe_block", "ssd_chunk_256"])
+def test_moe_block_and_ssd_backward_on_the_card(cuda, case, monkeypatch):
+    """Gradients on the card against the CPU run of the same weights, f32
+    compute.  ``moe_block``: one deepseek-moe-16b smoke ``moe`` block
+    (flash route on: the 3xTF32 forward and backward; the router, the
+    dispatch scatter-add and the combine gather), its output, aux loss
+    and every gradient (rtol 1e-3, atol 1e-4), the experts the router
+    picks from its own input (``ln2`` of x plus attention) equal on both
+    devices.  ``ssd_chunk_256``: the SSD fault's input
+    (``tests/test_torch_ssm.py``: one chunk of 256 whose decay overflows
+    above the diagonal), every gradient finite on the card and equal to
+    the CPU's to the same tolerance."""
+    from repro_torch.models import layers
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import materialize
+    gen = torch.Generator().manual_seed(0)
+    picks = []
+    if case == "moe_block":
+        cfg, params, _ = _ssm_block("deepseek-moe-16b", "moe", cuda)
+        # attention at true fan-in: under the reference's init most score
+        # rows are an argmax, and the two devices' f32 rounding flips
+        # near-ties (tests/test_torch_train.py's ``_fan_in``)
+        a = params["attn"]
+        for name, scale in (("wq", cfg.n_heads / cfg.d_model),
+                            ("wk", cfg.n_kv / cfg.d_model),
+                            ("wv", cfg.n_kv / cfg.d_model),
+                            ("wo", 1 / cfg.n_heads)):
+            a[name] = a[name] * scale ** 0.5
+        x = torch.randn(2, 32, cfg.d_model, generator=gen) * 0.5
+        pos = torch.arange(32)
+
+        def fn(p, h, ps):
+            y, aux, _ = tfm.block_forward(cfg, "moe", p, h, ps)
+            return y, aux
+        inputs = (x, pos)
+        route = moe_mod._route
+
+        def spy(p, xf, dims):
+            out = route(p, xf, dims)
+            picks.append(out[1].cpu())
+            return out
+        monkeypatch.setattr(moe_mod, "_route", spy)
+    else:
+        dims = ssm.SSMDims(d_model=8, d_inner=16, headdim=8, d_state=4)
+        params = materialize(ssm.ssd_defs(dims), gen)
+
+        def fn(p, h):
+            return (ssm.ssd_forward(p, h, dims, chunk=256),)
+        inputs = (torch.randn(1, 256, 8, generator=gen),)
+    saved, layers._COMPUTE = layers._COMPUTE, torch.float32
+    try:
+        outs_cpu, g_cpu = _grads_on("cpu", fn, params, *inputs)
+        outs_gpu, g_gpu = _grads_on(cuda, fn, params, *inputs)
+    finally:
+        layers._COMPUTE = saved
+    if case == "moe_block":     # one routing a run: the CPU's, the card's
+        assert len(picks) == 2 and torch.equal(*picks)
+    tol = dict(rtol=1e-3, atol=1e-4)
+    for a, b in zip(outs_gpu, outs_cpu):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), **tol)
+    for a, b in zip(g_gpu, g_cpu):
+        assert torch.isfinite(a).all() and a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, **tol)

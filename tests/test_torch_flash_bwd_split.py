@@ -284,10 +284,10 @@ def _chip_smoke():
 
 
 def _gemma2_training_run() -> dict:
-    """The record ``chip_smoke.train`` returns for gemma2-2b, with the
-    launches a right run counts: per step the head_dim-256 sm90 forward
-    twice a layer (the dots recompute runs it again) and its dq and dkv
-    once; the f32 route comparison's backward on the 3xTF32 kernels after
+    """The record ``chip_smoke.train`` returns for gemma2-2b (one stacked
+    segment: every layer under remat), with the launches a right run
+    counts: per step the head_dim-256 sm90 forward twice a layer (the dots
+    recompute runs it again) and its dq and dkv once; the f32 route comparison's backward on the 3xTF32 kernels after
     the 3xTF32 forward, the bf16 one's on the head_dim-256 ones, once a
     layer."""
     cs = _chip_smoke()
@@ -297,7 +297,7 @@ def _gemma2_training_run() -> dict:
     def counts(**ran):
         return {**dict.fromkeys(cs.FLASH_KERNELS, 0), **ran}
 
-    return {"layers": n, "head_dim": cfg.head_dim,
+    return {"layers": n, "recomputed_layers": n, "head_dim": cfg.head_dim,
             "flash_vs_q_chunked": {
                 "bfloat16": {"loss_gap": 2e-3, "flash_launches": counts(
                     flash_attention_d256=n, flash_attention_dq_d256=n,
@@ -371,3 +371,82 @@ def test_check_training_refuses_a_cuda_core_f32_comparison():
         got[f"flash_attention_{kind}_f32tc"] = 0
     with pytest.raises(AssertionError, match="float32 route comparison"):
         _chip_smoke().check_training(run)
+
+
+def _hymba_training_run() -> dict:
+    """The record ``chip_smoke.train`` returns for hymba-1.5b: 32 layers,
+    29 of them in stacked segments under remat (its 3 single-layer
+    segments run without it, as in the reference), so per step 61 sm90
+    forward launches at head_dim 64 and one dq and one dkv a layer."""
+    cs = _chip_smoke()
+    cfg = get_config("hymba-1.5b")
+    n = cfg.n_layers
+    recomputed = sum(c for _, c in cfg.program if c > 1)
+
+    def counts(**ran):
+        return {**dict.fromkeys(cs.FLASH_KERNELS, 0), **ran}
+
+    return {"arch": "hymba-1.5b", "layers": n,
+            "recomputed_layers": recomputed, "head_dim": cfg.head_dim,
+            "flash_vs_q_chunked": {
+                "bfloat16": {"loss_gap": 4e-5, "flash_launches": counts(
+                    flash_attention=n + recomputed, flash_attention_dq=n,
+                    flash_attention_dkv=n)},
+                "float32": {"over_limit": {}, "flash_launches": counts(
+                    flash_attention_f32tc=n + recomputed,
+                    flash_attention_dq_f32tc=n,
+                    flash_attention_dkv_f32tc=n)}},
+            "losses": [10.8, 9.7, 8.1, 7.9], "grad_norms": [35.0, 31.0,
+                                                          20.0, 44.0],
+            "launches_per_step": counts(flash_attention=n + recomputed,
+                                        flash_attention_dq=n,
+                                        flash_attention_dkv=n)}
+
+
+@pytest.mark.parametrize("forwards,ok", [(61, True), (64, False),
+                                         (32, False)])
+def test_check_training_counts_the_forwards_remat_implies(forwards, ok):
+    """hymba-1.5b's gate: one sm90 forward a layer and one more for each
+    of the 29 layers under remat (61), not two for every layer (64) nor
+    one (32)."""
+    assert sum(c for _, c in get_config("hymba-1.5b").program if c > 1) \
+        == 29
+    run = _hymba_training_run()
+    run["launches_per_step"]["flash_attention"] = forwards
+    if ok:
+        _chip_smoke().check_training(run)
+    else:
+        with pytest.raises(AssertionError, match="launches per step"):
+            _chip_smoke().check_training(run)
+
+
+@pytest.mark.parametrize("launched", [None, "flash_attention",
+                                      "flash_attention_dq_simt"])
+def test_check_training_takes_a_model_without_attention(launched):
+    """mamba2-780m's record has no route comparison; its gate holds the
+    losses and grad norms and refuses any flash launch."""
+    cs = _chip_smoke()
+    run = {"arch": "mamba2-780m", "layers": 48, "recomputed_layers": 48,
+           "head_dim": 1, "flash_vs_q_chunked": None,
+           "losses": [11.3, 11.0, 10.7, 10.4],
+           "grad_norms": [102.0, 93.0, 94.0, 101.0],
+           "launches_per_step": dict.fromkeys(cs.FLASH_KERNELS, 0)}
+    if launched is None:
+        cs.check_training(run)
+        run["losses"] = [11.3, 11.4, float("nan"), 11.2]
+        with pytest.raises(AssertionError, match="losses"):
+            cs.check_training(run)
+    else:
+        run["launches_per_step"][launched] = 1
+        with pytest.raises(AssertionError, match="has no attention"):
+            cs.check_training(run)
+
+
+def test_train_says_what_its_depth_cut_requires():
+    """``chip_smoke.train``'s ``depth=`` cuts a one-segment program only:
+    hymba-1.5b's five segments are refused by name before anything is
+    built."""
+    with pytest.raises(ValueError, match="one-segment program; "
+                       "hymba-1.5b has 5 segments"):
+        _chip_smoke().train(torch, torch.device("cpu"), None, "hymba-1.5b",
+                            depth=4)

@@ -84,7 +84,9 @@ def test_import_leaves_jax_and_repro_unloaded():
                                  "serve.read_service", "io.trace",
                                  "io.replay", "io.aggregation", "models.ssm",
                                  "configs.mamba2_780m",
-                                 "configs.hymba_1_5b"])
+                                 "configs.hymba_1_5b", "models.moe",
+                                 "configs.deepseek_moe_16b",
+                                 "configs.arctic_480b"])
 def test_mirrored_modules_are_scanned(mod):
     """The port keeps its own copy of each module it mirrors, at the same
     path, and the scans above cover it."""

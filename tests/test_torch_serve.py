@@ -31,7 +31,7 @@ from repro_torch.serve import (ServeEngine, cache_bytes, cache_spec_summary,
                                flatten_cache)
 
 ARCHS = ["qwen2.5-3b", "yi-9b", "stablelm-3b", "gemma2-2b", "mamba2-780m",
-         "hymba-1.5b"]
+         "hymba-1.5b", "deepseek-moe-16b"]
 #: logit tolerance of the cross-package checks (f32 compute, see below)
 RTOL = ATOL = 2e-2
 #: logit tolerance along a greedy path (f32 compute; measured gaps ~1e-4)
@@ -109,8 +109,13 @@ def test_prefill_logits_match_at_head_dim_256(f32_compute):
 def test_decode_matches_forward(arch):
     """prefill(L) + decode(token L) == forward(L+1) at the last position,
     in the port alone and its bf16 compute: the reference's own check and
-    bound, max|d| / max|ref| < 0.05 (``tests/test_models.py``)."""
+    bound, max|d| / max|ref| < 0.05 (``tests/test_models.py``), and its
+    capacity factor of 16 for MoE, so the forward over L+1 tokens and the
+    prefill over L drop no token."""
     tc = tcfg.get_smoke_config(arch)
+    if tc.moe is not None:
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(
+            tc.moe, capacity_factor=16.0))
     model = LM(tc, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     B, L = 2, 16

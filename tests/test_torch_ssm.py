@@ -153,3 +153,65 @@ def test_strong_decay_stays_finite():
     ty = tssm.ssd_forward(tp, torch.from_numpy(x), tssm.SSMDims(**kw), 16)
     assert torch.isfinite(ty).all()
     _close(ty, jssm.ssd_forward(jp, jnp.asarray(x), jssm.SSMDims(**kw), 16))
+
+
+#: the smallest input on which the reference's SSD gradients are nan
+#: (``ROADMAP.md`` §3): the defs' inits (``A_log`` 1, ``dt_bias`` 0), one
+#: sequence of 256 tokens, one chunk of 256.  A chunk's summed |dt*A|
+#: (about 0.7 a token) passes 88, where exp(acum_q - acum_k) above the
+#: diagonal overflows to inf
+FAULT_DIMS = dict(d_model=8, d_inner=16, headdim=8, d_state=4)
+#: leaves whose reference gradients are nan at chunk 256: every path to
+#: them runs through the decay's exponent
+FAULT_NAN = {"in_proj", "conv_w", "conv_b", "A_log", "dt_bias"}
+
+
+def _fault_case():
+    jd = jssm.SSMDims(**FAULT_DIMS)
+    jp = jmaterialize(jssm.ssd_defs(jd), jax.random.key(0))
+    npp = {k: np.asarray(v, np.float32) for k, v in jp.items()}
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 256, 8)).astype(np.float32)
+    ct = rng.standard_normal((1, 256, 8)).astype(np.float32)
+    return jd, npp, x, ct
+
+
+def _ref_grads(jd, npp, x, ct, chunk):
+    def loss(p):
+        return jnp.sum(jssm.ssd_forward(p, jnp.asarray(x), jd, chunk) * ct)
+    return {k: np.asarray(v) for k, v in jax.jit(jax.grad(loss))(
+        {k: jnp.asarray(v) for k, v in npp.items()}).items()}
+
+
+def test_ssd_gradients_stay_finite_at_chunk_256():
+    """The fault of ``ROADMAP.md`` §3 ("differs on purpose"): on its input
+    the reference's forward is finite but its gradients of ``in_proj``,
+    ``conv_w``, ``conv_b``, ``A_log`` and ``dt_bias`` are nan at chunk 256.
+    The port masks the exponent, not the product: every gradient is
+    finite, equal to the reference's (within 1e-4 of the leaf's max)
+    wherever those are finite, and within 1e-3 of each leaf's max of the
+    reference's gradients at chunk 16, where nothing overflows (measured
+    1.6e-5).  The forward stays within 1e-5 of the reference's max."""
+    jd, npp, x, ct = _fault_case()
+    td = tssm.SSMDims(**FAULT_DIMS)
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_()
+          for k, v in npp.items()}
+    y = tssm.ssd_forward(tp, torch.from_numpy(x), td, chunk=256)
+    (y * torch.from_numpy(ct)).sum().backward()
+    jy = np.asarray(jssm.ssd_forward({k: jnp.asarray(v)
+                                      for k, v in npp.items()},
+                                     jnp.asarray(x), jd, 256))
+    assert np.isfinite(jy).all()
+    assert np.abs(y.detach().numpy() - jy).max() < 1e-5 * np.abs(jy).max()
+    at256 = _ref_grads(jd, npp, x, ct, 256)
+    at16 = _ref_grads(jd, npp, x, ct, 16)
+    assert {k for k, g in at256.items() if not np.isfinite(g).all()} == \
+        FAULT_NAN
+    for name, leaf in tp.items():
+        got = leaf.grad.numpy()
+        assert np.isfinite(got).all(), name
+        scale = np.abs(at16[name]).max()
+        assert np.abs(got - at16[name]).max() < 1e-3 * scale, name
+        if name not in FAULT_NAN:
+            assert np.abs(got - at256[name]).max() < \
+                1e-4 * np.abs(at256[name]).max(), name

@@ -37,7 +37,8 @@ from repro_torch.train import (OptimizerConfig, Trainer, adamw_init,
                                make_eval_step, make_train_step)
 from repro_torch.train.trainer import value_and_grad
 
-ARCHS = ["qwen2.5-3b", "yi-9b", "stablelm-3b", "gemma2-2b"]
+ARCHS = ["qwen2.5-3b", "yi-9b", "stablelm-3b", "gemma2-2b", "mamba2-780m",
+         "hymba-1.5b"]
 
 
 @pytest.fixture
@@ -142,7 +143,8 @@ def test_lm_loss_and_grads(arch, f32_compute):
     atol 1e-5 (measured gaps ~1e-6 of each leaf's max)."""
     jm, jp, tm, tp = _models(arch, loss_chunk=8)
     jb, tb = _batch(jm.cfg.vocab)
-    (jloss, jmet), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
+    (jloss, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jp, jb)
     loss, met, grads = value_and_grad(tm, tp, tb)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(float(met["ce"]), float(jmet["ce"]),
@@ -164,7 +166,9 @@ def test_lm_loss_flash_route(f32_compute):
 
 
 @pytest.mark.parametrize("arch,flash", [("qwen2.5-3b", True),
-                                        ("gemma2-2b", False)])
+                                        ("gemma2-2b", False),
+                                        ("mamba2-780m", False),
+                                        ("hymba-1.5b", True)])
 def test_remat_policies_agree(arch, flash):
     """``none``, ``dots`` and ``full`` recompute the same arithmetic, so
     the loss and gradients agree to rtol 1e-6 (bf16 compute)."""
@@ -197,6 +201,74 @@ def test_dots_policy_saves_the_projections_only():
         CheckpointPolicy.PREFER_RECOMPUTE
     assert _dots_saveable(None, aten.exp.default, one) == \
         CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_in_jaxpr(jaxpr, out):
+    """Each ``dot_general`` of ``jaxpr`` and its sub-jaxprs (a scan's body
+    once): True where it has batch dimensions."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            (_, _), (lhs_batch, _) = eqn.params["dimension_numbers"]
+            out.append(bool(lhs_batch))
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (list, tuple)) else [v]:
+                if hasattr(sub, "eqns"):
+                    _dots_in_jaxpr(sub, out)
+                elif hasattr(sub, "jaxpr"):
+                    _dots_in_jaxpr(getattr(sub.jaxpr, "jaxpr", sub.jaxpr),
+                                   out)
+    return out
+
+
+@pytest.mark.parametrize("arch,kind", [("mamba2-780m", "ssd"),
+                                       ("hymba-1.5b", "hyb_full"),
+                                       ("hymba-1.5b", "hyb_swa"),
+                                       ("deepseek-moe-16b", "moe")])
+def test_dots_policy_saves_what_the_reference_saves(arch, kind):
+    """Under ``remat="dots"`` a block saves the outputs of the products the
+    reference's ``dots_with_no_batch_dims_saveable`` saves — the
+    projections: as many as its forward's ``dot_general``s without batch
+    dimensions (the SSD's in and out projections; the hybrid's attention,
+    MLP and SSD projections; the MoE block's router, attention and shared
+    experts) — and recomputes every batched product: the SSD chunk loop's
+    einsums (four a chunk), the attention scores, the expert FFNs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.checkpoint import CheckpointPolicy
+    import repro.models.transformer as jtfm
+    from repro.models.params import materialize as jmaterialize
+    import repro_torch.models.transformer as ttfm
+    aten = torch.ops.aten
+
+    class Policy(TorchDispatchMode):
+        saved = recomputed = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.mm.default, aten.addmm.default,
+                        aten.bmm.default):
+                if _dots_saveable(None, func, *args) == \
+                        CheckpointPolicy.MUST_SAVE:
+                    self.saved += 1
+                else:
+                    assert func is aten.bmm.default and args[0].shape[0] > 1
+                    self.recomputed += 1
+            return func(*args, **(kwargs or {}))
+
+    jc, tc = jcfg.get_smoke_config(arch), tcfg.get_smoke_config(arch)
+    jp = jmaterialize(jtfm.block_defs(jc, kind), jax.random.key(0))
+    tp = params_from_numpy(_np(jp), "cpu")
+    x = np.random.default_rng(0).standard_normal((2, 32, jc.d_model)
+                                                 ).astype(np.float32)
+    pos = np.arange(32)
+    jaxpr = jax.make_jaxpr(lambda p, h: jtfm.block_forward(
+        jc, kind, p, h, jnp.asarray(pos))[0])(jp, jnp.asarray(x))
+    dots = _dots_in_jaxpr(jaxpr.jaxpr, [])
+    with Policy() as mode:
+        ttfm.block_forward(tc, kind, tp, torch.from_numpy(x),
+                           torch.from_numpy(pos))
+    assert mode.saved == dots.count(False) > 0
+    assert mode.recomputed >= dots.count(True) > 0
+    if kind == "ssd":            # 2 chunks of 16, four products each
+        assert mode.recomputed == 2 * dots.count(True) == 8
 
 
 def test_trainable_leaves_accumulate_into_the_stacked_gradient():
@@ -438,8 +510,9 @@ def test_pipeline_copy_is_bit_equal(cfg):
 
 
 def test_train_launcher(monkeypatch, capsys, tmp_path):
-    """``launch.train`` trains the smoke config on the CPU when asked, and
-    otherwise needs a GPU; with ``--ckpt-dir`` it saves every
+    """``launch.train`` trains the smoke config on the CPU when asked (the
+    dense, SSD and hybrid families' finite losses), and otherwise needs a
+    GPU; with ``--ckpt-dir`` it saves every
     ``--ckpt-every`` steps and at the end, and ``--resume`` carries on from
     the latest step; ``--mesh`` names the item it waits for."""
     train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "3",
@@ -464,6 +537,15 @@ def test_train_launcher(monkeypatch, capsys, tmp_path):
     assert "resumed from step 2" in out
     assert mgr.steps() == [3, 4]
     assert sorted(saved) == sorted(mgr.restore(4)[0])
+    for arch in ("mamba2-780m", "hymba-1.5b"):
+        train_cli.main(["--arch", arch, "--smoke", "--steps", "2",
+                        "--global-batch", "2", "--seq-len", "32",
+                        "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert f"arch={arch}-smoke device=cpu" in out and "loss" in out
+        line = next(ln for ln in out.splitlines() if ln.startswith("loss "))
+        first, last = (float(w) for w in line.split()[1::2])
+        assert np.isfinite([first, last]).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--arch", "qwen2.5-3b", "--smoke"])
