@@ -6,7 +6,7 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 or, for phase 22 alone (after phases 0 and 1; it is not in the default
-run, see below):
+run, for its memory and its time, see below):
 
     python3 chip_smoke.py --moe-serving
 
@@ -37,13 +37,14 @@ Phases, each printing one JSON line:
    the card, within tolerance: masks, GQA groups of 1, 2, 4, 5 and 8,
    head dims 16-256 (padded ones too), ragged lengths, f32 and bf16, the
    serving paths' shapes (qwen2.5-3b's in bf16 and f32, gemma2-2b's,
-   hymba-1.5b's groups of 5 under a window of 1024) with scores of std
-   2, and two more bf16 cases (D 80 at L 200; D 128 at L 2048 with a
-   window of 512 and a softcap); the launch counts show that each bf16
-   case ran the sm90 route (``csrc/flash_fwd_sm90.cu`` up to head_dim
-   128, ``csrc/flash_fwd_sm90_d256.cu`` above) and each f32 case the
-   3xTF32 tensor-core kernel (``csrc/flash_fwd_f32tc.cu``), each route's
-   total equal to the cases sent to it; the CUDA-core kernel
+   hymba-1.5b's groups of 5 under a window of 1024, hubert-xlarge's
+   non-causal head_dim 80, llama-3.2-vision-90b's 64 q-heads over 8)
+   with scores of std 2, and two more bf16 cases (D 80 at L 200; D 128
+   at L 2048 with a window of 512 and a softcap); the launch counts show
+   that each bf16 case ran the sm90 route (``csrc/flash_fwd_sm90.cu`` up
+   to head_dim 128, ``csrc/flash_fwd_sm90_d256.cu`` above) and each f32
+   case the 3xTF32 tensor-core kernel (``csrc/flash_fwd_f32tc.cu``), each
+   route's total equal to the cases sent to it; the CUDA-core kernel
    (``csrc/flash_fwd.cu``), named, on the f32 serving shape;
 7. the serving path at full width: ``ServeEngine.generate`` on
    qwen2.5-3b (36 layers, random weights from a seed, attention
@@ -62,15 +63,19 @@ Phases, each printing one JSON line:
    the 3xTF32 kernel beside the CUDA-core kernel on the same inputs, both
    bounds (three TF32 products at the TF32 peak, and f32 on the CUDA
    cores), the plain version and SDPA in f32; and the sm90 route at
-   hymba-1.5b's shape beside SDPA with the window as a mask;
+   hymba-1.5b's shape beside SDPA with the window as a mask, at
+   hubert-xlarge's training shape (non-causal) and at the VLM's self
+   layers' beside SDPA;
 9. launch counts of the serving run; the sm90 kernel must have run once
    per layer at least, the head_dim-256, 3xTF32 and CUDA-core forwards
    never;
 10. the flash-attention backward kernels (dQ, and per-q-head dK, dV)
     against their plain versions on the card, within tolerance, over the
-    forward's sweep (GQA groups of 1, 2, 4, 5 and 8), the training shape and gemma2-2b's full-length shape
-    given as strided views in bf16 and in f32 (the training shape's f32
-    inputs also on the CUDA-core route, named), and
+    forward's sweep (GQA groups of 1, 2, 4, 5 and 8), the training shape
+    and gemma2-2b's full-length shape given as strided views in bf16 and
+    in f32 (the training shape's f32 inputs also on the CUDA-core route,
+    named), hubert-xlarge's training shape (non-causal, head_dim 80) in
+    bf16, and
     ``flash_attention``'s gradients against autograd through the plain
     forward; the launch counts show that each bf16 case ran the sm90
     kernels (``csrc/flash_bwd_sm90.cu`` up to head_dim 128,
@@ -81,15 +86,16 @@ Phases, each printing one JSON line:
 11. the training path at full width: qwen2.5-3b (24 of its 36 layers,
     ``QWEN_TRAIN_DEPTH``; random weights from a seed: see
     ``training_params``; ``remat="dots"``) with the flash route on, at
-    global batch 2 x 2048 tokens from the synthetic pipeline: first the
-    flash route's loss and gradients against the q-chunked route's (f32
-    and bf16 compute; the bf16 route's backward runs the sm90 kernels, the
-    f32 one the 3xTF32 kernels after the 3xTF32 forward), then
-    ``Trainer.run`` for 4 AdamW steps
-    on one batch (``TRAIN_OPT``), launch counts reset just before it and
-    read just after (24 sm90 dq and 24 sm90 dkv launches a step, none on
-    the CUDA-core route), the step times, peak memory, and a profile of
-    one more step;
+    global batch 2 x 2048 tokens from the synthetic pipeline: first, on
+    the same model cut to ``COMPARE_DEPTH`` layer steps a stacked segment
+    (``cut_depth``: the kernels' shapes stay the full model's), the flash
+    route's loss and gradients against the q-chunked route's (f32 and
+    bf16 compute; the bf16 route's backward runs the sm90 kernels, the
+    f32 one the 3xTF32 kernels after the 3xTF32 forward) and a profile of
+    one training step; then ``Trainer.run`` for 4 AdamW steps on one
+    batch (``TRAIN_OPT``), launch counts reset just before it and read
+    just after (24 sm90 dq and 24 sm90 dkv launches a step, none on the
+    CUDA-core route), the step times and peak memory;
 12. the backward kernels' times (as phase 4's): at the training shape and
     at gemma2-2b's bf16 head_dim-256 shape the sm90 kernels beside the
     CUDA-core kernels on the same bf16 inputs, their bound, the plain
@@ -100,7 +106,8 @@ Phases, each printing one JSON line:
     bounds (3xTF32 and f32 on the CUDA cores) and SDPA's backward in f32;
     and at hymba-1.5b's training shape (B 2, GQA groups of 5, head_dim 64,
     window 1024) the sm90 kernels beside their bound and SDPA's backward
-    with the window as a boolean mask;
+    with the window as a boolean mask; and at hubert-xlarge's (non-causal,
+    head_dim 80) beside their bound and SDPA's backward;
 13. the serving path at gemma2-2b's full width (26 layers, head_dim 256,
     local and global layers, softcaps; random weights: see
     ``training_params``), as phase 7 serves qwen2.5-3b: the bf16 prefill
@@ -110,7 +117,8 @@ Phases, each printing one JSON line:
     in the prefill;
 14. the training path at gemma2-2b's full width and 8 of its 26 layers
     (4 ``pair_lg`` steps: the kernels' shapes are the full model's), as
-    phase 11 trains qwen2.5-3b (the same traffic, steps and checks): 8
+    phase 11 trains qwen2.5-3b (the same traffic, steps and checks, the
+    route comparison and the profile at 2 ``pair_lg`` steps): 8
     launches a step of each head_dim-256 sm90 backward kernel
     (``csrc/flash_bwd_sm90_d256.cu``), 16 of the head_dim-256 forward,
     none on a CUDA-core route; the f32 route comparison runs the 3xTF32
@@ -240,23 +248,46 @@ Phases, each printing one JSON line:
     chunks and copy-kernel launches; the directory removed;
 21. the SSD and hybrid families trained at full width and depth, as
     phase 11 trains qwen2.5-3b (2 x 2048 tokens, ``remat="dots"``, 4
-    AdamW steps on one batch, a profile of one more step): 21a
-    mamba2-780m (no attention: no route comparison, and no flash kernel
-    may launch), 21b hymba-1.5b (the f32 and bf16 route comparisons, 32
-    sm90 dq and 32 sm90 dkv launches a step, 61 of the sm90 forward: its
-    3 single-layer segments run without remat, as in the reference); every
+    AdamW steps on one batch; the route comparison and a profiled step at
+    2 layer steps a stacked segment): 21a mamba2-780m (no attention: no
+    route comparison, and no flash kernel may launch), 21b hymba-1.5b (the
+    f32 and bf16 route comparisons at 7 of its 32 layers, its 3
+    single-layer segments kept; 32 sm90 dq and 32 sm90 dkv launches a
+    step, 61 of the sm90 forward: those 3 segments run without remat, as
+    in the reference); every
     loss and grad norm finite (the SSD's chunk of 256 gave nan gradients
     before its exponent was masked), the last loss below the first;
 22. only with ``--moe-serving``: deepseek-moe-16b at full width and depth
     (28 layers of 64 routed and 2 shared experts, MHA head_dim 128;
     16.9e9 f32 params), served as phase 7 serves qwen2.5-3b: 28 sm90
-    forward launches a bf16 prefill, the route comparison in bf16 and f32
-    held to LOGIT_GAP with the routing decisions that differ between the
-    routes counted, decode against forward at capacity factor 16, a
-    profile, and the phase's peak device memory under 80 GiB.  Its bf16
-    route gap (0.0703 on an H100: bf16 compute settles routing near-ties
-    apart and the flips cascade) fails the gate, so the default run leaves
-    the phase out (``ROADMAP.md`` section 3).
+    forward launches a bf16 prefill, the route comparison with the
+    routing decisions that differ between the routes counted: in f32 the
+    whole model's logits held to LOGIT_GAP; in bf16 each of the 28
+    layers' attention held to LOGIT_GAP on the input (its ``ln1`` output)
+    the q-chunked prefill gave it, run again on both routes, and the whole
+    model's gap reported, not gated (bf16 compute settles routing
+    near-ties apart and the flips cascade: 0.0703 on an H100); decode
+    against forward at capacity factor 16, a profile, and the phase's peak
+    device memory under 80 GiB;
+23. the encoder trained at full width and depth: hubert-xlarge (48
+    ``enc`` layers, d_model 1280, 16 heads of 80, frames in), as phase 11
+    trains qwen2.5-3b (2 x 2048 frames of the pipeline); its frames enter
+    in bf16 whatever the compute dtype, so the route comparison runs once,
+    in bf16, on the sm90 kernels (no 3xTF32 launch), its gradients held
+    to GRAD_GAP_BF16; 48 sm90 dq, 48 sm90 dkv and 96 sm90 forward
+    launches a step (non-causal, head_dim 80), none on another route; then
+    one ``LM.prefill`` over 4 x 2048 frames timed (48 sm90 forward
+    launches) and the flash route's logits at every frame held to the
+    q-chunked route's within LOGIT_GAP;
+24. cross-attention and the VLM: llama-3.2-vision-90b at full width and
+    one of its 20 ``group_sx`` steps (4 self layers and 1 gated cross
+    layer, 6.4e9 f32 params; the whole model does not fit a card), served
+    as phase 7 serves qwen2.5-3b with memory tokens of 0.02·N(0, 1) in
+    bf16 (4 x 6404 x 8192) through ``generate(extra=)`` and every gate at
+    ``XATTN_GATE``: 4 sm90 forward launches a bf16 prefill and 4 of the
+    3xTF32 forward in the f32 comparison (the cross layer is plain
+    attention), both route gaps under LOGIT_GAP, decode against forward
+    (< 0.05), and the phase's peak device memory under 80 GiB.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -298,6 +329,9 @@ NPROCS, PPN = 48, 6             # 6 ranks per node, as the 3-D benchmark
 COMPONENTS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 SEED = 0
 REPS = 20
+#: the flash kernels' plain versions are timed in fewer calls
+#: (``time_plain``)
+PLAIN_REPS, PLAIN_ROUNDS = 2, 3
 
 #: the serving path: qwen2.5-3b, 4 prompts of 2048 tokens, 32 new tokens;
 #: gemma2-2b (head_dim 256) serves the same traffic
@@ -363,9 +397,28 @@ FLASH_TRAIN = dict(B=TRAIN_BATCH, Hq=16, Hkv=2, L=TRAIN_SEQ, D=128,
 #: hymba-1.5b's training shape (phase 21b's windowed layers): GQA groups
 #: of 5, head_dim 64, a window of 1024
 FLASH_HYMBA_TRAIN = dict(FLASH_HYMBA, B=TRAIN_BATCH)
+#: hubert-xlarge's training shape (phase 23): 16 heads of 80 (MHA), its
+#: encoder bidirectional, so every (q, k) pair is live
+FLASH_HUBERT = dict(B=TRAIN_BATCH, Hq=16, Hkv=16, L=TRAIN_SEQ, D=80,
+                    causal=False, window=None, softcap=None)
+#: llama-3.2-vision-90b's self layers at the serving shape (phase 24): 64
+#: q-heads over 8 kv-heads, head_dim 128
+FLASH_VLM = dict(B=4, Hq=64, Hkv=8, L=2048, D=128, causal=True,
+                 window=None, softcap=None)
 #: flash vs q-chunked training gradients in f32: max |d| / max |q-chunked|
 #: per leaf; the loss in bf16 compute: |d| / |q-chunked|
 GRAD_GAP_F32, LOSS_GAP_BF16 = 1e-3, 1e-2
+#: the same gradient gap in bf16 compute, gated where a model has no f32
+#: route (a frames model: its frames enter in bf16 whatever the compute
+#: dtype).  Each route rounds its bf16 products on its own, a few bf16
+#: steps (2^-8) of a leaf's max: qwen2.5-3b's largest bf16 gap was 1.45e-2
+#: on an H100 (PERF.md), hubert-xlarge's smoke model's on the CPU 1.3e-2
+GRAD_GAP_BF16 = 5e-2
+#: the route comparisons and the profiled training step run on the model
+#: cut to at most this many layer steps a segment (``cut_depth``): every
+#: kernel at the full model's shapes, every layer kind, a fraction of the
+#: time and of the profiler's events
+COMPARE_DEPTH = 2
 
 KERNELS = {
     "pack_rows": ("src/repro_torch/kernels/csrc/pack_rows.cu",
@@ -453,14 +506,14 @@ def close_err(a, b, rtol: float, atol: float) -> float:
     return float(d.max()) if a.numel() else 0.0
 
 
-def time_ms(fn, reps: int = REPS, rounds: int = 5) -> dict:
+def time_ms(fn, reps: int = REPS, rounds: int = 5, warm: int = 3) -> dict:
     """Device time of one call: CUDA events around ``rounds`` runs of
-    ``reps`` back-to-back calls after a warm-up, each run divided by
+    ``reps`` back-to-back calls after ``warm`` calls, each run divided by
     ``reps``, so the host's work between launches (the wrapper's checks,
     allocation, tensor maps) overlaps the device's and is not counted as
     the kernel's: the median and the quartiles, in milliseconds."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -475,6 +528,13 @@ def time_ms(fn, reps: int = REPS, rounds: int = 5) -> dict:
         times.append(start.elapsed_time(end) / reps)
     q1, med, q3 = statistics.quantiles(times, n=4)
     return {"median": med, "p25": q1, "p75": q3}
+
+
+def time_plain(fn) -> dict:
+    """``time_ms`` of a flash kernel's plain version, which takes 4-31 ms a
+    call at the timed shapes: PLAIN_ROUNDS runs of PLAIN_REPS calls after
+    one warm-up call (7 calls, not 103)."""
+    return time_ms(fn, reps=PLAIN_REPS, rounds=PLAIN_ROUNDS, warm=1)
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -554,10 +614,21 @@ def ptxas_report(log: str) -> dict:
 
 def build() -> dict:
     """Build and load every library; the tensor-core kernels, sized to
-    their register budget, must not spill."""
+    their register budget, must not spill.  While ``nvcc`` runs, one
+    empty ``device_profile`` window pays the profiler's first-use
+    set-up (seconds of host work) that the first profiled phase would
+    pay otherwise."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    info = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(_build.build_all)
+        with device_profile():
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        profiler_s = time.perf_counter() - t0
+        info = job.result()
     for name in _build.SOURCES:
         _build.load(name)
     libs = {n: {"seconds": v["seconds"], "ptxas": ptxas_report(v["log"])}
@@ -566,7 +637,8 @@ def build() -> dict:
         if n.endswith(("_sm90", "_sm90_d256", "_f32tc")) and \
                 v["ptxas"]["spills"]:
             raise RuntimeError(f"{n} spills: {v['ptxas']['spills']}")
-    return {"seconds": time.perf_counter() - t0, "libs": libs}
+    return {"seconds": time.perf_counter() - t0, "libs": libs,
+            "profiler_setup_seconds": profiler_s}
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -944,7 +1016,8 @@ def check_flash(torch, dev) -> dict:
                 "o": worst[0], "lse": worst[1]}
     shapes = {}
     # bf16 on the sm90 route (gemma2's on its head_dim-256 kernel, hymba's
-    # GQA groups of 5 on the head_dim-128 one); f32 at
+    # GQA groups of 5 on the head_dim-128 one, hubert-xlarge's non-causal
+    # head_dim 80, the VLM's 64 q-heads over 8); f32 at
     # the serving prefill's and gemma2-2b's shapes on the 3xTF32 route; the
     # CUDA-core forward, which no path runs now, named at the serving shape
     for name, shp, dtype, want, named in (
@@ -953,6 +1026,8 @@ def check_flash(torch, dev) -> dict:
             ("hymba", FLASH_HYMBA, torch.bfloat16, "sm90", None),
             ("d80", FLASH_D80, torch.bfloat16, "sm90", None),
             ("long_window", FLASH_LONG_WINDOW, torch.bfloat16, "sm90", None),
+            ("hubert", FLASH_HUBERT, torch.bfloat16, "sm90", None),
+            ("vlm", FLASH_VLM, torch.bfloat16, "sm90", None),
             ("serving_f32", FLASH_MAIN, torch.float32, "f32tc", None),
             ("gemma2_f32", FLASH_GEMMA2, torch.float32, "f32tc", None),
             ("serving_f32_simt", FLASH_MAIN, torch.float32, "simt",
@@ -988,30 +1063,38 @@ def check_flash(torch, dev) -> dict:
 
 # -- phase 7 -------------------------------------------------------------------
 
-def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
-          hand_over=None) -> dict:
+def serve(torch, dev, K, arch=SERVE_ARCH, init=None, hand_over=None,
+          depth=None, extra=None) -> dict:
     """``ServeEngine.generate`` on the full ``arch`` with the flash route
     on, weights from ``init`` (by default ``serving_params``); the launch
     counts of that one call; then the flash route's prefill logits against
     the q-chunked route's on the same weights and prompts, in the model's
     bf16 compute and in f32, each held to LOGIT_GAP, each flash prefill's
-    launches read on their own: one per layer on the kernel of the route
-    its dtype takes (``flash_kernel``), none on any other; the first
-    route's cache is freed before the second prefill.  For an MoE model
-    the experts each route's prefill picks are compared too (routing is
-    discrete: a near-tie that the two routes' rounding settles apart sends
-    a token to another expert, and the flip cascades), the counts that
-    differ reported beside the gap.  A model without attention
-    (mamba2-780m) has no second route: its prefill must launch no flash
-    kernel.  With a ``hand_over`` dict the
-    model and its params go into it instead of being freed."""
+    launches read on their own: one per self-attention layer
+    (``self_attention_layers``) on the kernel of the route its dtype takes
+    (``flash_kernel``), none on any other; the first route's cache is
+    freed before the second prefill.  For an MoE model the experts each
+    route's prefill picks are compared too (routing is discrete: a
+    near-tie that the two routes' rounding settles apart sends a token to
+    another expert, and the flip cascades), the counts that differ
+    reported beside the gap; its bf16 gap is reported, not gated, and each
+    layer's attention is held to LOGIT_GAP instead, on the input the
+    q-chunked prefill gave it (``layer_attention_gaps``).  A model without
+    attention (mamba2-780m) has no second route: its prefill must launch
+    no flash kernel.  ``depth`` cuts each segment to that many layer steps
+    (``cut_depth``); ``extra`` joins every prefill's batch (a VLM's memory
+    tokens).  With a ``hand_over`` dict
+    the model and its params go into it instead of being freed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.serve import ServeEngine, cache_bytes
     cfg = dataclasses.replace(get_config(arch), flash=True)
+    if depth is not None:
+        cfg = cut_depth(cfg, depth)
     if PROMPT_LEN % cfg.flash_block:
         raise ValueError("the prompts must take the flash route")
+    extra = extra or {}
     model = LM(cfg)
     t0 = time.perf_counter()
     params = (init or serving_params)(model, torch.Generator(device=dev)
@@ -1027,7 +1110,7 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
     K.reset_launch_counts()
     spans = {}
     t0 = time.perf_counter()
-    out, stats = engine.generate(prompts, NEW_TOKENS)
+    out, stats = engine.generate(prompts, NEW_TOKENS, extra=extra)
     spans["generate"] = time.perf_counter() - t0
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1035,20 +1118,22 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
             out.max() >= cfg.vocab:
         raise AssertionError(f"generated tokens out of range: {out.shape}, "
                              f"[{out.min()}, {out.max()}]")
-    _, again = engine.generate(prompts, NEW_TOKENS)
+    _, again = engine.generate(prompts, NEW_TOKENS, extra=extra)
 
     t0 = time.perf_counter()
-    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    batch = {"tokens": torch.as_tensor(prompts, device=dev), **extra}
     routes = {}
-    attention = cfg.family != "ssm"
+    n_attn = self_attention_layers(cfg)
     base = LM(dataclasses.replace(cfg, flash=False))
-    for dtype in (torch.float32, torch.bfloat16) if attention else ():
+    for dtype in (torch.float32, torch.bfloat16) if n_attn else ():
+        per_layer = dtype == torch.bfloat16 and cfg.moe is not None
         with compute_dtype(dtype), torch.inference_mode():
             K.reset_launch_counts()
             with routing_log(cfg) as flash_picks:
                 flash_logits = model.prefill(params, batch)[0]
             flash_launches = K.launch_counts()
-            with routing_log(cfg) as base_picks:
+            with routing_log(cfg) as base_picks, \
+                    attention_inputs(per_layer) as inputs:
                 base_logits = base.prefill(params, batch)[0]
         for lg in (flash_logits, base_logits):
             if not torch.isfinite(lg).all():
@@ -1057,14 +1142,15 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
         route = "sm90" if dtype == torch.bfloat16 else "f32tc"
         kernel = flash_kernel("fwd", route, cfg.head_dim)
         ran = {n: flash_launches[n] for n in FLASH_KERNELS}
-        want = {n: cfg.n_layers * (n == kernel) for n in FLASH_KERNELS}
+        want = {n: n_attn * (n == kernel) for n in FLASH_KERNELS}
         if ran != want:
             raise AssertionError(f"{dtype} flash prefill: launches {ran}, "
                                  f"expected {want} (one {kernel} launch per "
-                                 f"layer)")
+                                 f"self-attention layer)")
         routes[str(dtype).split(".")[-1]] = r = {
             "logit_gap": float((flash_logits - base_logits).abs().max()
                                / base_logits.abs().max()),
+            "gated": not per_layer,
             "same_greedy_first_token_share": float(
                 (flash_logits.argmax(-1) == base_logits.argmax(-1))
                 .float().mean()),
@@ -1072,9 +1158,13 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
         if base_picks:
             r.update(routing_differences(flash_picks, base_picks,
                                          cfg.moe.n_experts))
-        del flash_picks, base_picks
+        if per_layer:
+            with compute_dtype(dtype):
+                r["per_layer"] = layer_attention_gaps(torch, K, inputs,
+                                                      kernel)
+        del flash_picks, base_picks, inputs
     for name, r in routes.items():
-        if r["logit_gap"] >= LOGIT_GAP:
+        if r["gated"] and r["logit_gap"] >= LOGIT_GAP:
             raise AssertionError(
                 f"{name}: flash route's prefill logits differ from the "
                 f"q-chunked route's by {r['logit_gap']} of their max ({r})")
@@ -1085,10 +1175,12 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
     if hand_over is not None:
         hand_over.update(model=model, params=params)
     del params, engine
-    if attention:
+    if n_attn:
         del flash_logits, base_logits
     torch.cuda.empty_cache()
     return {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+            "program": [list(seg) for seg in cfg.program],
+            "self_attention_layers": n_attn,
             "head_dim": cfg.head_dim, "flash": True,
             "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
             "new_tokens": NEW_TOKENS, "init_seconds": init_s,
@@ -1103,6 +1195,70 @@ def serve(torch, dev, K, arch=SERVE_ARCH, init=None,
             "flash_vs_q_chunked": routes, "profile": profile,
             "span_seconds": spans,
             "first_tokens": out[:, :4].tolist(), "launches": launches}
+
+
+def self_attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that run self-attention, the flash route's:
+    every simple kind but ``ssd`` and ``xattn`` (cross-attention is plain
+    attention in the reference too), composites by their sub-layers."""
+    from repro_torch.models.transformer import COMPOSITE
+
+    def per_step(kind):
+        if kind in COMPOSITE:
+            return sum(per_step(spec.split(":")[1])
+                       for spec in COMPOSITE[kind])
+        return int(kind not in ("ssd", "xattn"))
+    return sum(per_step(kind) * count for kind, count in cfg.program)
+
+
+@contextlib.contextmanager
+def attention_inputs(on: bool):
+    """While the block runs (and ``on``), every self-attention call's
+    parameters, input (its block's ``ln1`` output) and options, in call
+    order: a forward hook on ``models.attention.attn_forward``."""
+    calls = []
+    if not on:
+        yield calls
+        return
+    from repro_torch.models import attention
+    inner = attention.attn_forward
+
+    def hook(p, x, **kw):
+        calls.append((p, x, kw))
+        return inner(p, x, **kw)
+    attention.attn_forward = hook
+    try:
+        yield calls
+    finally:
+        attention.attn_forward = inner
+
+
+def layer_attention_gaps(torch, K, calls, kernel) -> dict:
+    """Each captured self-attention call run again on the same input, on
+    the flash route and on the q-chunked route: max |d| / max |q-chunked|
+    of its output, held to LOGIT_GAP, each flash run one launch of
+    ``kernel`` and none of another flash kernel.  This holds the kernel
+    at every layer of a model whose whole-model gap moves with routing
+    (MoE: a routing flip between the routes changes the next layers'
+    inputs)."""
+    from repro_torch.models.attention import attn_forward
+    gaps = []
+    with torch.inference_mode():
+        for p, x, kw in calls:
+            before = K.launch_counts()
+            got = attn_forward(p, x, **dict(kw, flash=True))
+            ran = flash_deltas(before, K.launch_counts())
+            if ran != {n: int(n == kernel) for n in FLASH_KERNELS}:
+                raise AssertionError(f"layer {len(gaps)}: launched {ran}")
+            want = attn_forward(p, x, **dict(kw, flash=False))
+            gaps.append(float((got - want).abs().max()
+                              / want.abs().max()))
+    over = {i: g for i, g in enumerate(gaps) if not g < LOGIT_GAP}
+    if not gaps or over:
+        raise AssertionError(f"per-layer attention gaps over {LOGIT_GAP}: "
+                             f"{over} of {len(gaps)} layers")
+    return {"layers": len(gaps), "gap_max": max(gaps), "gaps": gaps,
+            "bound": LOGIT_GAP}
 
 
 @contextlib.contextmanager
@@ -1157,7 +1313,9 @@ def serving_params(model, generator) -> dict:
     about 360, every attention row is an argmax, and a rounding
     difference anywhere flips rows, so the flash and q-chunked routes
     disagree by O(1) at the logits even in f32.  Rescaled, the scores
-    have a std of about 1, as a trained model's are of order 1-10."""
+    have a std of about 1, as a trained model's are of order 1-10.  A
+    cross-attention's tanh gate, zero at init (the memory would reach
+    nothing), is set to XATTN_GATE."""
     cfg = model.cfg
     params = model.init(generator)
     for a in _attn_params(params["segments"]):
@@ -1165,12 +1323,15 @@ def serving_params(model, generator) -> dict:
         a["wk"].mul_(math.sqrt(cfg.n_kv / cfg.d_model))
         a["wv"].mul_(math.sqrt(cfg.n_kv / cfg.d_model))
         a["wo"].mul_(1.0 / math.sqrt(cfg.n_heads))
+        if "gate" in a:
+            a["gate"].fill_(XATTN_GATE)
     return params
 
 
 def _attn_params(tree) -> list:
     """Every attention's parameters in ``tree``: a segment's ``attn``, or
-    its ``local`` and ``global`` layers' (gemma2-2b's ``pair_lg``)."""
+    its sub-layers' (gemma2-2b's ``local`` and ``global``, the VLM's four
+    ``self_*`` and its ``cross``)."""
     if isinstance(tree, dict):
         return [tree] if "wq" in tree else \
             [a for v in tree.values() for a in _attn_params(v)]
@@ -1258,7 +1419,9 @@ def flash_timings(torch, dev) -> dict:
     that names the route), beside the bound, the plain version and SDPA
     (causal; gemma2-2b's window of 4096 masks nothing at L 2048); and the
     sm90 route at hymba-1.5b's shape (GQA groups of 5, window 1024), where
-    SDPA, which has no window, takes the window as a boolean mask.  Then
+    SDPA, which has no window, takes the window as a boolean mask, at
+    hubert-xlarge's training shape (non-causal, head_dim 80: every pair
+    live) and at the VLM's self layers' (64 q-heads over 8).  Then
     f32 inputs at the same three shapes, the f32 prefill's and the f32
     training comparison's: the 3xTF32 kernel (``ms``, through the
     wrapper) beside the CUDA-core kernel on the same inputs
@@ -1282,7 +1445,7 @@ def flash_timings(torch, dev) -> dict:
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
             + B * Hq * L * 4                # O like q, and the f32 LSE
         # SDPA has no window: a window shorter than L goes in as a mask
-        sdpa = dict(is_causal=True)
+        sdpa = dict(is_causal=shp["causal"])
         if shp["window"] is not None and shp["window"] < L:
             pos = torch.arange(L, device=dev)
             d = pos[:, None] - pos[None, :]
@@ -1291,7 +1454,7 @@ def flash_timings(torch, dev) -> dict:
                "flops": flops, "bytes": nbytes,
                **{key: time_ms(lambda fn=fn: fn(q, k, v, scale, *masks))
                   for key, fn in kernels.items()},
-               "plain_ms": time_ms(lambda: flash_attention_ref(
+               "plain_ms": time_plain(lambda: flash_attention_ref(
                    q, k, v, scale, *masks)),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, scale=scale, enable_gqa=True, **sdpa)),
@@ -1322,6 +1485,10 @@ def flash_timings(torch, dev) -> dict:
                            {**both, "ms_no_softcap": no_softcap}),
            "hymba": timed(FLASH_HYMBA, torch.bfloat16, BF16_FLOPS,
                           {"ms": flash_attention}),
+           "hubert": timed(FLASH_HUBERT, torch.bfloat16, BF16_FLOPS,
+                           {"ms": flash_attention}),
+           "vlm": timed(FLASH_VLM, torch.bfloat16, BF16_FLOPS,
+                        {"ms": flash_attention}),
            "f32_serving": timed(FLASH_MAIN, torch.float32, TF32X3_FLOPS,
                                 both, F32_FLOPS),
            "f32_training": timed(FLASH_TRAIN, torch.float32, TF32X3_FLOPS,
@@ -1431,13 +1598,16 @@ def check_flash_bwd(torch, dev) -> dict:
     # them over: (B, H, L, D) views, bf16 and f32 on the routes the
     # wrappers take (sm90, its head_dim-256 kernels at gemma2-2b's; f32tc),
     # and the training shape's f32 inputs once more on the CUDA-core route,
-    # named
-    train, gemma2 = {}, {}
+    # named; hubert-xlarge's training shape (non-causal, head_dim 80) in
+    # bf16, the route its frames take
+    train, gemma2, hubert = {}, {}, {}
     for shp, out, runs in ((FLASH_TRAIN, train,
                             ((torch.bfloat16, None), (torch.float32, None),
                              (torch.float32, "simt"))),
                            (FLASH_GEMMA2, gemma2,
-                            ((torch.bfloat16, None), (torch.float32, None)))):
+                            ((torch.bfloat16, None), (torch.float32, None))),
+                           (FLASH_HUBERT, hubert,
+                            ((torch.bfloat16, None),))):
         for dtype, route in runs:
             q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                        for x in _qkv(torch, gen, dev, dtype,
@@ -1474,7 +1644,7 @@ def check_flash_bwd(torch, dev) -> dict:
             "tolerance": {"dq": BWD_TOL, "dk_dv": BWD_TOL["float32"],
                           "rule": "|kernel - plain| <= atol + rtol*|plain|"},
             "max_abs_err_by_group": groups, "training_shape": train,
-            "gemma2_shape": gemma2,
+            "gemma2_shape": gemma2, "hubert_shape": hubert,
             "autograd_vs_plain_forward_f32": fn_err,
             "max_abs_err": {
                 f"flash_attention_{kind}{suffix}": (
@@ -1489,16 +1659,30 @@ def check_flash_bwd(torch, dev) -> dict:
 
 # -- phase 11 ------------------------------------------------------------------
 
+def cut_depth(cfg, steps: int):
+    """``cfg`` with every segment cut to at most ``steps`` layer steps (a
+    composite kind's step holds several layers): every layer kind at its
+    full width, in its order.  A segment cut to one step runs as a single
+    layer, without remat, as in the reference."""
+    import dataclasses
+    program = tuple((kind, min(count, steps)) for kind, count in cfg.program)
+    return dataclasses.replace(cfg, program=program, n_layers=sum(
+        cfg.layers_per_step(kind) * count for kind, count in program))
+
+
 def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
           depth=None) -> dict:
     """The training path at ``arch``'s full width under ``remat="dots"``:
-    the flash route's gradients against the q-chunked route's (a model
-    without attention, mamba2-780m, has no second route), then
-    ``Trainer.run`` with the launch counts of that one call, then a
-    profile of one more step.  With a ``hand_over`` dict, the trained
-    params and AdamW state go into it (the checkpoint phase saves them)
-    instead of being freed.  ``depth`` cuts a one-segment program to that
-    many layer steps; a program of several segments runs whole."""
+    first, on the same model cut to COMPARE_DEPTH layer steps a segment
+    (``cut_depth``: the kernels' shapes are the full model's), the flash
+    route's gradients against the q-chunked route's (a model without
+    attention, mamba2-780m, has no second route; a frames model, whose
+    frames enter in bf16, compares in bf16 only) and a profile of one
+    training step; then ``Trainer.run`` on the model itself with the
+    launch counts of that one call.  With a ``hand_over`` dict, the
+    trained params and AdamW state go into it (the checkpoint phase saves
+    them) instead of being freed.  ``depth`` cuts a one-segment program
+    to that many layer steps (``cut_depth``)."""
     import dataclasses
     import itertools
     from repro_torch.configs import get_config
@@ -1510,9 +1694,7 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
         if len(cfg.program) != 1:
             raise ValueError(f"depth= cuts a one-segment program; {arch} "
                              f"has {len(cfg.program)} segments")
-        (kind, _), = cfg.program
-        cfg = dataclasses.replace(cfg, program=((kind, depth),),
-                                  n_layers=depth * cfg.layers_per_step(kind))
+        cfg = cut_depth(cfg, depth)
     attention = cfg.family != "ssm"
     if cfg.remat != "dots":
         raise ValueError(f"the training run needs remat='dots', {arch} has "
@@ -1521,20 +1703,32 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
         raise ValueError(f"the training run must take the flash route: "
                          f"{TRAIN_SEQ} tokens are no multiple of "
                          f"{arch}'s flash_block {cfg.flash_block}")
+    host_batch = next(SyntheticTokens(PipelineConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+        seed=SEED, frontend=cfg.frontend, d_model=cfg.d_model)))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+
+    t0 = time.perf_counter()
+    cut = LM(cut_depth(cfg, COMPARE_DEPTH))
+    params = training_params(cut, torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    dtypes = (torch.bfloat16,) if cfg.frontend == "frames" else \
+        (torch.float32, torch.bfloat16)
+    routes = compare_train_routes(torch, cut, params, batch, dtypes) \
+        if attention else None
+    profile = profile_train_step(torch, Trainer(
+        cut, OptimizerConfig(**TRAIN_OPT), itertools.repeat(host_batch)),
+        params, adamw_init(params), K)
+    del params
+    torch.cuda.empty_cache()
+    cut_s = time.perf_counter() - t0
+
     model = LM(cfg)
     t0 = time.perf_counter()
     params = training_params(model, torch.Generator(device=dev)
                              .manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    host_batch = next(SyntheticTokens(PipelineConfig(
-        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
-        seed=SEED)))
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
-
-    routes = compare_train_routes(torch, model, params, batch) \
-        if attention else None
-
     trainer = Trainer(model, OptimizerConfig(**TRAIN_OPT),
                       itertools.repeat(host_batch))
     opt = adamw_init(params)
@@ -1549,7 +1743,6 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     steps = [m["step_seconds"] for _, m in hist]
     steady = statistics.median(steps[1:])
-    profile = profile_train_step(torch, trainer, params, opt, K)
     if hand_over is not None:
         hand_over.update(params=params, opt=opt)
     del params, opt, trainer
@@ -1564,6 +1757,9 @@ def train(torch, dev, K, arch=SERVE_ARCH, hand_over=None,
             "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
             "optimizer": TRAIN_OPT,
             "params": model.num_params(), "init_seconds": init_s,
+            "compared_layers": cut.cfg.n_layers,
+            "compared_program": [list(s) for s in cut.cfg.program],
+            "compare_and_profile_seconds": cut_s,
             "flash_vs_q_chunked": routes, "losses": losses,
             "grad_norms": norms, "lrs": [m["lr"] for _, m in hist],
             "step_seconds": steps, "steady_step_seconds": steady,
@@ -1576,14 +1772,17 @@ def check_training(trained: dict) -> None:
     """A training run's gates, for its arch's layer count and head dim:
     every loss and grad norm finite and positive; the last loss below the
     first.  A model without attention launches no flash kernel.  With
-    attention: f32 gradients of the flash route within GRAD_GAP_F32 of the
-    q-chunked route's per leaf (per layer) and bf16 losses within
-    LOSS_GAP_BF16; the bf16 route comparison's backward on the sm90
-    kernels (``flash_kernel``: the head_dim-256 ones above 128) and the
-    f32 one's on the 3xTF32 kernels, one dq and one dkv a layer (none on
-    the CUDA-core ones), after the 3xTF32 forward as many times as the
-    bf16 one's sm90 forward; per step one launch a layer of the sm90 dq
-    and dkv kernels for this head dim, one of its sm90 forward a layer
+    attention, on the route comparison's model (``compared_layers``,
+    else the run's own): f32 gradients of the flash route within
+    GRAD_GAP_F32 of the q-chunked route's per leaf (per layer) and bf16
+    losses within LOSS_GAP_BF16; a model compared in bf16 only (frames
+    enter in bf16) has its bf16 gradients held to GRAD_GAP_BF16 instead.
+    Each comparison's backward on its dtype's kernels (``flash_kernel``:
+    sm90 for bf16, the head_dim-256 ones above 128; 3xTF32 for f32), one
+    dq and one dkv a layer, none on any other; the f32 one's forward on
+    the 3xTF32 kernel as many times as the bf16 one's sm90 forward, the
+    bf16 one's on no f32 kernel.  Per step one launch a layer of the sm90
+    dq and dkv kernels for this head dim, one of its sm90 forward a layer
     and one more for each layer under remat (the recompute runs its
     forward again), none on any other flash kernel (the CUDA-core ones
     included)."""
@@ -1601,31 +1800,43 @@ def check_training(trained: dict) -> None:
                                  f"launched {ran} a step")
         return
     n, D = trained["layers"], trained["head_dim"]
+    cmp_n = trained.get("compared_layers", n)
     bwd = [name for name in FLASH_KERNELS if "_dq" in name or "_dkv" in name]
+    fwd = [name for name in FLASH_KERNELS if name not in bwd]
+    sm90_fwd = flash_kernel("fwd", "sm90", D)
     for dtype, route in (("bfloat16", "sm90"), ("float32", "f32tc")):
+        if dtype not in routes:
+            continue
         got = routes[dtype]["flash_launches"]
         ran = {flash_kernel(kind, route, D) for kind in ("dq", "dkv")}
-        want = {name: n * (name in ran) for name in bwd}
+        want = {name: cmp_n * (name in ran) for name in bwd}
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"the {dtype} route comparison's backward "
                                  f"launched {got}, expected {want}")
-    fwd = [name for name in FLASH_KERNELS if name not in bwd]
-    got = routes["float32"]["flash_launches"]
-    want = {name: 0 for name in fwd}
-    want["flash_attention_f32tc"] = \
-        routes["bfloat16"]["flash_launches"][flash_kernel("fwd", "sm90", D)]
-    if not want["flash_attention_f32tc"] or \
-            {k: got[k] for k in want} != want:
-        raise AssertionError(f"the float32 route comparison's forward "
-                             f"launched {got}, expected {want}")
-    if routes["float32"]["over_limit"]:
-        raise AssertionError(f"f32 gradients of the flash route differ from "
-                             f"the q-chunked route's: "
-                             f"{routes['float32']['over_limit']}")
+    bf16_fwd = routes["bfloat16"]["flash_launches"]
+    if not bf16_fwd[sm90_fwd] or any(bf16_fwd[k] for k in fwd
+                                     if k != sm90_fwd):
+        raise AssertionError(f"the bfloat16 route comparison's forward "
+                             f"launched {bf16_fwd}")
+    if "float32" in routes:
+        got = routes["float32"]["flash_launches"]
+        want = {name: 0 for name in fwd}
+        want["flash_attention_f32tc"] = bf16_fwd[sm90_fwd]
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"the float32 route comparison's forward "
+                                 f"launched {got}, expected {want}")
+        if routes["float32"]["over_limit"]:
+            raise AssertionError(f"f32 gradients of the flash route differ "
+                                 f"from the q-chunked route's: "
+                                 f"{routes['float32']['over_limit']}")
+    elif routes["bfloat16"]["over_limit"]:
+        raise AssertionError(f"bf16 gradients of the flash route differ "
+                             f"from the q-chunked route's: "
+                             f"{routes['bfloat16']['over_limit']}")
     if not routes["bfloat16"]["loss_gap"] < LOSS_GAP_BF16:
         raise AssertionError(f"bf16 losses differ: {routes['bfloat16']}")
     want = dict.fromkeys(FLASH_KERNELS, 0)
-    want[flash_kernel("fwd", "sm90", D)] = n + trained["recomputed_layers"]
+    want[sm90_fwd] = n + trained["recomputed_layers"]
     want[flash_kernel("dq", "sm90", D)] = n
     want[flash_kernel("dkv", "sm90", D)] = n
     if {k: per_step[k] for k in want} != want:
@@ -1661,21 +1872,24 @@ def training_params(model, generator) -> dict:
     std 1 its final logits (std about 48) saturate the final softcap of
     30, where greedy near-ties make the route comparison meaningless."""
     params = serving_params(model, generator)
-    params["embed"].mul_(1.0 / math.sqrt(model.cfg.d_model))
+    if "embed" in params:           # a frames model has none
+        params["embed"].mul_(1.0 / math.sqrt(model.cfg.d_model))
     return params
 
 
-def compare_train_routes(torch, model, params, batch) -> dict:
+def compare_train_routes(torch, model, params, batch, dtypes) -> dict:
     """Loss and gradients of the flash and q-chunked routes on the same
-    weights and batch, in f32 and in bf16 compute.  The flash route's
-    gradients wait on the host while the q-chunked route runs.  A gap is
-    max |d| / max |q-chunked| over one leaf, or over one layer's slice of
-    a layer-stacked leaf (``.../wq[35]``), so a layer whose gradients are
-    small is held to its own scale; ``check_training`` gates every gap.
-    Reported: the largest gaps, those of the embedding, the final norm and
-    the first and last layers, the flash route's kernel launches, and for
-    f32 the device time of the flash route's loss and gradients by kernel
-    family (``torch.profiler``)."""
+    weights and batch, in each compute dtype of ``dtypes``, on a model
+    cut to a few layers (``cut_depth``), so both routes' gradients fit on
+    the card together.  A gap is max |d| / max |q-chunked| over one leaf,
+    or over one layer's slice of a layer-stacked leaf (``.../wq[1]``), so
+    a layer whose gradients are small is held to its own scale; the gaps
+    at or over the dtype's limit (GRAD_GAP_F32, GRAD_GAP_BF16) are listed
+    in ``over_limit``, which ``check_training`` gates.  Reported: the
+    largest gaps, those of the embedding, the final norm and the first and
+    last layers, the flash route's kernel launches, and for f32 the device
+    time of the flash route's loss and gradients by kernel family
+    (``torch.profiler``)."""
     import dataclasses
     import repro_torch.kernels as K
     from torch.autograd import DeviceType
@@ -1686,7 +1900,7 @@ def compare_train_routes(torch, model, params, batch) -> dict:
     counts = [c for _, c in model.cfg.program]
     names = _leaf_names(params)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         f32 = dtype == torch.float32
         with compute_dtype(dtype):
             before = K.launch_counts()
@@ -1695,7 +1909,7 @@ def compare_train_routes(torch, model, params, batch) -> dict:
                 fl, _, fg = value_and_grad(model, params, batch)
                 torch.cuda.synchronize()
             after = K.launch_counts()
-            fg = [g.cpu() for g in tree_leaves(fg)]
+            fg = tree_leaves(fg)
             bl, _, bg = value_and_grad(base, params, batch)
         gaps = {}
         for name, a, b in zip(names, fg, tree_leaves(bg)):
@@ -1706,12 +1920,11 @@ def compare_train_routes(torch, model, params, batch) -> dict:
                       if parts[0] == "segments" and counts[int(parts[1])] > 1
                       else [(name, a, b)])
             for key, x, y in pieces:
-                d = (x.to(y.device) - y).abs().max()
+                d = (x - y).abs().max()
                 gaps[key] = float(d / y.abs().max().clamp_min(1e-30))
         del fg, bg
         torch.cuda.empty_cache()
         if f32:
-            gaps_f32 = gaps
             rows = [(e.key, e.self_device_time_total)
                     for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA]
@@ -1723,17 +1936,19 @@ def compare_train_routes(torch, model, params, batch) -> dict:
         shown = {k: v for k, v in gaps.items()
                  if "[" not in k or k.endswith(
                      ("[0]", f"[{counts[int(k.split('/')[1])] - 1}]"))}
-        out[str(dtype).split(".")[-1]] = {
+        limit = GRAD_GAP_F32 if f32 else GRAD_GAP_BF16
+        out[str(dtype).split(".")[-1]] = r = {
             "loss_flash": float(fl), "loss_q_chunked": float(bl),
             "loss_gap": abs(float(fl) - float(bl)) / abs(float(bl)),
             "grad_gap_max": max(gaps.values()), "compared": len(gaps),
             "flash_launches": {k: after[k] - before[k] for k in after
                                if k.startswith("flash_attention")},
             "largest": dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:5]),
-            "first_last_layers": shown}
-    out["float32"]["over_limit"] = {
-        k: v for k, v in gaps_f32.items() if not v < GRAD_GAP_F32}
-    out["float32"]["profile"] = step_profile
+            "first_last_layers": shown, "limit": limit,
+            "over_limit": {k: v for k, v in gaps.items()
+                           if not v < limit}}
+        if f32:
+            r["profile"] = step_profile
     return out
 
 
@@ -1813,7 +2028,10 @@ def bwd_timings(torch, dev) -> dict:
     SDPA's backward in f32.  ``hymba``: hymba-1.5b's training shape
     (``FLASH_HYMBA_TRAIN``: GQA groups of 5, head_dim 64, window 1024) on
     the sm90 kernels beside the CUDA-core ones, their bound and SDPA's
-    backward with the window as a boolean mask (SDPA has no window)."""
+    backward with the window as a boolean mask (SDPA has no window).
+    ``hubert``: hubert-xlarge's training shape (``FLASH_HUBERT``:
+    non-causal, head_dim 80, 16 heads) on the sm90 kernels beside their
+    bound and SDPA's non-causal backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, flash_attention_dkv,
                                      flash_attention_dq)
@@ -1823,7 +2041,8 @@ def bwd_timings(torch, dev) -> dict:
 
     def timed(res, name, flops, nbytes, peak, fns) -> None:
         r = {"flops": flops, "bytes": nbytes,
-             **{key: time_ms(fn) for key, fn in fns.items()},
+             **{key: (time_plain if key == "plain_ms" else time_ms)(fn)
+                for key, fn in fns.items()},
              "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
              "bound_by": "operations" if flops / peak >
              nbytes / HBM_BYTES_PER_S else "bytes"}
@@ -1834,8 +2053,9 @@ def bwd_timings(torch, dev) -> dict:
                 r[key.replace("ms", "tflops")] = flops / r[key] / 1e9
         res[name] = r
 
-    def shape(shp, dtype, peak, suffix) -> dict:
-        """Times at ``shp``, named ``flash_attention_{dq,dkv}{suffix}``."""
+    def shape(shp, dtype, peak, suffix, simt=True) -> dict:
+        """Times at ``shp``, named ``flash_attention_{dq,dkv}{suffix}``;
+        the CUDA-core kernels' too unless ``simt`` is false."""
         causal, window, softcap = shp["causal"], shp["window"], shp["softcap"]
         q, k, v = _qkv(torch, gen, dev, dtype, **shp)
         B, Hq, L, D = q.shape
@@ -1853,7 +2073,7 @@ def bwd_timings(torch, dev) -> dict:
         per_head = B * Hq * k.shape[2] * D * 4      # one f32 dK or dV
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         # SDPA has no window: a window shorter than L goes in as a mask
-        mask = dict(is_causal=True)
+        mask = dict(is_causal=causal)
         if window is not None and window < L:
             pos = torch.arange(L, device=dev)
             d = pos[:, None] - pos[None, :]
@@ -1877,10 +2097,12 @@ def bwd_timings(torch, dev) -> dict:
                  6 * D * pairs, ins + q.numel() * size),
                 ("dkv", flash_attention_dkv, flash_attention_dkv_ref,
                  8 * D * pairs, ins + 2 * per_head)):
-            def simt(kind=kind):
+            def simt_fn(kind=kind):
                 return _bwd_kernel(torch, kind, args, "simt")
-            fns = {"ms": lambda kernel=kernel: kernel(*args), "simt_ms": simt,
+            fns = {"ms": lambda kernel=kernel: kernel(*args),
                    "plain_ms": lambda plain=plain: plain(*args)}
+            if simt:
+                fns["simt_ms"] = simt_fn
             name = f"flash_attention_{kind}{suffix}"
             timed(res, name, flops, nbytes, peak, fns)
             res[name]["library_ms"] = library
@@ -1896,7 +2118,9 @@ def bwd_timings(torch, dev) -> dict:
                             "_d256"),
             "gemma2_f32": shape(FLASH_GEMMA2, torch.float32, TF32X3_FLOPS,
                                 "_f32tc"),
-            "hymba": shape(FLASH_HYMBA_TRAIN, torch.bfloat16, BF16_FLOPS, "")}
+            "hymba": shape(FLASH_HYMBA_TRAIN, torch.bfloat16, BF16_FLOPS, ""),
+            "hubert": shape(FLASH_HUBERT, torch.bfloat16, BF16_FLOPS, "",
+                            simt=False)}
 
 
 # -- driver --------------------------------------------------------------------
@@ -3223,20 +3447,23 @@ DECODE_CHECK_LEN, DECODE_GAP = 256, 0.05
 SNAPSHOT_DECODE = 8
 
 
-def decode_check(torch, model, params) -> dict:
+def decode_check(torch, model, params, extra=None) -> dict:
     """prefill(L-1) + decode(token L) against the last position of the
-    forward over all L tokens, in f32 compute, on the card."""
+    forward over all L tokens, in f32 compute, on the card; ``extra``
+    joins the forward's and the prefill's batches (a VLM's memory: the
+    decode step reads what the prefill cached of it)."""
     from repro_torch.models.layers import unembed_chunked
     cfg = model.cfg
     L = DECODE_CHECK_LEN
+    extra = extra or {}
     toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab, (SERVE_BATCH, L)), device=params["embed"].device)
     table = params.get("lm_head", params["embed"])
     with compute_dtype(torch.float32), torch.inference_mode():
-        h, _, _ = model.hidden(params, {"tokens": toks})
+        h, _, _ = model.hidden(params, {"tokens": toks, **extra})
         ref = unembed_chunked(h[:, -1:], table, final_cap=cfg.final_cap)
-        _, cache = model.prefill(params, {"tokens": toks[:, :L - 1]},
-                                 cache_len=L)
+        _, cache = model.prefill(params, {"tokens": toks[:, :L - 1],
+                                          **extra}, cache_len=L)
         dec, _ = model.decode_step(params, cache, toks[:, L - 1:], L - 1)
     gap = float((dec - ref).abs().max() / ref.abs().max())
     if not (torch.isfinite(dec).all() and gap < DECODE_GAP):
@@ -3402,6 +3629,131 @@ def serve_moe(torch, dev, K) -> dict:
     torch.cuda.empty_cache()
     if out["phase_peak_memory_bytes"] >= CARD_BYTES:
         raise AssertionError(f"{MOE_ARCH} peaked at "
+                             f"{out['phase_peak_memory_bytes']} bytes")
+    return out
+
+
+# -- phase 23 ------------------------------------------------------------------
+
+#: phase 23: hubert-xlarge (48 ``enc`` layers, d_model 1280, 16 heads of
+#: 80, frames in) trained at full width and depth, phase 11's traffic in
+#: frames; then one prefill over phase 7's batch of frames
+ENCODER_ARCH = "hubert-xlarge"
+
+
+def encoder(torch, dev, K) -> dict:
+    """23: ``train`` on the full hubert-xlarge (its frames enter in bf16,
+    so its route comparison runs once, in bf16, on the sm90 kernels) and
+    ``check_training``; then one ``LM.prefill`` over SERVE_BATCH x
+    PROMPT_LEN frames of the pipeline on the trained weights, timed, with
+    its launches (one sm90 forward a layer, none other), and the flash
+    route's logits at every frame against the q-chunked route's, held to
+    LOGIT_GAP."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.models import LM
+    from repro_torch.models.layers import unembed_chunked
+    state = {}
+    out = train(torch, dev, K, ENCODER_ARCH, hand_over=state)
+    check_training(out)
+    del state["opt"]
+    params = state.pop("params")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ENCODER_ARCH), flash=True)
+    model = LM(cfg)
+    base = LM(dataclasses.replace(cfg, flash=False))
+    frames = next(SyntheticTokens(PipelineConfig(
+        global_batch=SERVE_BATCH, seq_len=PROMPT_LEN, vocab=cfg.vocab,
+        seed=SEED, frontend="frames", d_model=cfg.d_model)))["frames"]
+    batch = {"frames": torch.as_tensor(frames, device=dev)}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = {n: K.launch_counts()[n] for n in FLASH_KERNELS}
+        want = {n: cfg.n_layers * (n == flash_kernel("fwd", "sm90",
+                                                     cfg.head_dim))
+                for n in FLASH_KERNELS}
+        if launches != want or cache != [None] or \
+                logits.shape != (SERVE_BATCH, 1, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"hubert-xlarge prefill: launches "
+                                 f"{launches} (expected {want}), cache "
+                                 f"{cache}, logits {tuple(logits.shape)}")
+        every = [unembed_chunked(m.hidden(params, batch)[0],
+                                 params["lm_head"])
+                 for m in (model, base)]
+    gap = float((every[0] - every[1]).abs().max() / every[1].abs().max())
+    if not gap < LOGIT_GAP:
+        raise AssertionError(f"hubert-xlarge: the flash route's logits "
+                             f"differ from the q-chunked route's by {gap}")
+    out["prefill"] = {"batch": SERVE_BATCH, "frames": PROMPT_LEN,
+                      "seconds": prefill_s, "launches": launches,
+                      "dtype": str(every[0].dtype), "logit_gap": gap,
+                      "same_argmax_share": float(
+                          (every[0].argmax(-1) == every[1].argmax(-1))
+                          .float().mean())}
+    del params, every, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 24 ------------------------------------------------------------------
+
+#: phase 24: llama-3.2-vision-90b at full width and one of its 20
+#: ``group_sx`` steps (4 self layers and 1 cross layer: the whole model's
+#: 360 GB of f32 params does not fit a card), phase 7's traffic with
+#: memory tokens of 0.02·N(0, 1) in bf16, as its serve launcher draws them
+VLM_ARCH, VLM_DEPTH, VLM_MEMORY_STD = "llama-3.2-vision-90b", 1, 0.02
+#: every cross-attention gate of the served weights: tanh(1) = 0.76 of the
+#: cross layer's output reaches the residual (the init's zero would hide
+#: the memory)
+XATTN_GATE = 1.0
+
+
+def serve_vlm(torch, dev, K) -> dict:
+    """24: ``serve`` on llama-3.2-vision-90b at VLM_DEPTH (its bf16 prefill
+    launching the sm90 forward once a self layer, none other: the cross
+    layer is plain attention), the memory tokens through
+    ``generate(extra=)``; every gate at XATTN_GATE; then ``decode_check``
+    with the same memory, and the phase's peak device memory, the init's
+    included, held under CARD_BYTES."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    memory = (VLM_MEMORY_STD * torch.randn(
+        (SERVE_BATCH, cfg.n_memory_tokens, cfg.d_model),
+        generator=torch.Generator(device=dev).manual_seed(SEED + 7),
+        device=dev)).to(torch.bfloat16)
+    state = {}
+    out = serve(torch, dev, K, VLM_ARCH, hand_over=state, depth=VLM_DEPTH,
+                extra={"memory": memory})
+    n_self = out["self_attention_layers"]
+    got = {n: out["launches"][n] for n in FLASH_KERNELS}
+    want = {n: n_self * (n == flash_kernel("fwd", "sm90", out["head_dim"]))
+            for n in FLASH_KERNELS}
+    if n_self != 4 * VLM_DEPTH or got != want:
+        raise AssertionError(f"{VLM_ARCH}: serving launched {got}, "
+                             f"expected {want}")
+    gates = state["params"]["segments"][0]["cross"]["attn"]["gate"]
+    gates = gates.reshape(-1).tolist()
+    if gates != [XATTN_GATE] * VLM_DEPTH:
+        raise AssertionError(f"cross-attention gates {gates}")
+    out["gates"] = gates
+    out["memory"] = {"shape": list(memory.shape), "dtype": "bfloat16",
+                     "std": VLM_MEMORY_STD}
+    out["decode_check"] = decode_check(torch, state["model"],
+                                       state["params"], {"memory": memory})
+    out["params"] = state["model"].num_params()
+    out["phase_peak_memory_bytes"] = max(out["init_peak_memory_bytes"],
+                                         torch.cuda.max_memory_allocated())
+    del state, memory
+    torch.cuda.empty_cache()
+    if out["phase_peak_memory_bytes"] >= CARD_BYTES:
+        raise AssertionError(f"{VLM_ARCH} peaked at "
                              f"{out['phase_peak_memory_bytes']} bytes")
     return out
 
@@ -3582,6 +3934,13 @@ def main(argv) -> int:
     emit("21b", seconds=time.perf_counter() - t0, **trained_h)
     check_training(trained_h)
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trained_e = encoder(torch, dev, K)
+    emit(23, seconds=time.perf_counter() - t0, **trained_e)
+    t0 = time.perf_counter()
+    vlm = serve_vlm(torch, dev, K)
+    emit(24, seconds=time.perf_counter() - t0, **vlm)
     emit("total", seconds=time.perf_counter() - t_start)
 
     # the copy kernels' launches on their eight paths: the slice-1 step
@@ -3602,22 +3961,26 @@ def main(argv) -> int:
              "library_ms": times[name]["library_ms"]}
             for name, (source, replaces) in KERNELS.items()
             if not name.startswith("flash_attention")]
-    # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's and
-    # hymba-1.5b's head_dim up to 128, gemma2-2b's 256) and the training
-    # runs (forward and remat recompute); the 3xTF32 forward on the f32
-    # serving prefills (qwen2.5-3b's, gemma2-2b's, hymba-1.5b's) and the
-    # f32 training comparisons,
-    # the paths that run it here.  The CUDA-core forward runs on no path,
-    # so the summary, the kernels of the paths, leaves it out: phase 6
-    # checks it against its plain version, phase 8 times it
-    served_runs = (served, gemma2, hybrid)
-    trained_runs = (trained, trained_g, trained_h)
+    # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's,
+    # hymba-1.5b's and the VLM's head_dim up to 128, gemma2-2b's 256), the
+    # training runs (forward and remat recompute; hubert-xlarge's head_dim
+    # 80 non-causal) and the encoder's prefill; the 3xTF32 forward on the
+    # f32 serving prefills (qwen2.5-3b's, gemma2-2b's, hymba-1.5b's, the
+    # VLM's) and the f32 training comparisons, the paths that run it here.
+    # The CUDA-core forward runs on no path, so the summary, the kernels
+    # of the paths, leaves it out: phase 6 checks it against its plain
+    # version, phase 8 times it
+    served_runs = (served, gemma2, hybrid, vlm)
+    trained_runs = (trained, trained_g, trained_h, trained_e)
     f32_runs = [r["flash_vs_q_chunked"]["float32"]["flash_launches"]
-                for r in served_runs + trained_runs]
+                for r in served_runs + trained_runs
+                if "float32" in r["flash_vs_q_chunked"]]
 
     def total(name):
-        """``name``'s launches on the serving and training runs."""
-        return sum(r["launches"][name] for r in served_runs + trained_runs)
+        """``name``'s launches on the serving and training runs (the
+        encoder's prefill too)."""
+        return sum(r["launches"][name] for r in served_runs + trained_runs
+                   ) + trained_e["prefill"]["launches"][name]
 
     for name, launched, t in (
             ("flash_attention", total("flash_attention"),
@@ -3634,8 +3997,8 @@ def main(argv) -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    # the sm90 backward on the training runs (qwen2.5-3b's and
-    # hymba-1.5b's head_dim up to 128, gemma2-2b's 256); the 3xTF32
+    # the sm90 backward on the training runs (qwen2.5-3b's, hymba-1.5b's
+    # and hubert-xlarge's head_dim up to 128, gemma2-2b's 256); the 3xTF32
     # backward on the f32 route comparisons, the paths that run it here.
     # The CUDA-core backward runs on no path: phase 10 checks it, phase 12
     # times it

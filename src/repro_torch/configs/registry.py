@@ -1,10 +1,5 @@
 """Architecture registry: ``--arch <id>`` lookup for configs, smoke configs,
-shape cells and per-cell skip reasons.
-
-Only the archs whose layer kinds the port runs are registered; the
-reference's others raise a ``KeyError`` that names the ``ROADMAP.md``
-item porting them.
-"""
+shape cells and per-cell skip reasons."""
 
 from __future__ import annotations
 
@@ -13,30 +8,22 @@ import importlib
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "shapes_for",
            "skip_reason", "list_archs"]
 
-#: arch id -> config module (one file per ported architecture)
+#: arch id -> config module (one file per assigned architecture)
 ARCHS = {
     "hymba-1.5b": "hymba_1_5b",
+    "hubert-xlarge": "hubert_xlarge",
     "gemma2-2b": "gemma2_2b",
     "qwen2.5-3b": "qwen2_5_3b",
     "yi-9b": "yi_9b",
     "stablelm-3b": "stablelm_3b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "arctic-480b": "arctic_480b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mamba2-780m": "mamba2_780m",
 }
 
-#: the reference's archs not ported yet -> what they wait for
-NOT_PORTED = {
-    "hubert-xlarge": "encoder blocks and the frames frontend (ROADMAP.md "
-                     "queue 1, item 10)",
-    "llama-3.2-vision-90b": "cross-attention (ROADMAP.md queue 1, item 8)",
-}
-
 
 def _module(arch: str):
-    if arch in NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet: it needs "
-                       f"{NOT_PORTED[arch]}; ported: {sorted(ARCHS)}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(f"{__package__}.{ARCHS[arch]}")

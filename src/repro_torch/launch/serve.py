@@ -31,6 +31,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "audio":
+        raise SystemExit("encoder-only arch: no decode step exists")
     model = LM(cfg, device=args.device)
     gen = torch.Generator(model.device).manual_seed(args.seed)
     params = model.init(gen)
@@ -38,8 +40,15 @@ def main(argv=None) -> None:
     engine = ServeEngine(model, params, max_len=max_len, device=args.device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"memory": torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.n_memory_tokens,
+                                 cfg.d_model)) * 0.02,
+            device=model.device).to(torch.bfloat16)}
     out, stats = engine.generate(prompts, args.new_tokens,
-                                 temperature=args.temperature, generator=gen)
+                                 temperature=args.temperature, generator=gen,
+                                 extra=extra)
     print(f"arch={cfg.name} device={model.device} generated={out.shape} "
           f"prefill={stats.prefill_seconds * 1e3:.1f}ms "
           f"decode={stats.decode_tps:.1f} tok/s "

@@ -62,7 +62,8 @@ def main(argv=None) -> None:
     # moves the pipeline to the checkpoint's step
     src, data = make_pipeline(PipelineConfig(
         global_batch=args.global_batch, seq_len=args.seq_len,
-        vocab=cfg.vocab, seed=args.seed), prefetch=0)
+        vocab=cfg.vocab, seed=args.seed, frontend=cfg.frontend,
+        d_model=cfg.d_model), prefetch=0)
     tr = Trainer(model, OptimizerConfig(peak_lr=args.lr, warmup_steps=10,
                                         total_steps=max(args.steps, 100)),
                  data, ckpt_manager=ckpt, ckpt_every=args.ckpt_every)

@@ -1,12 +1,13 @@
-"""Self-attention: GQA/MHA/MQA, sliding windows, logit softcap.
+"""Attention: GQA/MHA/MQA, sliding windows, logit softcap, cross-attention.
 
 Prefill takes one of two routes, as in the reference: the flash kernel
 (``kernels/flash_attention.py``) when ``flash`` is set and the length is a
 multiple of ``flash_block``, else query-chunked (blockwise-softmax)
 attention that never materializes more than a (q_chunk, L) score tensor
 per head.  Decode is a single-token step against a full KV cache or a
-ring-buffered sliding-window cache.  Cross-attention comes with the VLM
-slice, the mesh-sharded flash call with the distributed slice.
+ring-buffered sliding-window cache.  Cross-attention to memory tokens
+(the VLM's) is plain, unmasked attention, as in the reference.  The
+mesh-sharded flash call comes with the distributed slice.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ from ..kernels.flash_attention import flash_attention
 from .layers import rope, softcap
 from .params import ParamDef
 
-__all__ = ["attn_defs", "attn_forward", "attn_decode", "init_kv_cache_defs"]
+__all__ = ["attn_defs", "attn_forward", "attn_decode", "init_kv_cache_defs",
+           "cross_attn_forward", "cross_kv"]
 
 
 def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
-              qkv_bias: bool = False) -> dict:
+              qkv_bias: bool = False, gated: bool = False) -> dict:
     d = {
         "wq": ParamDef((d_model, n_heads, head_dim),
                        ("embed", "heads", "head_dim"), init="fan_in"),
@@ -41,6 +43,8 @@ def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
                            init="zeros")
         d["bv"] = ParamDef((n_kv, head_dim), ("kv_heads", "head_dim"),
                            init="zeros")
+    if gated:   # cross-attn tanh gate (llama-3.2-vision)
+        d["gate"] = ParamDef((), (), init="zeros")
     return d
 
 
@@ -60,8 +64,11 @@ def _project_kv(p, x):
     return k, v
 
 
-def _out(p, o):
-    return torch.einsum("blhd,hdm->blm", o, p["wo"].to(o.dtype))
+def _out(p, o, gated: bool = False):
+    y = torch.einsum("blhd,hdm->blm", o, p["wo"].to(o.dtype))
+    if gated and "gate" in p:
+        y = torch.tanh(p["gate"].to(y.dtype)) * y
+    return y
 
 
 def _scores_mask(qpos, kpos, causal: bool, window: int | None):
@@ -119,6 +126,33 @@ def attn_forward(p, x, *, n_heads: int, n_kv: int, head_dim: int,
         outs.append(torch.einsum("bkgql,blkd->bqkgd", pr, v))
     o = torch.cat(outs, dim=1).reshape(B, L, n_heads, head_dim)
     return _out(p, o)
+
+
+# -- cross attention ----------------------------------------------------------
+
+def cross_kv(p, kv_x):
+    """Cross-attention K/V projected from the (vision/audio) memory tokens,
+    in the memory's dtype."""
+    return _project_kv(p, kv_x)
+
+
+def cross_attn_forward(p, x, k, v, *, n_heads: int, n_kv: int,
+                       head_dim: int):
+    """Unmasked attention of ``x`` to memory ``k``, ``v`` (B, M, K, D),
+    softmax in f32, gated output.  K and V may be bf16 under f32 compute
+    (the memory stays bf16): the products then run in f32, as jnp's
+    promotion runs them in the reference."""
+    B, L, M = x.shape
+    q = _project_q(p, x)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    g = n_heads // n_kv
+    scale = 1.0 / math.sqrt(head_dim)
+    qg = q.reshape(B, L, n_kv, g, head_dim).to(dt)
+    s = torch.einsum("bqkgd,blkd->bkgql", qg, k.to(dt)).float() * scale
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    dt = torch.promote_types(pr.dtype, v.dtype)
+    o = torch.einsum("bkgql,blkd->bqkgd", pr.to(dt), v.to(dt))
+    return _out(p, o.reshape(B, L, n_heads, head_dim), gated=True)
 
 
 # -- decode -------------------------------------------------------------------

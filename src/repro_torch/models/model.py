@@ -79,24 +79,22 @@ class LM:
             raise ValueError(
                 f"{cfg.name}: program covers {cfg.total_layers()} layers, "
                 f"config says {cfg.n_layers}")
-        if cfg.frontend != "tokens":
-            raise NotImplementedError(
-                f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet: "
-                f"ROADMAP.md queue 1, item 10")
         self.cfg = cfg
         self.device = resolve_device(device)
 
     # -- parameters ----------------------------------------------------------
     def skeleton(self) -> dict:
         cfg = self.cfg
-        sk: dict = {"embed": embed_def(cfg.vocab, cfg.d_model),
-                    "segments": []}
+        sk: dict = {}
+        if cfg.frontend == "tokens":
+            sk["embed"] = embed_def(cfg.vocab, cfg.d_model)
+        sk["segments"] = []
         for kind, count in cfg.program:
             defs = tfm.block_defs(cfg, kind)
             sk["segments"].append(_stack_tree(defs, count) if count > 1
                                   else defs)
         sk["final_norm"] = tfm._norm_def(cfg)
-        if not cfg.tie_embed:
+        if not cfg.tie_embed or cfg.frontend != "tokens":
             sk["lm_head"] = ParamDef((cfg.vocab, cfg.d_model),
                                      ("vocab", "embed"), init="fan_in")
         return sk
@@ -113,12 +111,17 @@ class LM:
         return count_params(self.skeleton())
 
     # -- embedding / head -----------------------------------------------------
-    def _embed_in(self, params, tokens):
-        return embed_lookup(params["embed"], tokens,
-                            scale=self.cfg.embed_scale)
+    def _embed_in(self, params, batch):
+        """The first hidden state: the embedded tokens, or the frames cast
+        to bf16 whatever the compute dtype (as the reference casts them;
+        every layer then computes in the frames' dtype)."""
+        if self.cfg.frontend == "tokens":
+            return embed_lookup(params["embed"], batch["tokens"],
+                                scale=self.cfg.embed_scale)
+        return batch["frames"].to(torch.bfloat16)
 
     def _head_table(self, params):
-        return params.get("lm_head", params["embed"])
+        return params["lm_head"] if "lm_head" in params else params["embed"]
 
     def _final_norm(self, params, x):
         return (rms_norm(x, params["final_norm"]) if self.cfg.norm == "rms"
@@ -129,22 +132,23 @@ class LM:
         """Runs the stack. Returns (hidden, aux, kv_per_segment); a stacked
         segment's kv is the list of its layers' kvs."""
         cfg = self.cfg
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         B, L, _ = x.shape
         positions = torch.arange(L, device=x.device)
+        memory = batch.get("memory")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         kvs = []
         for (kind, count), seg in zip(cfg.program, params["segments"]):
             if count == 1:
                 x, a, kv = tfm.block_forward(cfg, kind, seg, x, positions,
-                                             collect_kv)
+                                             memory, collect_kv)
                 aux = aux + a
                 kvs.append(kv)
                 continue
 
             def body(xx, p, _kind=kind):
                 return tfm.block_forward(cfg, _kind, p, xx, positions,
-                                         collect_kv)
+                                         memory, collect_kv)
             if torch.is_grad_enabled():
                 body = _remat(cfg, body)
             seg_kv = []
@@ -195,19 +199,21 @@ class LM:
     def prefill(self, params, batch, cache_len: int | None = None):
         """Full-sequence pass producing (last_token_logits, cache)."""
         cfg = self.cfg
-        B, L = batch["tokens"].shape[:2]
+        B, L = batch.get("tokens", batch.get("frames")).shape[:2]
         cache_len = cache_len or L
         h, _, kvs = self.hidden(params, batch, collect_kv=True)
         caches = []
         for (kind, count), kv, cd in zip(cfg.program, kvs,
                                          self.cache_skeleton(B, cache_len)):
-            if count == 1:
+            if cd is None:
+                caches.append(None)
+            elif count == 1:
                 caches.append(tfm.block_prefill(cfg, kind, kv, cd, B, L))
-                continue
-            cd_inner = tree_map(_unstack_def, cd)
-            layers = [tfm.block_prefill(cfg, kind, kv_i, cd_inner, B, L)
-                      for kv_i in kv]
-            caches.append(_stack_layers(layers))
+            else:
+                cd_inner = tree_map(_unstack_def, cd)
+                caches.append(_stack_layers([
+                    tfm.block_prefill(cfg, kind, kv_i, cd_inner, B, L)
+                    for kv_i in kv]))
         logits = unembed_chunked(h[:, -1:], self._head_table(params),
                                  final_cap=cfg.final_cap)
         return logits, caches
@@ -217,7 +223,9 @@ class LM:
         current position. Updates ``cache`` in place (the reference donates
         it) and returns (logits, cache)."""
         cfg = self.cfg
-        x = self._embed_in(params, tokens)
+        x = self._embed_in(params, {"tokens": tokens}
+                           if cfg.frontend == "tokens" else
+                           {"frames": tokens})
         new_caches = []
         for (kind, count), seg, c in zip(cfg.program, params["segments"],
                                          cache):

@@ -5,18 +5,17 @@ segment's parameters are stacked along a leading "layers" dim and the
 model walks the segment one layer at a time (the reference scans it).
 Composite kinds nest simple blocks inside one layer step.
 
-Kinds ported so far (the dense decoders, MoE, the SSD and hybrid
-families):
+Kinds:
   attn      pre-norm self-attention (full, causal) + MLP
   swa       sliding-window self-attention + MLP
+  enc       bidirectional (encoder) self-attention + MLP     [hubert]
   moe       self-attention + MoE FFN (+ dense residual)  [arctic/deepseek]
   ssd       Mamba-2 SSD block                                 [mamba2]
   hyb_full  parallel attention+SSM heads, full attention      [hymba]
   hyb_swa   parallel attention+SSM heads, windowed attention  [hymba]
+  xattn     cross-attention to memory tokens + MLP            [llama-vision]
   pair_lg   composite: swa block then attn block              [gemma2]
-
-The reference's other kinds raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+  group_sx  composite: 4 self blocks then 1 xattn block       [llama-vision]
 """
 
 from __future__ import annotations
@@ -30,28 +29,22 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (layer_norm, layer_norm_defs, mlp_defs, mlp_forward,
                      rms_norm, rms_norm_def)
+from .params import ParamDef
 
 __all__ = ["ModelConfig", "block_defs", "block_forward", "block_decode",
-           "block_cache_defs", "block_prefill"]
+           "block_cache_defs", "block_prefill", "SIMPLE_KINDS"]
 
+SIMPLE_KINDS = ("attn", "swa", "enc", "moe", "ssd", "hyb_full", "hyb_swa",
+                "xattn")
 COMPOSITE = {"pair_lg": ("local:swa", "global:attn"),
              "group_sx": ("self_0:attn", "self_1:attn", "self_2:attn",
                           "self_3:attn", "cross:xattn")}
 _HYBRID = ("hyb_full", "hyb_swa")
-_PORTED = ("attn", "swa", "moe", "ssd", *_HYBRID, "pair_lg")
-#: kinds not ported yet -> the ROADMAP.md item that ports them
-_NOT_PORTED = {"enc": "queue 1, item 10 (encoder blocks)",
-               "xattn": "queue 1, item 8 (cross-attention)",
-               "group_sx": "queue 1, item 8 (cross-attention)"}
 
 
-def _require_ported(kind: str) -> None:
-    if kind in _PORTED:
-        return
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
-                                  f"ROADMAP.md {_NOT_PORTED[kind]}")
-    raise ValueError(f"unknown layer kind {kind!r}")
+def _check_kind(kind: str) -> None:
+    if kind not in SIMPLE_KINDS and kind not in COMPOSITE:
+        raise ValueError(f"unknown layer kind {kind!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,14 +123,15 @@ def _subs(kind: str):
 # ---------------------------------------------------------------------------
 
 def block_defs(cfg: ModelConfig, kind: str) -> dict:
-    _require_ported(kind)
+    _check_kind(kind)
     if kind in COMPOSITE:
         return {nm: block_defs(cfg, sub) for nm, sub in _subs(kind)}
     if kind == "ssd":
         return {"norm": _norm_def(cfg), "ssm": ssm_mod.ssd_defs(cfg.ssm)}
     d = {"ln1": _norm_def(cfg), "ln2": _norm_def(cfg)}
     d["attn"] = attn.attn_defs(cfg.d_model, cfg.n_heads, cfg.n_kv,
-                               cfg.head_dim, qkv_bias=cfg.qkv_bias)
+                               cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                               gated=kind == "xattn")
     if kind in _HYBRID:
         d["ssm"] = ssm_mod.ssd_defs(cfg.ssm)
         d["mix_na"] = rms_norm_def(cfg.d_model)
@@ -160,8 +154,9 @@ def block_defs(cfg: ModelConfig, kind: str) -> dict:
 
 def _attn_kwargs(cfg: ModelConfig, kind: str) -> dict:
     window = cfg.window if kind in ("swa", "hyb_swa") else None
+    causal = cfg.causal and kind != "enc"
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                causal=cfg.causal, window=window, rope_theta=cfg.rope_theta,
+                causal=causal, window=window, rope_theta=cfg.rope_theta,
                 rotary_dim=cfg.rotary_dim, use_rope=cfg.use_rope,
                 attn_cap=cfg.attn_cap, flash=cfg.flash,
                 flash_block=cfg.flash_block)
@@ -179,16 +174,16 @@ def _ffn(cfg: ModelConfig, kind: str, p, h, zero):
 
 
 def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
-                  collect_kv: bool = False):
-    """Returns (x, aux, kv) — ``kv`` is the (k, v) bundle when
-    ``collect_kv`` (prefill), else None.  (The reference's ``memory``
-    argument comes with the cross-attention kinds.)"""
-    _require_ported(kind)
+                  memory=None, collect_kv: bool = False):
+    """Returns (x, aux, kv) — ``kv`` is the (k, v)/state bundle when
+    ``collect_kv`` (prefill), else None.  ``memory``: the (B, M, d_model)
+    tokens the ``xattn`` blocks attend to."""
+    _check_kind(kind)
     if kind in COMPOSITE:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         kvs = {}
         for nm, sub in _subs(kind):
-            x, a, kv = block_forward(cfg, sub, p[nm], x, positions,
+            x, a, kv = block_forward(cfg, sub, p[nm], x, positions, memory,
                                      collect_kv)
             aux = aux + a
             if collect_kv:
@@ -207,8 +202,14 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
         return x + y, zero, kv
 
     h = _norm(cfg, p["ln1"], x)
-    y, kv = _attn_with_kv(cfg, p["attn"], h, positions,
-                          _attn_kwargs(cfg, kind), collect_kv)
+    if kind == "xattn":
+        k, v = attn.cross_kv(p["attn"], memory)
+        y = attn.cross_attn_forward(p["attn"], h, k, v, n_heads=cfg.n_heads,
+                                    n_kv=cfg.n_kv, head_dim=cfg.head_dim)
+        kv = {"xk": k, "xv": v} if collect_kv else None
+    else:
+        y, kv = _attn_with_kv(cfg, p["attn"], h, positions,
+                              _attn_kwargs(cfg, kind), collect_kv)
     if kind in _HYBRID:
         if collect_kv:
             ys, kvs = ssm_mod.ssd_forward_with_state(p["ssm"], h, cfg.ssm,
@@ -247,12 +248,19 @@ def _attn_with_kv(cfg, p, h, positions, kwargs, collect_kv):
 
 def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int) -> dict | None:
-    _require_ported(kind)
+    _check_kind(kind)
     if kind in COMPOSITE:
         return {nm: block_cache_defs(cfg, sub, batch, cache_len)
                 for nm, sub in _subs(kind)}
+    if kind == "enc":
+        return None
     if kind == "ssd":
         return ssm_mod.ssd_cache_defs(batch, cfg.ssm)
+    if kind == "xattn":
+        shape = (batch, cfg.n_memory_tokens, cfg.n_kv, cfg.head_dim)
+        axes = ("batch", None, "kv_heads", None)
+        return {nm: ParamDef(shape, axes, dtype="bfloat16", init="zeros")
+                for nm in ("xk", "xv")}
     seq_sharded = batch == 1           # long-context: shard cache over seq
     win = cfg.window if kind in ("swa", "hyb_swa") else None
     S = min(win, cache_len) if win else cache_len
@@ -265,7 +273,7 @@ def block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
     """One-token step; updates ``cache`` in place. Returns (x, cache)."""
-    _require_ported(kind)
+    _check_kind(kind)
     if kind in COMPOSITE:
         new = {}
         for nm, sub in _subs(kind):
@@ -281,7 +289,13 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
     kw = _attn_kwargs(cfg, kind)
     for drop in ("causal", "flash", "flash_block"):
         kw.pop(drop)
-    if kind in _HYBRID:
+    if kind == "xattn":
+        y = attn.cross_attn_forward(p["attn"], h, cache["xk"].to(x.dtype),
+                                    cache["xv"].to(x.dtype),
+                                    n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                                    head_dim=cfg.head_dim)
+        new_cache = cache
+    elif kind in _HYBRID:
         ya, ca = attn.attn_decode(p["attn"], h, cache["attn"], pos, **kw)
         ys, cs = ssm_mod.ssd_decode(p["ssm"], h, cache["ssm"], cfg.ssm)
         y = 0.5 * (rms_norm(ya, p["mix_na"]) + rms_norm(ys, p["mix_ns"]))
@@ -307,13 +321,15 @@ def block_prefill(cfg: ModelConfig, kind: str, kv, cache_defs_tree,
     """Convert collected prefill k/v (or SSM state) into the cache layout
     of ``block_cache_defs``.  ``kv`` comes from block_forward with
     collect_kv=True; returns a tree of tensors."""
-    _require_ported(kind)
+    _check_kind(kind)
     if kind in COMPOSITE:
         return {nm: block_prefill(cfg, sub, kv[nm], cache_defs_tree[nm],
                                   batch, L)
                 for nm, sub in _subs(kind)}
     if kind == "ssd":
         return kv                      # already {"S":..., "conv":...}
+    if kind == "xattn":
+        return {nm: kv[nm].to(torch.bfloat16) for nm in ("xk", "xv")}
     if kind in _HYBRID:
         return {"attn": _kv_to_cache(kv["attn"], cache_defs_tree["attn"], L),
                 "ssm": kv["ssm"]}

@@ -17,6 +17,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.model import LM
+from ..models.params import tree_leaves
 
 __all__ = ["make_prefill_step", "make_decode_step", "GenStats",
            "ServeEngine"]
@@ -56,7 +57,7 @@ class ServeEngine:
         self.params = params
         self.max_len = max_len
         self.device = resolve_device(device)
-        where = params["embed"].device
+        where = tree_leaves(params)[0].device
         if where.type != self.device.type:
             raise ValueError(f"params on {where}, engine on {self.device}")
         self._prefill = make_prefill_step(model, cache_len=max_len)
@@ -68,10 +69,13 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, tokens, num_new: int, temperature: float = 0.0,
-                 generator: torch.Generator | None = None) -> tuple:
+                 generator: torch.Generator | None = None,
+                 extra: dict | None = None) -> tuple:
         """``tokens``: (B, L) prompt. Returns (generated (B, num_new) int32
         ndarray, stats).  Temperature sampling draws from ``generator``
-        (on the engine's device; a fresh one seeded 0 if none)."""
+        (on the engine's device; a fresh one seeded 0 if none).  ``extra``
+        joins the prefill's batch (a VLM's ``memory`` tokens); decode
+        reads what the prefill cached of it."""
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                  device=self.device)
         B, L = tokens.shape
@@ -82,7 +86,10 @@ class ServeEngine:
         stats = GenStats()
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        batch = {"tokens": tokens}
+        if extra:
+            batch.update(extra)
+        logits, cache = self._prefill(self.params, batch)
         self._sync()
         stats.prefill_seconds = time.perf_counter() - t0
 

@@ -1256,3 +1256,80 @@ def test_moe_block_and_ssd_backward_on_the_card(cuda, case, monkeypatch):
     for a, b in zip(g_gpu, g_cpu):
         assert torch.isfinite(a).all() and a.device.type == "cuda"
         torch.testing.assert_close(a.cpu(), b, **tol)
+
+
+def test_flash_sm90_kernels_at_huberts_training_shape(cuda):
+    """The sm90 forward, dq and dkv at hubert-xlarge's training shape: B 2,
+    16 heads over 16 (MHA), L 2048, D 80 (padded to 128 on the card),
+    non-causal, as attention hands them over ((B, H, L, D) views of
+    (B, L, H, D)); bf16 O and dQ within one bf16 step of the plain
+    versions, the LSE within 1e-4, the f32 per-q-head dK, dV at the f32
+    gradient tolerance (rtol 1e-3, atol 1e-4); one launch of each sm90
+    head_dim-128 kernel and none other."""
+    gen = torch.Generator(device=cuda).manual_seed(80)
+    q, k, v, do = (std * torch.randn((2, 2048, 16, 80), generator=gen,
+                                     device=cuda)
+                   for std in (2 ** 0.5, 2 ** 0.5, 0.5, 0.5))
+    q, k, v, do = (t.to(torch.bfloat16).transpose(1, 2)
+                   for t in (q, k, v, do))
+    (o, lse), ran = _launches(lambda: K.flash_attention(
+        q, k, v, None, False, None, None, return_lse=True))
+    assert ran["flash_attention"] == 1 and sum(ran.values()) == 1
+    ro, rlse = flash_attention_ref(q, k, v, None, False, None, None)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    scale = 80 ** -0.5
+    delta = (do.float() * ro.float()).sum(-1)
+    args = (q, k, v, do, rlse, delta, scale, False, None, None)
+    (dq, (dk, dv)), ran = _launches(lambda: (K.flash_attention_dq(*args),
+                                             K.flash_attention_dkv(*args)))
+    assert ran["flash_attention_dq"] == ran["flash_attention_dkv"] == 1
+    assert sum(ran.values()) == 2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq.float(),
+                               flash_attention_dq_ref(*args).float(),
+                               rtol=2 ** -7, atol=1e-4)
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    torch.testing.assert_close(dk, rdk, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(dv, rdv, rtol=1e-3, atol=1e-4)
+
+
+def test_xattn_block_on_the_card(cuda):
+    """One llama-3.2-vision-90b smoke ``xattn`` block with its gate at 0.7,
+    in f32 compute over bf16 memory, on the card against its CPU run: the
+    forward, the bf16 ``xk``/``xv`` cache (one bf16 step) and one decode
+    step reading it (rtol 1e-3, atol 1e-4: the card's f32 products sum in
+    another order)."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    cfg, p_cpu, p_gpu = _ssm_block("llama-3.2-vision-90b", "xattn", cuda)
+    for p in (p_cpu, p_gpu):
+        p["attn"]["gate"].fill_(0.7)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, cfg.d_model, generator=gen) * 0.5
+    x1 = torch.randn(2, 1, cfg.d_model, generator=gen) * 0.5
+    mem = (torch.randn(2, cfg.n_memory_tokens, cfg.d_model, generator=gen)
+           * 0.5).to(torch.bfloat16)
+    saved, layers._COMPUTE = layers._COMPUTE, torch.float32
+    try:
+        outs = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            y, _, kv = tfm.block_forward(cfg, "xattn", p, x.to(dev),
+                                         torch.arange(32, device=dev),
+                                         mem.to(dev), collect_kv=True)
+            defs = tfm.block_cache_defs(cfg, "xattn", 2, 40)
+            cache = tfm.block_prefill(cfg, "xattn", kv, defs, 2, 32)
+            y1, cache = tfm.block_decode(cfg, "xattn", p, x1.to(dev),
+                                         cache, 32)
+            outs[dev] = (y, y1, cache)
+    finally:
+        layers._COMPUTE = saved
+    for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+    for name in ("xk", "xv"):
+        a, b = outs["cuda"][2][name], outs["cpu"][2][name]
+        assert a.dtype == b.dtype == torch.bfloat16
+        torch.testing.assert_close(a.cpu().float(), b.float(),
+                                   rtol=2 ** -7, atol=1e-4)

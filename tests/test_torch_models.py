@@ -332,20 +332,79 @@ def test_materialize_laws():
     assert torch.equal(p["wq"], q["wq"])
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b"])
-def test_unported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        tcfg.get_config(arch)
-    cfg = jcfg.get_smoke_config(arch)
-    kind = cfg.program[0][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttfm.block_defs(tcfg.get_smoke_config("qwen2.5-3b"), kind)
+@pytest.mark.parametrize("arch", jcfg.list_archs())
+def test_every_reference_arch_is_registered(arch):
+    """Every arch of the JAX package's registry is in the port's, in the
+    same order, its config and smoke config equal field by field, with
+    the same shape cells and skip reasons."""
+    assert tcfg.list_archs() == jcfg.list_archs()
+    for get in ("get_config", "get_smoke_config"):
+        assert dataclasses.asdict(getattr(tcfg, get)(arch)) == \
+            dataclasses.asdict(getattr(jcfg, get)(arch))
+    assert [dataclasses.asdict(c) for c in tcfg.shapes_for(arch)] == \
+        [dataclasses.asdict(c) for c in jcfg.shapes_for(arch)]
+    for cell in jcfg.shapes_for(arch):
+        assert tcfg.skip_reason(arch, cell.name) == \
+            jcfg.skip_reason(arch, cell.name)
 
 
-@pytest.mark.parametrize("kind", ["enc", "xattn"])
-def test_unported_kinds_name_their_roadmap_item(kind):
-    """The simple kinds still waiting for their slice are refused by name,
-    with the item that ports them."""
-    with pytest.raises(NotImplementedError,
-                       match=f"{kind!r} is not ported yet: ROADMAP.md"):
-        ttfm.block_defs(tcfg.get_smoke_config("qwen2.5-3b"), kind)
+def _fan_in(tree, cfg):
+    """Attention projections at fan-in over the axes their products
+    contract, every cross-attention gate 0.5 (the reference's zero gate
+    would hide the memory)."""
+    if isinstance(tree, list):
+        return [_fan_in(t, cfg) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _fan_in(v, cfg) for k, v in tree.items()}
+    if "wq" in tree:
+        for name, s in (("wq", cfg.n_heads / cfg.d_model),
+                        ("wk", cfg.n_kv / cfg.d_model),
+                        ("wv", cfg.n_kv / cfg.d_model),
+                        ("wo", 1 / cfg.n_heads)):
+            tree[name] = tree[name] * np.float32(np.sqrt(s))
+    if "gate" in tree:
+        tree["gate"] = np.full_like(tree["gate"], 0.5)
+    return tree
+
+
+@pytest.mark.parametrize("arch", jcfg.list_archs())
+def test_smoke_loss_parity(arch, f32_compute, monkeypatch):
+    """``LM.loss`` (and its ``ce`` and ``aux`` terms) on every reference
+    smoke config against the reference's, in f32 compute on the same
+    weights (attention at true fan-in) and batch: rtol 1e-5.  hubert's
+    frames stay f32 in both packages (each casts them to bf16 otherwise);
+    the VLM gets bf16 memory tokens, as its launcher draws them."""
+    monkeypatch.setattr(JLM, "_embed_in", lambda self, params, batch:
+                        batch["frames"].astype(jnp.float32)
+                        if "frames" in batch else
+                        jlayers.embed_lookup(params["embed"],
+                                             batch["tokens"],
+                                             scale=self.cfg.embed_scale))
+    monkeypatch.setattr(LM, "_embed_in", lambda self, params, batch:
+                        batch["frames"].float() if "frames" in batch else
+                        tlayers.embed_lookup(params["embed"],
+                                             batch["tokens"],
+                                             scale=self.cfg.embed_scale))
+    jc, tc = _cfgs(arch)
+    jm, tm = JLM(jc), LM(tc, device="cpu")
+    jp = jax.tree_util.tree_map(
+        jnp.asarray, _fan_in(_np(jm.init(jax.random.key(0))), jc))
+    tp = params_from_numpy(_np(jp), "cpu")
+    rng = np.random.default_rng(0)
+    b = {"labels": rng.integers(0, jc.vocab, (2, 32)).astype(np.int32)}
+    if jc.frontend == "frames":
+        b["frames"] = (rng.standard_normal((2, 32, jc.d_model)) * 0.1
+                       ).astype(np.float32)
+    else:
+        b["tokens"] = rng.integers(0, jc.vocab, (2, 32)).astype(np.int32)
+    if jc.n_memory_tokens:
+        b["memory"] = (rng.standard_normal(
+            (2, jc.n_memory_tokens, jc.d_model)) * 0.5).astype(
+                ml_dtypes.bfloat16)
+    jloss, jmet = jm.loss(jp, {k: jnp.asarray(v) for k, v in b.items()})
+    tloss, tmet = tm.loss(tp, params_from_numpy(b, "cpu"))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    for k in ("ce", "aux"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, atol=1e-7)
