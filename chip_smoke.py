@@ -83,7 +83,7 @@ Phases, each printing one JSON line:
     ones (``csrc/flash_bwd_f32tc.cu``), the named case the CUDA-core ones
     (``csrc/flash_bwd.cu``), and each route's count equals the cases the
     sweep sends it;
-11. the training path at full width: qwen2.5-3b (24 of its 36 layers,
+11. the training path at full width: qwen2.5-3b (6 of its 36 layers,
     ``QWEN_TRAIN_DEPTH``; random weights from a seed: see
     ``training_params``; ``remat="dots"``) with the flash route on, at
     global batch 2 x 2048 tokens from the synthetic pipeline: first, on
@@ -94,7 +94,7 @@ Phases, each printing one JSON line:
     f32 one the 3xTF32 kernels after the 3xTF32 forward) and a profile of
     one training step; then ``Trainer.run`` for 4 AdamW steps on one
     batch (``TRAIN_OPT``), launch counts reset just before it and read
-    just after (24 sm90 dq and 24 sm90 dkv launches a step, none on the
+    just after (6 sm90 dq and 6 sm90 dkv launches a step, none on the
     CUDA-core route), the step times and peak memory;
 12. the backward kernels' times (as phase 4's): at the training shape and
     at gemma2-2b's bf16 head_dim-256 shape the sm90 kernels beside the
@@ -126,8 +126,8 @@ Phases, each printing one JSON line:
     names the flash backward's device time in a step;
 15. (run right after phase 11, on its trained tree: the later phases have
     no room for it beside their own) the checkpoint path at full width:
-    qwen2.5-3b's params and AdamW state (42 f32 leaves, 24 of its 36
-    layers: 25.93 GB, and the int32 step count) saved by
+    qwen2.5-3b's params and AdamW state (42 f32 leaves, 6 of its 36
+    layers: about 9.3 GB, and the int32 step count) saved by
     ``CheckpointManager`` under ``merged_process`` into
     ``build/chip_smoke/ckpt`` from ``MeshSharding``s of 2 simulated
     hosts x 4 devices (each leaf split 8 ways, the blocks from
@@ -151,7 +151,7 @@ Phases, each printing one JSON line:
     ``merged_process``, reorganized out of place to the default 4 x 4 x 4
     (one ``pack_rows`` launch a gather batch), its six Fig.-6 patterns
     read under both layouts by ``Dataset.read`` (``torch.equal`` to the
-    source) and by ``read_pattern`` with 8 readers and
+    source) and by ``read_pattern`` with 4 readers and
     ``engine="auto"`` (best scheme, seconds, bytes, chunks, the engine and
     its reason; the calibration's terms), and reorganized in place to 2 x
     8 x 4 (generation up by one, seen by a session opened before the
@@ -190,11 +190,11 @@ Phases, each printing one JSON line:
     (``pack_rows`` one a step at least: the layout is assembled on the
     card); the peak device memory; every step read back ``torch.equal``
     to the field as it was at its submit;
-17b. async checkpoints at full width: qwen2.5-3b at 12 of its 36 layers
+17b. async checkpoints at full width: qwen2.5-3b at 6 of its 36 layers
     (``ASYNC_TRAIN_DEPTH``) trained for 2 steps by
     ``Trainer.run`` with an ``AsyncCheckpointer`` (``reorganized`` (4,
     4), 1 worker, queue depth 1) as its checkpoint manager, which stages
-    the params (14 f32 leaves, 4.94 GB) after each step; per save the
+    the params (14 f32 leaves, 3.09 GB) after each step; per save the
     stall, ``t_s``, ``t_w`` and stages, the recommendation (the direct
     write: a synchronous save of these params as phase 15 saves its tree,
     timed before the run), the launches of the run,
@@ -246,8 +246,9 @@ Phases, each printing one JSON line:
     ``torch.equal``, then 8 greedy tokens decoded from the restored state
     equal to those from the original; save and restore seconds, bytes,
     chunks and copy-kernel launches; the directory removed;
-21. the SSD and hybrid families trained at full width and depth, as
-    phase 11 trains qwen2.5-3b (2 x 2048 tokens, ``remat="dots"``, 4
+21. the SSD and hybrid families trained at full width (mamba2-780m at
+    ``SSM_TRAIN_DEPTH`` of its 48 layers, hymba-1.5b whole), as phase 11
+    trains qwen2.5-3b (2 x 2048 tokens, ``remat="dots"``, 4
     AdamW steps on one batch; the route comparison and a profiled step at
     2 layer steps a stacked segment): 21a mamba2-780m (no attention: no
     route comparison, and no flash kernel may launch), 21b hymba-1.5b (the
@@ -287,7 +288,41 @@ Phases, each printing one JSON line:
     ``XATTN_GATE``: 4 sm90 forward launches a bf16 prefill and 4 of the
     3xTF32 forward in the f32 comparison (the cross layer is plain
     attention), both route gaps under LOGIT_GAP, decode against forward
-    (< 0.05), and the phase's peak device memory under 80 GiB.
+    (< 0.05), and the phase's peak device memory under 80 GiB;
+25. MoE training: deepseek-moe-16b at full width and 4 of its 28 ``moe``
+    layers (2.77e9 f32 params), as phase 11 trains qwen2.5-3b: the f32
+    route comparison at 2 layers gated whole (GRAD_GAP_F32 per leaf); in
+    bf16 each layer's attention on the input the q-chunked route gave it
+    (``layer_attention_grad_gaps``: the backward kernels against their
+    plain versions at BWD_TOL, and the layer's input and weight gradients
+    of both routes within GRAD_GAP_BF16), the whole-model gaps and the
+    routing decisions that differ reported, not gated; 8 sm90 forward, 4
+    dq and 4 dkv launches a step, none else; peak under 80 GiB;
+26. the distributed slice in a world of 2 spawned ranks on the one card
+    (gloo over CUDA tensors, DTensor's collectives through the classic
+    c10d calls: ``classic_dtensor_collectives``): which
+    collectives gloo takes on CUDA tensors; (a) deepseek-moe-16b at full
+    width and 2 layers on mesh (data 1, model 2), ``dispatch="local"``,
+    f32, no remat: the seeded params placed by ``DEFAULT_RULES`` (8 of 16
+    heads, 32 of 64 experts and half the vocabulary a rank), one
+    ``make_train_step`` step, then rank 0 takes it without a mesh: the
+    loss within 1e-5 relative and every AdamW first moment (0.1 x the
+    clipped gradient), gathered, within 1e-4 of its max; each rank's
+    per-shard flash launches (the 3xTF32 kernels at 8 heads); then in
+    bf16 ``_flash_sharded`` at the model's attention shape, one sm90
+    forward, dq and dkv a rank at 8 heads, each rank's blocks within
+    BWD_TOL of the unsharded kernels'; (c) those params through
+    ``CheckpointManager`` under ``merged_process`` (rank 0 writes,
+    ``pack_rows`` merging), restored onto their placements, every rank's
+    block ``torch.equal`` to its own, and the blocks those
+    ``MeshSharding`` gives; (b) the model at 1 layer on mesh (data 2,
+    model 1): ``make_train_step_reduce_once`` with 2 microbatches of one
+    2048-token row on each rank against rank 0's unsharded gradients over
+    the same 4 rows (every leaf but the router's within 1e-4; the
+    router's gap reported), ``compressed_psum_tree`` on the attention and
+    router gradients bit-equal to the same call on CPU copies, and
+    ``reduce_scatter_then_gather`` equal to an all-reduce; the card's
+    memory in use, both ranks', under 75 GB.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -380,10 +415,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 #: steps (8 of 26 layers): the head_dim-256 kernels run at their real
 #: shapes, the launch counts follow the layer count
 GEMMA2_TRAIN_DEPTH = 4
-#: phase 11 trains qwen2.5-3b at its full width and 24 of its 36 layers,
-#: and phase 15 checkpoints that tree (a third smaller than the whole
-#: model's 37.03 GB); 17b trains and stages 12 of them
-QWEN_TRAIN_DEPTH, ASYNC_TRAIN_DEPTH = 24, 12
+#: phase 11 trains qwen2.5-3b at its full width and 6 of its 36 layers,
+#: and phase 15 checkpoints that tree (the whole model's is 37.03 GB); 17b
+#: trains and stages 6 of them.  (At 24 and 12 layers, a 25.93 GB
+#: checkpoint of 46-50 s and 23-36 s of staged saves, and at 12 and 6,
+#: the run did not fit its budget beside phases 25 and 26.)
+QWEN_TRAIN_DEPTH, ASYNC_TRAIN_DEPTH = 6, 6
+#: phase 21a trains mamba2-780m at its full width and 24 of its 48 layers
+SSM_TRAIN_DEPTH = 24
 #: AdamW for the training run.  Its first steps move each of the 3.1e9
 #: weights by about lr whatever its gradient's size; with a 2-step warmup
 #: to 3e-4 the loss went (6 steps) 12.25, 8.91, 16.65, 16.39, 17.93, 13.68 on the
@@ -401,6 +440,10 @@ FLASH_HYMBA_TRAIN = dict(FLASH_HYMBA, B=TRAIN_BATCH)
 #: encoder bidirectional, so every (q, k) pair is live
 FLASH_HUBERT = dict(B=TRAIN_BATCH, Hq=16, Hkv=16, L=TRAIN_SEQ, D=80,
                     causal=False, window=None, softcap=None)
+#: deepseek-moe-16b's training shape (phase 25): 16 heads of 128 over 16
+#: (MHA), causal
+FLASH_MOE_TRAIN = dict(B=TRAIN_BATCH, Hq=16, Hkv=16, L=TRAIN_SEQ, D=128,
+                       causal=True, window=None, softcap=None)
 #: llama-3.2-vision-90b's self layers at the serving shape (phase 24): 64
 #: q-heads over 8 kv-heads, head_dim 128
 FLASH_VLM = dict(B=4, Hq=64, Hkv=8, L=2048, D=128, causal=True,
@@ -1489,6 +1532,8 @@ def flash_timings(torch, dev) -> dict:
                            {"ms": flash_attention}),
            "vlm": timed(FLASH_VLM, torch.bfloat16, BF16_FLOPS,
                         {"ms": flash_attention}),
+           "moe_training": timed(FLASH_MOE_TRAIN, torch.bfloat16,
+                                 BF16_FLOPS, {"ms": flash_attention}),
            "f32_serving": timed(FLASH_MAIN, torch.float32, TF32X3_FLOPS,
                                 both, F32_FLOPS),
            "f32_training": timed(FLASH_TRAIN, torch.float32, TF32X3_FLOPS,
@@ -1833,7 +1878,12 @@ def check_training(trained: dict) -> None:
         raise AssertionError(f"bf16 gradients of the flash route differ "
                              f"from the q-chunked route's: "
                              f"{routes['bfloat16']['over_limit']}")
-    if not routes["bfloat16"]["loss_gap"] < LOSS_GAP_BF16:
+    if "layer_attention_grads" in routes["bfloat16"]:
+        # MoE: the bf16 gate is per layer (``layer_attention_grad_gaps``,
+        # which raised already); the whole-model gaps move with routing
+        # flips and are reported only
+        pass
+    elif not routes["bfloat16"]["loss_gap"] < LOSS_GAP_BF16:
         raise AssertionError(f"bf16 losses differ: {routes['bfloat16']}")
     want = dict.fromkeys(FLASH_KERNELS, 0)
     want[sm90_fwd] = n + trained["recomputed_layers"]
@@ -1900,17 +1950,26 @@ def compare_train_routes(torch, model, params, batch, dtypes) -> dict:
     counts = [c for _, c in model.cfg.program]
     names = _leaf_names(params)
     out = {}
+    moe = model.cfg.moe is not None
     for dtype in dtypes:
         f32 = dtype == torch.float32
+        # MoE in bf16: the routing decisions of both routes, and each
+        # layer's attention input on the q-chunked route
+        spy = moe and not f32
         with compute_dtype(dtype):
             before = K.launch_counts()
             with (device_profile() if f32
-                  else contextlib.nullcontext()) as prof:
+                  else contextlib.nullcontext()) as prof, \
+                    (routing_log(model.cfg) if spy
+                     else contextlib.nullcontext()) as picks_f:
                 fl, _, fg = value_and_grad(model, params, batch)
                 torch.cuda.synchronize()
             after = K.launch_counts()
             fg = tree_leaves(fg)
-            bl, _, bg = value_and_grad(base, params, batch)
+            with (routing_log(model.cfg) if spy
+                  else contextlib.nullcontext()) as picks_b, \
+                    attention_inputs(spy) as calls:
+                bl, _, bg = value_and_grad(base, params, batch)
         gaps = {}
         for name, a, b in zip(names, fg, tree_leaves(bg)):
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
@@ -1949,7 +2008,81 @@ def compare_train_routes(torch, model, params, batch, dtypes) -> dict:
                            if not v < limit}}
         if f32:
             r["profile"] = step_profile
+        if spy:
+            r.update(routing_differences(picks_f, picks_b,
+                                         model.cfg.moe.n_experts))
+            with compute_dtype(dtype):
+                r["layer_attention_grads"] = layer_attention_grad_gaps(
+                    torch, K, calls, flash_kernel("fwd", "sm90",
+                                                  model.cfg.head_dim))
+            del calls, picks_f, picks_b
     return out
+
+
+def layer_attention_grad_gaps(torch, K, calls, kernel) -> dict:
+    """The bf16 gate of a MoE model, whose whole-model gradients move with
+    routing flips, at every layer on its own input (each
+    captured self-attention call's ``ln1`` output): (1) the flash
+    backward kernels against their plain versions on that layer's q, k, v
+    and a seeded dO (``_bwd_case``: BWD_TOL, one dq and one dkv launch a
+    layer); (2) the layer's attention on both routes from that input and
+    one seeded cotangent: d(input) and d(wq, wk, wv, wo), each as max |d|
+    / max |q-chunked|, held to GRAD_GAP_BF16 (bf16 products summed over
+    the tokens, which each route rounds on its own), each flash backward
+    one launch of the forward ``kernel`` and of its dq and dkv."""
+    from repro_torch.models.attention import (_project_kv, _project_q,
+                                              _rope_heads, attn_forward)
+    gen = torch.Generator(device=calls[0][1].device).manual_seed(SEED + 9)
+    D = calls[0][2]["head_dim"]
+    dq, dkv = flash_kernel("dq", "sm90", D), flash_kernel("dkv", "sm90", D)
+    gaps, worst, kernel_err = [], {}, []
+    for i, (p, x, kw) in enumerate(calls):
+        x = x.detach()
+        with torch.no_grad():
+            q = _project_q(p, x)
+            k, v = _project_kv(p, x)
+            if kw["use_rope"]:
+                q, k = (_rope_heads(t, kw["positions"], kw["rope_theta"],
+                                    kw["rotary_dim"]) for t in (q, k))
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kernel_err.append(_bwd_case(torch, q, k, v, kw["causal"],
+                                    kw["window"], kw["attn_cap"], gen)[:3])
+        del q, k, v
+        cot = torch.randn(x.shape, generator=gen, device=x.device
+                          ).to(x.dtype)
+        leaf = {n: p[n].detach() for n in ("wq", "wk", "wv", "wo")}
+        got = {}
+        for flash in (True, False):
+            xs = x.clone().requires_grad_()
+            ps = {n: t.clone().requires_grad_() for n, t in leaf.items()}
+            before = K.launch_counts()
+            with torch.enable_grad():
+                y = attn_forward(dict(p, **ps), xs, **dict(kw, flash=flash))
+                torch.autograd.backward(y, cot)
+            ran = flash_deltas(before, K.launch_counts())
+            want = {n: int(flash and n in (kernel, dq, dkv))
+                    for n in FLASH_KERNELS}
+            if ran != want:
+                raise AssertionError(f"layer {i}: launched {ran}")
+            got[flash] = {"x": xs.grad, **{n: t.grad for n, t in ps.items()}}
+        layer = {n: float((got[True][n] - got[False][n]).abs().max()
+                          / got[False][n].abs().max())
+                 for n in got[True]}
+        gaps.append(layer)
+        for n, g in layer.items():
+            worst[n] = max(worst.get(n, 0.0), g)
+    over = {i: g for i, g in enumerate(gaps)
+            if not max(g.values()) < GRAD_GAP_BF16}
+    if not gaps or over:
+        raise AssertionError(f"per-layer attention gradient gaps over "
+                             f"{GRAD_GAP_BF16}: {over} of {len(gaps)} "
+                             f"layers")
+    return {"layers": len(gaps), "gap_max": max(worst.values()),
+            "gap_max_by_tensor": worst, "gaps": gaps, "bound": GRAD_GAP_BF16,
+            "kernel_max_abs_err": {
+                n: max(e[j] for e in kernel_err)
+                for j, n in enumerate(("dq", "dk", "dv"))},
+            "kernel_tol": BWD_TOL["bfloat16"]}
 
 
 def _leaf_names(tree, prefix="") -> list:
@@ -2120,7 +2253,9 @@ def bwd_timings(torch, dev) -> dict:
                                 "_f32tc"),
             "hymba": shape(FLASH_HYMBA_TRAIN, torch.bfloat16, BF16_FLOPS, ""),
             "hubert": shape(FLASH_HUBERT, torch.bfloat16, BF16_FLOPS, "",
-                            simt=False)}
+                            simt=False),
+            "moe": shape(FLASH_MOE_TRAIN, torch.bfloat16, BF16_FLOPS, "",
+                         simt=False)}
 
 
 # -- driver --------------------------------------------------------------------
@@ -2328,13 +2463,15 @@ def checkpoint(torch, dev, K, state: dict) -> dict:
 #: paper's aspect, §5.2's 2048 x 4096 x 4096 f32 cut 64 ways in volume (2
 #: GiB), in 64 x 64 x 128 boxes over the slice-1 ranks; reorganized out of
 #: place to the default 4 x 4 x 4 scheme (64 chunks of 32 MiB), then in
-#: place to 2 x 8 x 4; the Fig.-6 patterns read by 8 readers.  The 2-D cell
-#: is slice 1's component reorganized to 8 x 8
+#: place to 2 x 8 x 4; the Fig.-6 patterns read by 4 readers (the best of
+#: their 6 decompositions: 8 readers have 10, each a whole read, which
+#: the run's time limit could not pay for).  The 2-D cell is slice 1's
+#: component reorganized to 8 x 8
 REORG_FIELD = (512, 1024, 1024)
 REORG_BOX = (64, 64, 128)
 REORG_SCHEMES = ((4, 4, 4), (2, 8, 4))
 REORG_2D = (8, 8)
-PATTERN_READERS = 8
+PATTERN_READERS = 4
 #: the 3-D component's access history after phase 16's pattern reads,
 #: exported as phase 17a's cross-run prior
 STAGING_PRIOR = ROOT / "build" / "chip_smoke" / "warpx_prior.json"
@@ -3169,9 +3306,11 @@ def _fleet(dst: Path, kill_at) -> dict:
         if kill_at is not None:
             while killed is None:
                 reached = sorted(bdir.glob(f"*.{kill_at}.reached"))
-                if reached:
+                # a marker's pid is written just after the file appears
+                pid = reached[0].read_text().strip() if reached else ""
+                if pid:
                     killed = reached[0].name.split(".")[0]
-                    os.kill(int(reached[0].read_text()), signal.SIGKILL)
+                    os.kill(int(pid), signal.SIGKILL)
                     procs[killed].join(timeout=10.0)
                     t_kill = time.time() - t0
                     (bdir / f"go.{kill_at}").touch()
@@ -3758,6 +3897,761 @@ def serve_vlm(torch, dev, K) -> dict:
     return out
 
 
+# -- phase 25 ------------------------------------------------------------------
+
+#: phase 25 trains deepseek-moe-16b at full width and 4 of its 28 ``moe``
+#: layers (2.77e9 f32 params; with grads and AdamW's m and v about 44 GB)
+MOE_TRAIN_DEPTH = 4
+
+
+def train_moe(torch, dev, K) -> dict:
+    """25: ``train`` on deepseek-moe-16b cut to MOE_TRAIN_DEPTH layers
+    (phase 11's traffic), then ``check_training``: the f32 route
+    comparison gated whole (GRAD_GAP_F32 per leaf), the bf16 one per layer
+    (``layer_attention_grad_gaps``) with the whole-model gaps and the
+    routing decisions that differ reported; the phase's peak device
+    memory under CARD_BYTES."""
+    torch.cuda.reset_peak_memory_stats()
+    out = train(torch, dev, K, MOE_ARCH, depth=MOE_TRAIN_DEPTH)
+    out["phase_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    check_training(out)
+    if "layer_attention_grads" not in out["flash_vs_q_chunked"]["bfloat16"]:
+        raise AssertionError("the MoE bf16 comparison ran no per-layer "
+                             "attention gate")
+    if out["phase_peak_memory_bytes"] >= CARD_BYTES:
+        raise AssertionError(f"{MOE_ARCH} training peaked at "
+                             f"{out['phase_peak_memory_bytes']} bytes")
+    return out
+
+
+# -- phase 26 ------------------------------------------------------------------
+
+#: phase 26: a world of DIST_WORLD ranks on the one card (gloo: NCCL
+#: refuses two ranks on one device), each a spawned process on cuda:0
+DIST_WORLD, DIST_WAIT_S = 2, 600.0
+#: (a) deepseek-moe-16b at full width on mesh (data 1, model 2) at
+#: DIST_DEPTH_A layer steps, local dispatch, f32; (b) on mesh (data 2,
+#: model 1) at DIST_DEPTH_B, ``make_train_step_reduce_once`` with
+#: DIST_ACCUM microbatches of one row on each data rank
+DIST_DEPTH_A, DIST_DEPTH_B, DIST_ACCUM = 2, 1, 2
+#: gates: the loss (relative) and each gradient leaf (max |d| / max |oracle|)
+DIST_LOSS_GAP, DIST_GRAD_GAP = 1e-5, 1e-4
+#: the card's memory in use by all the phase's processes
+DIST_MEM_BYTES = 75e9
+#: the collectives the probe tries on CUDA tensors over gloo
+DIST_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single", "broadcast")
+
+
+def _probe_collectives(torch, dist, dev) -> dict:
+    """Which collectives gloo takes on CUDA tensors: each tried once on a
+    small tensor, its result checked; the error where it refuses."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    x = torch.arange(4 * world, dtype=torch.float32, device=dev) + rank
+    want = {"all_reduce": (x.cpu() * 0 + sum(
+        torch.arange(4 * world, dtype=torch.float32) + r
+        for r in range(world)))}
+    for name in DIST_COLLECTIVES:
+        try:
+            if name == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = torch.equal(y.cpu(), want["all_reduce"])
+            elif name == "all_gather_into_tensor":
+                y = torch.empty(x.numel() * world, device=dev)
+                dist.all_gather_into_tensor(y, x)
+                ok = torch.equal(y[rank * x.numel():(rank + 1) * x.numel()],
+                                 x)
+            elif name == "reduce_scatter_tensor":
+                y = torch.empty(x.numel() // world, device=dev)
+                dist.reduce_scatter_tensor(y, x)
+                n = x.numel() // world
+                ok = torch.equal(y.cpu(), want["all_reduce"][
+                    rank * n:(rank + 1) * n])
+            elif name == "all_to_all_single":
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x)
+                n = x.numel() // world
+                ok = torch.equal(y[:n].cpu(), (torch.arange(
+                    rank * n, (rank + 1) * n, dtype=torch.float32)))
+            else:
+                y = x.clone()
+                dist.broadcast(y, 0)
+                ok = torch.equal(y.cpu(), (torch.arange(
+                    4 * world, dtype=torch.float32)))
+            out[name] = "ok" if ok else "wrong result"
+        except Exception as e:              # noqa: BLE001 - the probe's answer
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def _leaf_gaps(got: dict, want: dict) -> dict:
+    """max |got - want| / max |want| of each leaf."""
+    return {n: float((got[n] - want[n]).abs().max()
+                     / want[n].abs().max().clamp_min(1e-30)) for n in want}
+
+
+def _sharded_flash_bf16(torch, dev, K, mesh, rank: int, shape) -> dict:
+    """26a in bf16: ``_flash_sharded`` forward and backward on seeded bf16
+    q, k, v, dO of ``shape`` (B, H, L, D), causal, placed by DEFAULT_RULES
+    on ``mesh`` (the heads split over ``"model"``: the sm90 kernels run on
+    each rank's H / 2 heads), launches counted around it; then the
+    unsharded kernels on the same whole tensors, uncounted, and each
+    leaf's gap on this rank's block (max |d| / max |unsharded|)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.checkpoint.blocks_map import (MeshDevice,
+                                                   dtensor_sharding)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import _flash_sharded
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    with shd.use_sharding(mesh, shd.DEFAULT_RULES) as ctx:
+        pl = ctx.placements(("batch", "act_heads", None, None), shape)
+        tq, tk, tv = (distribute_tensor(t, mesh, pl, src_data_rank=None)
+                      .requires_grad_() for t in (q, k, v))
+        tdo = distribute_tensor(do, mesh, pl, src_data_rank=None)
+        _sync(torch, dev)
+        K.reset_launch_counts()
+        with shd.replicate_plain():
+            o = _flash_sharded(tq, tk, tv, scale, True, None, None, 256)
+            o.backward(tdo)
+        _sync(torch, dev)
+        launches = K.launch_counts()
+    idx = dtensor_sharding(o).devices_indices_map(shape)[MeshDevice(rank)]
+    got = {"o": o.to_local(), "dq": tq.grad.to_local(),
+           "dk": tk.grad.to_local(), "dv": tv.grad.to_local()}
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    whole = flash_attention(q, k, v, scale, True, None, None, 256, 256)
+    whole.backward(do)
+    want = {"o": whole.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    gaps = _leaf_gaps({n: t.float() for n, t in got.items()},
+                      {n: t[idx].float() for n, t in want.items()})
+    return {"shape": list(shape), "local_heads": got["o"].shape[1],
+            "launches": launches, "gaps": gaps,
+            "bit_equal": all(torch.equal(got[n], want[n][idx])
+                             for n in got)}
+
+
+def _mem_used(torch, dev) -> int:
+    """The card's memory in use by every process (``mem_get_info``; 0 on
+    the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+# DTensor's collectives through the classic c10d calls: the harness's
+# two ranks share one card, so their world is gloo over CUDA tensors
+
+def _classic_ops(dist):
+    return {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.AVG,
+            "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+            "product": dist.ReduceOp.PRODUCT}
+
+
+def _classic_group(group, tag=""):
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    if isinstance(group, dist.ProcessGroup):
+        return group
+    return _resolve_process_group(funcol._resolve_group_name(group, tag))
+
+
+def _classic_all_reduce(self, reduceOp, group, tag=""):
+    import torch
+    import torch.distributed as dist
+    out = self.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=_classic_ops(dist)[reduceOp.lower()],
+                    group=_classic_group(group, tag))
+    return out
+
+
+def _classic_all_gather(self, gather_dim, group, tag=""):
+    import torch
+    import torch.distributed as dist
+    pg = _classic_group(group, tag)
+    x = self.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(pg))]
+    dist.all_gather(parts, x, group=pg)
+    return torch.cat(parts, dim=gather_dim)
+
+
+def _classic_reduce_scatter(self, reduceOp, scatter_dim, group, tag=""):
+    import torch.distributed as dist
+    pg = _classic_group(group, tag)
+    x = self.movedim(scatter_dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(pg),)
+                      + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, op=_classic_ops(dist)[
+        reduceOp.lower()], group=pg)
+    return out.movedim(0, scatter_dim).contiguous()
+
+
+def _classic_all_to_all_single(self, output_split_sizes, input_split_sizes,
+                               group, tag=""):
+    import torch.distributed as dist
+    pg = _classic_group(group, tag)
+    x = self.contiguous()
+    rows = sum(output_split_sizes) if output_split_sizes else x.shape[0]
+    out = x.new_empty((rows,) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes, input_split_sizes,
+                           group=pg)
+    return out
+
+
+def _classic_shard_dim_alltoall(input, gather_dim, shard_dim, mesh,
+                                mesh_dim):
+    # as DTensor does it on the CPU: the gather, then this rank's block
+    out = _classic_all_gather(input, gather_dim, (mesh, mesh_dim))
+    return out.chunk(mesh.size(mesh_dim), dim=shard_dim)[
+        mesh.get_local_rank(mesh_dim)].contiguous()
+
+
+@contextlib.contextmanager
+def classic_dtensor_collectives():
+    """DTensor's redistributions through the classic, synchronous c10d
+    calls (``all_reduce``, ``all_gather`` of a list,
+    ``reduce_scatter_tensor``, ``all_to_all_single``) instead of its
+    functional collectives, for the duration of the block.  On torch 2.11
+    the functional collectives segfault on CUDA tensors over gloo (in
+    their ``wait_tensor``), the backend of phase 26's two ranks on one
+    card; the classic calls work there.  No collective leaves the
+    tensors' device."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import _collective_utils as cu
+    swaps = {"all_reduce": _classic_all_reduce,
+             "all_gather_tensor": _classic_all_gather,
+             "all_gather_single": _classic_all_gather,
+             "reduce_scatter_tensor": _classic_reduce_scatter,
+             "reduce_scatter_single": _classic_reduce_scatter,
+             "all_to_all_single": _classic_all_to_all_single}
+    saved = []
+    for name, fn in swaps.items():
+        if hasattr(funcol, name):
+            saved.append((funcol, name, getattr(funcol, name)))
+            setattr(funcol, name, fn)
+    original = cu.shard_dim_alltoall
+    for mod in list(sys.modules.values()):       # imported by name too
+        if getattr(mod, "__name__", "").startswith("torch.distributed") \
+                and getattr(mod, "shard_dim_alltoall", None) is original:
+            saved.append((mod, "shard_dim_alltoall", original))
+            setattr(mod, "shard_dim_alltoall", _classic_shard_dim_alltoall)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def dist_worker(rank: int, queue, go, init: str, ckpt_root: str,
+                device: str = "cuda", smoke: bool = False) -> None:
+    """A rank of phase 26's world: gloo over CUDA tensors on cuda:0.
+    (a) deepseek-moe-16b cut to DIST_DEPTH_A, ``dispatch="local"``, f32:
+    first the oracle, the step's gradients without a mesh, on each rank at
+    once, made into the first AdamW step's first moments (0.1 x the
+    clipped gradient); then the seeded params placed by DEFAULT_RULES on
+    mesh (data 1, model 2) and the same step (launch counts reset just
+    before it), each rank's blocks of the first moments held to the
+    oracle's (the maxima over the ranks: the whole leaf's gap); then
+    ``_sharded_flash_bf16`` on the same mesh.  (c)
+    ``CheckpointManager.save`` of the stepped sharded params under
+    ``merged_process`` (rank 0 writes), then ``restore`` onto the params'
+    placements (each rank reads its own blocks), every leaf's block
+    ``torch.equal`` to the rank's own.  (b) the model cut to DIST_DEPTH_B
+    on mesh (data 2, model 1): ``make_train_step_reduce_once``'s reduced
+    gradients over DIST_ACCUM microbatches of each rank's rows;
+    ``compressed_psum_tree`` on the attention and router gradients, on
+    the card and on CPU copies through the same gloo world, bit-equal;
+    ``reduce_scatter_then_gather`` of one leaf against its all_reduce;
+    rank 0's oracle, the same 4 rows one a microbatch without a mesh on
+    its own replica; then AdamW on each replica.
+    The rank imports and joins the world at once, then waits for ``go``
+    (an event the parent sets when the card is free) before it touches
+    the card.  Puts its results on ``queue``; any exception is put there
+    too and ends the rank with exit code 1.  With ``smoke`` (and
+    ``device="cpu"`` where there is no card) the same at the smoke
+    config's width and a batch of 64 tokens a row:
+    ``tests/test_torch_cuda.py`` runs it so on the card."""
+    import faulthandler
+    import os
+    t_enter = time.time()
+    # each stage as it starts, on a file of the rank's own: the parent
+    # shows the last ones of a rank that died without a report
+    trail = open(Path(ckpt_root).parent / f"rank{rank}.trail", "w")
+    faulthandler.enable(trail)
+
+    def mark(stage: str) -> None:
+        mark.stages.append((stage, time.time() - t_enter))
+        trail.write(f"{mark.stages[-1][1]:.3f} {stage}\n")
+        trail.flush()
+    mark.stages = []
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    try:
+        with classic_dtensor_collectives():
+            res = _dist_world(rank, go, init, ckpt_root, device, smoke,
+                              mark, t_enter)
+        queue.put(res)
+        dist.destroy_process_group()
+    except BaseException as e:               # noqa: BLE001 - reported
+        import traceback
+        queue.put({"rank": rank, "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-4000:]})
+        queue.close()
+        queue.join_thread()         # the message out before the exit
+        os._exit(1)
+
+
+def _dist_world(rank, go, init, ckpt_root, device, smoke, mark, t_enter):
+    """``dist_worker``'s body (DTensor's collectives on the classic c10d
+    calls: ``classic_dtensor_collectives``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    import repro_torch.kernels as K
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import (
+        compressed_psum_tree, reduce_scatter_then_gather)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.params import shardings
+    from repro_torch.train import (OptimizerConfig, adamw_init,
+                                   global_norm, make_train_step,
+                                   make_train_step_reduce_once)
+    from repro_torch.train.trainer import place_batch, value_and_grad
+    from repro_torch.checkpoint.blocks_map import (MeshDevice,
+                                                   blocks_from_sharding,
+                                                   dtensor_sharding,
+                                                   flatten_pytree)
+    from repro_torch.configs import get_smoke_config
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seq = 64 if smoke else TRAIN_SEQ
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=DIST_WORLD)
+    # both meshes (their process groups) while the earlier phases run
+    tp_mesh = make_mesh((1, DIST_WORLD), ("data", "model"), dev.type)
+    dp_mesh = make_mesh((DIST_WORLD, 1), ("data", "model"), dev.type)
+    t_import = time.time()
+    mark("joined")
+    if not go.wait(DIST_WAIT_S):
+        raise TimeoutError("the parent never freed the card")
+    t_go = time.time()
+    mark("probe")
+    res = {"rank": rank, "collectives": _probe_collectives(
+        torch, dist, dev)}
+    mem = [_mem_used(torch, dev)]
+    base = dataclasses.replace((get_smoke_config if smoke else
+                                get_config)(MOE_ARCH), flash=True)
+    if smoke:       # the full config's remat and loss chunking
+        base = dataclasses.replace(base, remat="dots", loss_chunk=32,
+                                   flash_block=32)
+    opt_cfg = OptimizerConfig(**TRAIN_OPT)
+
+    def host_batch(rows):
+        b = next(SyntheticTokens(PipelineConfig(
+            global_batch=rows, seq_len=seq, vocab=base.vocab,
+            seed=SEED, frontend=base.frontend, d_model=base.d_model)))
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    def free():
+        _sync(torch, dev)
+        mem.append(_mem_used(torch, dev))
+
+    mark("a: init")
+    # (a) tensor and expert parallel: mesh (data 1, model 2).  No
+    # remat: torch 2.11 segfaulted in the recompute of a DTensor layer
+    # on the backward's device thread
+    cfg = cut_depth(dataclasses.replace(base, remat="none",
+                                        moe=dataclasses.replace(
+                                            base.moe, dispatch="local")),
+                    DIST_DEPTH_A)
+    model = LM(cfg, device=dev)
+    batch = host_batch(TRAIN_BATCH)
+    # the oracle first, on each rank at once: the same gradients without
+    # a mesh, made into the first AdamW step's first moments as
+    # ``adamw_update`` makes them ((1 - b1) x the clipped gradient); each
+    # rank holds its own blocks to them, so no gradient crosses ranks
+    t0 = time.perf_counter()
+    with compute_dtype(torch.float32):
+        params = training_params(model, torch.Generator(device=dev)
+                                 .manual_seed(SEED))
+        ref_loss, _, grads = value_and_grad(model, params, batch)
+        mem.append(_mem_used(torch, dev))
+    del params
+    with torch.no_grad():
+        gn = global_norm(grads)
+        clip = torch.clamp(opt_cfg.grad_clip / (gn + 1e-9), max=1.0)
+        oracle_m = {n: g.mul_(clip).mul_(1 - opt_cfg.b1)
+                    for n, g in flatten_pytree(grads).items()}
+    ref_loss = float(ref_loss)
+    del grads
+    free()
+    oracle_s = time.perf_counter() - t0
+    mark("a: init")
+    t0 = time.perf_counter()
+    mesh = tp_mesh
+    with compute_dtype(torch.float32), \
+            shd.use_sharding(mesh, shd.DEFAULT_RULES):
+        params = training_params(model, torch.Generator(device=dev)
+                                 .manual_seed(SEED))
+        opt = adamw_init(params)
+        mem.append(_mem_used(torch, dev))
+        mark("a: step")
+        step = make_train_step(model, opt_cfg)
+        _sync(torch, dev)
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        params, opt, metrics = step(params, opt, place_batch(batch))
+        _sync(torch, dev)
+        step_s = time.perf_counter() - t1
+        launches = K.launch_counts()
+        mem.append(_mem_used(torch, dev))
+        mark("a: compare")
+        loss = float(metrics["loss"].to_local())
+        # max |d| and max |oracle| of each leaf over this rank's block,
+        # then the maxima over the ranks: the whole leaf's gap
+        names = list(oracle_m)
+        stats = torch.zeros(len(names), 2, dtype=torch.float64,
+                            device=dev)
+        for i, (n, t) in enumerate(flatten_pytree(opt["m"]).items()):
+            idx = dtensor_sharding(t).devices_indices_map(t.shape)[
+                MeshDevice(rank)]
+            want = oracle_m[n][idx]
+            stats[i, 0] = (t.to_local() - want).abs().max()
+            stats[i, 1] = want.abs().max()
+        dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+        gaps = dict(zip(names, (stats[:, 0] / stats[:, 1].clamp_min(
+            1e-30)).tolist()))
+        del oracle_m
+        local_params = sum(t.to_local().numel() for t in
+                           flatten_pytree(params).values())
+        spec_blocks = sum(len(blocks_from_sharding(d.shape, sh))
+                          for d, sh in zip(
+                              flatten_pytree(model.skeleton()).values(),
+                              flatten_pytree(shardings(
+                                  model.skeleton())).values())
+                          if len(d.shape))
+    res["a"] = {"mesh": [1, DIST_WORLD], "layers": cfg.n_layers,
+                "head_dim": cfg.head_dim,
+                "params": model.num_params(),
+                "local_params": local_params, "loss": loss,
+                "step_seconds": step_s,
+                "setup_seconds": t1 - t0,
+                "launches": launches, "oracle_loss": ref_loss,
+                "loss_gap": abs(loss - ref_loss) / abs(ref_loss),
+                "grad_gap_max": max(gaps.values()),
+                "grad_gaps_largest": dict(sorted(
+                    gaps.items(), key=lambda kv: -kv[1])[:6]),
+                "leaves": len(gaps), "oracle_seconds": oracle_s}
+    mark("a: bf16 flash")
+    res["a"]["bf16_flash"] = _sharded_flash_bf16(
+        torch, dev, K, tp_mesh, rank,
+        (TRAIN_BATCH, cfg.n_heads, seq, cfg.head_dim))
+    mark("c: save")
+    # (c) the sharded params through the checkpoint
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    mgr = CheckpointManager(ckpt_root, strategy="merged_process",
+                            device=dev)
+    stats = mgr.save(0, params)
+    save_launches = K.launch_counts()["pack_rows"]
+    t1 = time.perf_counter()
+    K.reset_launch_counts()
+    got, _ = mgr.restore(0, template=params)     # each rank its blocks
+    restore_launches = K.launch_counts()["pack_rows"]
+    restore_s = time.perf_counter() - t1
+    equal = all(torch.equal(g.to_local(), t.to_local())
+                and g.placements == t.placements
+                for g, t in zip(flatten_pytree(got).values(),
+                                flatten_pytree(params).values()))
+    del got
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    res["c"] = {"saved_bytes": stats.bytes,
+                "blocks": stats.num_original_blocks,
+                "mesh_sharding_blocks": spec_blocks,
+                "chunks": stats.num_chunks,
+                "save_seconds": stats.seconds,
+                "restore_seconds": restore_s,
+                "pack_rows_save": save_launches,
+                "pack_rows_restore": restore_launches,
+                "restored_equal": equal,
+                "seconds": time.perf_counter() - t0}
+    del params, opt, metrics, step
+    dist.barrier()
+    free()
+
+    mark("b: init")
+    # (b) data parallel, reduce once: mesh (data 2, model 1)
+    cfg = cut_depth(base, DIST_DEPTH_B)
+    model = LM(cfg, device=dev)
+    rows = TRAIN_BATCH * DIST_WORLD // 2 * DIST_ACCUM
+    batch = host_batch(rows)
+    t0 = time.perf_counter()
+    mesh = dp_mesh
+    with compute_dtype(torch.float32), \
+            shd.use_sharding(mesh, shd.DEFAULT_RULES):
+        params = training_params(model, torch.Generator(device=dev)
+                                 .manual_seed(SEED))
+        opt = adamw_init(params)
+        mark("b: step")
+        step = make_train_step_reduce_once(model, opt_cfg, DIST_ACCUM,
+                                           mesh)
+        _sync(torch, dev)
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        loss, metrics, grads = step.grads(params, batch)
+        _sync(torch, dev)
+        grads_s = time.perf_counter() - t1
+        launches_b = K.launch_counts()
+        mem.append(_mem_used(torch, dev))
+        flat_g = flatten_pytree(grads)
+        mark("b: collectives")
+        small = {n: g for n, g in flat_g.items()
+                 if "/attn/" in n or n.endswith("/router")}
+        t1 = time.perf_counter()
+        on_card, fb_card = compressed_psum_tree(small, dist.group.WORLD)
+        on_host, fb_host = compressed_psum_tree(
+            {n: g.cpu() for n, g in small.items()}, dist.group.WORLD)
+        compressed = {"leaves": len(small),
+                      "elements": sum(g.numel() for g in small.values()),
+                      "bit_equal": all(
+                          torch.equal(on_card[n].cpu(), on_host[n])
+                          and torch.equal(fb_card[n].cpu(), fb_host[n])
+                          for n in small),
+                      "seconds": time.perf_counter() - t1}
+        leaf = flat_g["segments/0/attn/wq"]
+        shard_, gather = reduce_scatter_then_gather(leaf,
+                                                    dist.group.WORLD)
+        summed = leaf.clone()
+        dist.all_reduce(summed)
+        rs_equal = torch.equal(gather(shard_), summed)
+        del on_card, fb_card, on_host, fb_host, small, shard_, summed
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import adamw_update
+
+    def mine(t):
+        return t.to_local()
+    replica = tree_map(mine, params)        # this rank's whole copy
+    res["b"] = {"mesh": [DIST_WORLD, 1], "layers": cfg.n_layers,
+                "params": model.num_params(), "rows": rows,
+                "grad_accum": DIST_ACCUM, "loss": float(loss),
+                "grads_seconds": grads_s, "setup_seconds": t1 - t0,
+                "launches": launches_b, "compressed_psum": compressed,
+                "reduce_scatter_equals_all_reduce": rs_equal}
+    mark("b: oracle")
+    if rank == 0:       # the oracle: no mesh, the same 4 rows, 1 a step
+        t0 = time.perf_counter()
+        with compute_dtype(torch.float32):
+            g = tree_map(torch.zeros_like, replica)
+            losses = []
+            n = rows // (DIST_WORLD * DIST_ACCUM)
+            for i in range(DIST_WORLD * DIST_ACCUM):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                losses.append(value_and_grad(model, replica, mb, g)[0])
+            mem.append(_mem_used(torch, dev))
+        want = {nm: t / (DIST_WORLD * DIST_ACCUM)
+                for nm, t in flatten_pytree(g).items()}
+        ref_loss = float(sum(losses)) / len(losses)
+        gaps = _leaf_gaps(flat_g, want)
+        router = {nm: v for nm, v in gaps.items()
+                  if nm.endswith("/router")}
+        rest = {nm: v for nm, v in gaps.items() if nm not in router}
+        res["b"].update(
+            oracle_loss=ref_loss,
+            loss_gap=abs(float(loss) - ref_loss) / abs(ref_loss),
+            grad_gap_max=max(rest.values()), router_gap=router,
+            grad_gaps_largest=dict(sorted(rest.items(),
+                                          key=lambda kv: -kv[1])[:6]),
+            oracle_seconds=time.perf_counter() - t0)
+        del g, want
+    dist.barrier()
+    # the step itself: AdamW on the reduced gradients, on each replica
+    t1 = time.perf_counter()
+    adamw_update(opt_cfg, grads, {
+        "m": tree_map(mine, opt["m"]), "v": tree_map(mine, opt["v"]),
+        "count": opt["count"]}, replica)
+    _sync(torch, dev)
+    res["b"]["update_seconds"] = time.perf_counter() - t1
+    del params, opt, grads, flat_g, leaf, metrics, replica
+    dist.barrier()
+    free()
+    dist.barrier()
+    free()
+    mark("done")
+    res.update(stages=dict(mark.stages),
+               peak_allocated=torch.cuda.max_memory_allocated()
+               if dev.type == "cuda" else 0,
+               mem_used_max=max(mem), t_enter=t_enter,
+               t_import=t_import, t_go=t_go,
+               t_done=time.time())
+    return res
+
+
+def start_world(dev, smoke: bool = False) -> dict:
+    """Spawn phase 26's ranks (``dist_worker``): they import and join the
+    world while earlier phases run, and wait for ``distributed`` to set
+    their ``go`` event before they touch the card."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue, go = ctx.Queue(), ctx.Event()
+    work = ROOT / "build" / "chip_smoke" / ("dist_smoke" if smoke
+                                            else "dist")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    init = f"file://{work / 'store'}"
+    procs = [ctx.Process(target=dist_worker, args=(
+        r, queue, go, init, str(work / "ckpt"), dev.type, smoke),
+        daemon=True) for r in range(DIST_WORLD)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    return {"procs": procs, "queue": queue, "go": go, "work": work,
+            "t0": t0}
+
+
+def distributed(torch, dev, K, smoke: bool = False, world=None) -> dict:
+    """26: the distributed slice in a world of DIST_WORLD spawned ranks on
+    the one card (``dist_worker``; ``world`` from ``start_world`` if the
+    ranks were started early), then its gates: every rank ended without
+    error; (a) loss within DIST_LOSS_GAP, every gradient leaf within
+    DIST_GRAD_GAP of the oracle's, each rank's per-shard flash launches;
+    (b) every leaf but the router's within DIST_GRAD_GAP, the compressed
+    sum bit-equal to the CPU's, the reduce-scatter + gather equal to the
+    all-reduce; (c) every restored block equal, the blocks those
+    MeshSharding gives; the card's memory in use (all processes) under
+    75 GB."""
+    world = world or start_world(dev, smoke)
+    procs, queue, work = world["procs"], world["queue"], world["work"]
+    t0 = time.time()
+    world["go"].set()
+    deadline = time.monotonic() + DIST_WAIT_S
+    ranks = []
+    try:
+        while len(ranks) < DIST_WORLD:
+            try:
+                r = queue.get(timeout=1.0)
+            except Exception:           # noqa: BLE001 - queue.Empty
+                dead = {i: p.exitcode for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)}
+                if dead or time.monotonic() > deadline:
+                    trails = {i: (work / f"rank{i}.trail").read_text()[:3000]
+                              for i in range(DIST_WORLD)
+                              if (work / f"rank{i}.trail").exists()}
+                    raise AssertionError(
+                        (f"ranks died without a report (exit codes "
+                         f"{dead})" if dead else
+                         "the world outlived its deadline")
+                        + f"; their trails: {trails}")
+                continue
+            if "error" in r:
+                raise AssertionError(f"rank {r['rank']} failed: "
+                                     f"{r['error']}\n{r['traceback']}")
+            ranks.append(r)
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        bad = [p.exitcode for p in procs if p.exitcode != 0]
+        if bad:
+            raise AssertionError(f"ranks exited with {bad}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+        shutil.rmtree(work, ignore_errors=True)
+    ranks.sort(key=lambda r: r["rank"])
+    for r in ranks:
+        r["spawn_import_seconds"] = r.pop("t_import") - world["t0"]
+        r["waited_seconds"] = r["t_go"] - r["spawn_import_seconds"] \
+            - world["t0"]
+        r["work_seconds"] = r.pop("t_done") - r.pop("t_go")
+        r.pop("t_enter")
+    r0 = ranks[0]
+    a, b, c = r0["a"], r0["b"], r0["c"]
+    out = {"world": DIST_WORLD, "backend": "gloo", "ranks": ranks,
+           "wall_seconds": time.time() - t0,
+           "mem_used_max": max(r["mem_used_max"] for r in ranks),
+           "peak_allocated_sum": sum(r["peak_allocated"] for r in ranks)}
+    fails = []
+    if any(v != "ok" for r in ranks for k, v in r["collectives"].items()
+           if k in ("all_reduce", "all_gather_into_tensor")):
+        fails.append("gloo refused a collective the slice needs")
+    if not a["loss_gap"] < DIST_LOSS_GAP:
+        fails.append(f"(a) loss gap {a['loss_gap']}")
+    if not a["grad_gap_max"] < DIST_GRAD_GAP:
+        fails.append(f"(a) gradient gaps {a['grad_gaps_largest']}")
+    if not b["grad_gap_max"] < DIST_GRAD_GAP:
+        fails.append(f"(b) gradient gaps {b['grad_gaps_largest']}")
+    if not all(r["b"]["compressed_psum"]["bit_equal"] for r in ranks):
+        fails.append("(b) compressed_psum_tree differs from the CPU's")
+    if not all(r["b"]["reduce_scatter_equals_all_reduce"] for r in ranks):
+        fails.append("(b) reduce_scatter_then_gather differs")
+    if not all(r["c"]["restored_equal"] for r in ranks):
+        fails.append("(c) a restored block differs: ranks "
+                     + str([r["rank"] for r in ranks
+                            if not r["c"]["restored_equal"]]))
+    if c["blocks"] != c["mesh_sharding_blocks"]:
+        fails.append(f"(c) {c['blocks']} blocks, MeshSharding gives "
+                     f"{c['mesh_sharding_blocks']}")
+    if dev.type == "cuda" and not (c["pack_rows_save"]
+                                   and c["pack_rows_restore"]):
+        fails.append(f"(c) pack_rows launches {c}")
+    # f32 compute: each shard's attention on the 3xTF32 kernels, one
+    # forward, one dq and one dkv a layer and microbatch (no remat)
+    D = a["head_dim"]
+    for r in ranks if dev.type == "cuda" else ():
+        for part, n, fwd in (("a", DIST_DEPTH_A, DIST_DEPTH_A),
+                             ("b", DIST_DEPTH_B * DIST_ACCUM,
+                              DIST_DEPTH_B * DIST_ACCUM)):
+            got = {k: r[part]["launches"][k] for k in FLASH_KERNELS}
+            want = dict.fromkeys(FLASH_KERNELS, 0)
+            want[flash_kernel("fwd", "f32tc", D)] = fwd
+            want[flash_kernel("dq", "f32tc", D)] = n
+            want[flash_kernel("dkv", "f32tc", D)] = n
+            if got != want:
+                fails.append(f"rank {r['rank']} ({part}) launched {got}, "
+                             f"not {want}")
+    # bf16: the sm90 kernels per shard, once each, at half the heads
+    for r in ranks:
+        fl = r["a"]["bf16_flash"]
+        if not max(fl["gaps"].values()) < BWD_TOL["bfloat16"][0]:
+            fails.append(f"rank {r['rank']} (a, bf16) flash gaps "
+                         f"{fl['gaps']}")
+        want = dict.fromkeys(FLASH_KERNELS, 0)
+        for kind in ("fwd", "dq", "dkv"):
+            want[flash_kernel(kind, "sm90", D)] = 1
+        got = {k: fl["launches"][k] for k in FLASH_KERNELS}
+        if dev.type == "cuda" and got != want:
+            fails.append(f"rank {r['rank']} (a, bf16) launched {got}, "
+                         f"not {want}")
+    if out["mem_used_max"] >= DIST_MEM_BYTES:
+        fails.append(f"the card's memory in use reached "
+                     f"{out['mem_used_max']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     moe_serving = argv == ["--moe-serving"]
@@ -3926,7 +4820,7 @@ def main(argv) -> int:
     emit("20c", seconds=time.perf_counter() - t0, **snap)
 
     t0 = time.perf_counter()
-    trained_s = train(torch, dev, K, SSM_ARCH)
+    trained_s = train(torch, dev, K, SSM_ARCH, depth=SSM_TRAIN_DEPTH)
     emit("21a", seconds=time.perf_counter() - t0, **trained_s)
     check_training(trained_s)
     t0 = time.perf_counter()
@@ -3935,26 +4829,41 @@ def main(argv) -> int:
     check_training(trained_h)
     torch.cuda.empty_cache()
 
+    # phase 26's ranks import and join their world while 23-25 run; they
+    # wait for the card until ``distributed`` lets them go
+    world = start_world(dev)
     t0 = time.perf_counter()
     trained_e = encoder(torch, dev, K)
     emit(23, seconds=time.perf_counter() - t0, **trained_e)
     t0 = time.perf_counter()
     vlm = serve_vlm(torch, dev, K)
     emit(24, seconds=time.perf_counter() - t0, **vlm)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trained_m = train_moe(torch, dev, K)
+    emit(25, seconds=time.perf_counter() - t0, **trained_m)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = distributed(torch, dev, K, world=world)
+    emit(26, seconds=time.perf_counter() - t0, **sharded)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    # the copy kernels' launches on their eight paths: the slice-1 step
+    # the copy kernels' launches on their nine paths: the slice-1 step
     # (phase 3), the checkpoint path (phase 15), the reorganization path
     # with the read service (phase 16), the staged output (phase 17a), the
     # async checkpoints (phase 17b), the kernel-bypass engines with the
     # distributed fleet (phase 18, the fleet workers' launches included),
-    # the trace replays (phase 19) and the serving-state snapshot (20c)
+    # the trace replays (phase 19), the serving-state snapshot (20c) and
+    # the sharded checkpoint (26c, both ranks)
     rows = [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              "launches": launches[name] + ckpt["launches"][name]
              + reorganized["launches"][name] + online["launches"][name]
              + saves["launches"][name] + bypass["launches"][name]
-             + replayed["launches"][name] + snap["launches"][name],
+             + replayed["launches"][name] + snap["launches"][name]
+             + sum(r["c"][f"{name}_save"] + r["c"][f"{name}_restore"]
+                   for r in sharded["ranks"] if f"{name}_save" in r["c"]),
              "max_abs_err": checks["max_abs_err"][name],
              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
              "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
@@ -3964,23 +4873,29 @@ def main(argv) -> int:
     # the sm90 forward's two kernels on the serving runs (qwen2.5-3b's,
     # hymba-1.5b's and the VLM's head_dim up to 128, gemma2-2b's 256), the
     # training runs (forward and remat recompute; hubert-xlarge's head_dim
-    # 80 non-causal) and the encoder's prefill; the 3xTF32 forward on the
-    # f32 serving prefills (qwen2.5-3b's, gemma2-2b's, hymba-1.5b's, the
-    # VLM's) and the f32 training comparisons, the paths that run it here.
+    # 80 non-causal; deepseek-moe-16b's) and the encoder's prefill; the
+    # 3xTF32 forward on the f32 serving prefills (qwen2.5-3b's,
+    # gemma2-2b's, hymba-1.5b's, the VLM's), the f32 training comparisons
+    # and phase 26's sharded f32 steps, the paths that run it here.
     # The CUDA-core forward runs on no path, so the summary, the kernels
     # of the paths, leaves it out: phase 6 checks it against its plain
     # version, phase 8 times it
     served_runs = (served, gemma2, hybrid, vlm)
-    trained_runs = (trained, trained_g, trained_h, trained_e)
+    trained_runs = (trained, trained_g, trained_h, trained_e, trained_m)
+    # the f32 route comparisons and phase 26's sharded f32 steps, both
+    # ranks' per-shard launches (parts a and b)
     f32_runs = [r["flash_vs_q_chunked"]["float32"]["flash_launches"]
                 for r in served_runs + trained_runs
-                if "float32" in r["flash_vs_q_chunked"]]
+                if "float32" in r["flash_vs_q_chunked"]] + [
+        r[part]["launches"] for r in sharded["ranks"] for part in "ab"]
 
     def total(name):
         """``name``'s launches on the serving and training runs (the
-        encoder's prefill too)."""
+        encoder's prefill too) and phase 26a's bf16 per-shard calls."""
         return sum(r["launches"][name] for r in served_runs + trained_runs
-                   ) + trained_e["prefill"]["launches"][name]
+                   ) + trained_e["prefill"]["launches"][name] + sum(
+            r["a"]["bf16_flash"]["launches"][name]
+            for r in sharded["ranks"])
 
     for name, launched, t in (
             ("flash_attention", total("flash_attention"),

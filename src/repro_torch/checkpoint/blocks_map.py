@@ -8,7 +8,9 @@ owns a ragged collection of cuboids per array — the AMR motif).
 :class:`MeshSharding` is the port's counterpart of JAX's
 ``NamedSharding(Mesh, PartitionSpec)``: the same ``devices_indices_map``,
 so :func:`blocks_from_sharding` keeps the JAX package's contract and gives
-the same blocks for the same mesh and spec.  The names of
+the same blocks for the same mesh and spec; :func:`dtensor_sharding` gives
+a DTensor's (its mesh's ranks as device ids, its ``Shard`` placements as
+the spec), so a sharded model's leaves keep that contract too.  The names of
 :func:`flatten_pytree` follow ``jax.tree_util.tree_flatten_with_path``:
 dict keys in sorted order, list and tuple items by index, ``None`` an empty
 subtree, joined with ``/``.
@@ -24,7 +26,9 @@ import numpy as np
 from ..core.blocks import Block
 
 __all__ = ["MeshDevice", "MeshSharding", "blocks_from_sharding",
-           "flatten_pytree", "unflatten_like"]
+           "placement_sharding", "dtensor_sharding", "rank_block",
+           "flatten_pytree",
+           "unflatten_like"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +102,48 @@ class MeshSharding:
                 idx[d] = slice(k * size, (k + 1) * size)
             out[MeshDevice(int(self.device_ids[coord]))] = tuple(idx)
         return out
+
+
+def placement_sharding(device_ids, axis_names: Sequence[str], placements,
+                       ndim: int) -> MeshSharding:
+    """The :class:`MeshSharding` of DTensor ``placements`` (one per mesh
+    axis) over the mesh ``device_ids`` with axes ``axis_names``: for each
+    array dim the mesh axes whose placement is ``Shard`` of it, in mesh
+    order (DTensor splits a dim over several mesh dims major-first in that
+    order).  A ``Partial`` placement has no blocks: ``ValueError``."""
+    spec = [[] for _ in range(ndim)]
+    for name, pl in zip(axis_names, placements):
+        if pl.is_partial():
+            raise ValueError(f"a partial sum over mesh dim {name!r} has no "
+                             f"blocks to save: reduce it first")
+        if pl.is_shard():
+            spec[pl.dim].append(name)
+    entries = [None if not a else a[0] if len(a) == 1 else tuple(a)
+               for a in spec]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return MeshSharding(device_ids, axis_names, entries)
+
+
+def dtensor_sharding(t) -> MeshSharding:
+    """The :class:`MeshSharding` of a DTensor: its mesh's ranks as the
+    device ids, its placements as the spec (``placement_sharding``)."""
+    mesh = t.device_mesh
+    if mesh.mesh_dim_names is None:
+        raise ValueError("a DTensor's mesh needs named dims to checkpoint")
+    return placement_sharding(mesh.mesh.cpu().numpy(), mesh.mesh_dim_names,
+                              t.placements, t.dim())
+
+
+def rank_block(shape: Sequence[int], sharding, rank: int) -> Block:
+    """The block of an array of ``shape`` that device ``rank`` holds under
+    ``sharding`` (owner ``rank``, block id 0)."""
+    shape = tuple(int(s) for s in shape)
+    idx = sharding.devices_indices_map(shape)[MeshDevice(int(rank))]
+    lo = [s.start if s.start is not None else 0 for s in idx]
+    hi = [s.stop if s.stop is not None else shape[d]
+          for d, s in enumerate(idx)]
+    return Block(tuple(lo), tuple(hi), owner=int(rank), block_id=0)
 
 
 def blocks_from_sharding(shape: Sequence[int], sharding,

@@ -36,6 +36,15 @@ route: each touched extent read once, one copy, ONE ``pack_rows`` launch
 for all of a variable's targets.  Compressed chunks take the host plan and
 one copy a target.
 
+**DTensor leaves** (a sharded model's params and state): a leaf's blocks
+come from its mesh and placements (``blocks_map.dtensor_sharding``, the
+``devices_indices_map`` contract ``MeshSharding`` follows), its shards are
+gathered, and rank 0 alone writes, as the JAX package's single controller
+does; every rank of the world calls ``save`` and the others wait at a
+barrier.  ``restore`` with a template of DTensors gives each rank its own
+block of each such leaf (``target_blocks`` from the template's sharding)
+as a DTensor with the template's placements.
+
 ``trace=`` (a :class:`~repro_torch.io.trace.TraceRecorder`) journals every
 save and restore, as the JAX package's manager does.  bfloat16 leaves (a
 serving state's KV and conv caches) are stored as ``"bfloat16"``, as the
@@ -65,7 +74,9 @@ from ..io.device import read_regions, read_route
 from ..io.format import dtype_name, storage_dtype
 from ..io.engine import IOEngine
 from ..io.reader import Dataset, ReadStats
-from .blocks_map import blocks_from_sharding, flatten_pytree, unflatten_like
+from ..distributed.sharding import is_dtensor
+from .blocks_map import (blocks_from_sharding, dtensor_sharding,
+                         flatten_pytree, rank_block, unflatten_like)
 
 __all__ = ["CheckpointManager", "SaveStats", "RestoreStats",
            "ACCESS_PRIOR_NAME"]
@@ -217,14 +228,24 @@ class CheckpointManager:
         d = self.step_dir(step)
         flat = flatten_pytree(tree)
         flat_sh = flatten_pytree(shardings) if shardings is not None else {}
-        ds = Dataset.create(d, engine=self.engine, clock=self._clock,
-                            device=self.device)
         stats = SaveStats(step=step, seconds=0.0, bytes=0, num_chunks=0,
                           num_original_blocks=0, per_var_seconds={})
+        sharded = any(is_dtensor(t) for t in flat.values())
+        if sharded:
+            import torch.distributed as dist
+        writer = not sharded or dist.get_rank() == 0
+        ds = Dataset.create(d, engine=self.engine, clock=self._clock,
+                            device=self.device) if writer else None
         scalars = {}
         policy_info = {}
         vars_meta = {}
         for name, t in flat.items():
+            if is_dtensor(t):
+                # every rank joins the gather; rank 0 writes
+                flat_sh.setdefault(name, dtensor_sharding(t))
+                t = t.full_tensor()
+            if not writer:
+                continue
             if not isinstance(t, torch.Tensor):
                 raise TypeError(f"leaf {name!r} is a {type(t).__name__}, "
                                 f"not a tensor")
@@ -281,6 +302,10 @@ class CheckpointManager:
             stats.write_seconds += ws.write_seconds
             stats.commit_seconds += (ws.total_seconds - ws.assemble_seconds
                                      - ws.write_seconds)
+        if not writer:
+            dist.barrier()
+            stats.seconds = time.perf_counter() - t0
+            return stats
         ds.close()
         manifest = {"step": step, "strategy": self.strategy,
                     "scalars": scalars,
@@ -290,6 +315,8 @@ class CheckpointManager:
         with open(os.path.join(d, MANIFEST), "w") as f:
             json.dump(manifest, f)
         self._retain()
+        if sharded:
+            dist.barrier()
         stats.seconds = time.perf_counter() - t0
         if self.trace is not None:
             self.trace.record(
@@ -324,6 +351,17 @@ class CheckpointManager:
         d = self.step_dir(step)
         with open(os.path.join(d, MANIFEST)) as f:
             manifest = json.load(f)
+        placed = {}
+        if template is not None:
+            placed = {n: t for n, t in flatten_pytree(template).items()
+                      if is_dtensor(t)}
+        if placed:
+            import torch.distributed as dist
+            rank = dist.get_rank()
+            target_blocks = dict(target_blocks or {})
+            for n, t in placed.items():
+                target_blocks[n] = [rank_block(t.shape, dtensor_sharding(t),
+                                               rank)]
         agg = RestoreStats()
         flat = {}
         plan_runs = plan_groups = 0       # the host plans', for the trace
@@ -373,6 +411,11 @@ class CheckpointManager:
                 "ckpt_restore", seconds=agg.seconds, nbytes=agg.bytes_read,
                 engine=agg.engine, runs=plan_runs, groups=plan_groups,
                 step=int(step), targets=targets)
+        if placed:
+            from torch.distributed.tensor import DTensor
+            for n, t in placed.items():
+                flat[n] = DTensor.from_local(flat[n][0], t.device_mesh,
+                                             t.placements, run_check=False)
         if template is not None:
             return unflatten_like(template, flat), agg
         return flat, agg

@@ -1,11 +1,11 @@
-"""Distributed-runtime helpers: fault tolerance and the crash-safe
-distributed reorganization fleet.
+"""Distributed-runtime helpers: sharding rules, collectives, expert
+placement, fault tolerance, and the crash-safe distributed reorganization
+fleet.
 
 Package attributes load lazily (PEP 562), as in the JAX package: a reorg
 worker process imports the fault-tolerance primitives and its worker loop
-without loading anything else.  The JAX package's sharding names
-(``distributed/sharding.py``) wait for the distributed slice; asking for
-one raises an ``AttributeError`` that says so.
+without loading anything else.  Direct submodule imports (``from
+repro_torch.distributed import sharding``) are unaffected.
 """
 
 _SHARDING_NAMES = ("DEFAULT_RULES", "FSDP_RULES", "ShardingCtx",
@@ -16,15 +16,13 @@ _FAULT_NAMES = ("HeartbeatMonitor", "ElasticPlan", "plan_rescale",
 _REORG_NAMES = ("ReorgWorkerStats", "distributed_reorganize", "worker_main",
                 "with_retry")
 
-__all__ = list(_FAULT_NAMES + _REORG_NAMES)
+__all__ = list(_SHARDING_NAMES + _FAULT_NAMES + _REORG_NAMES)
 
 
 def __getattr__(name):
     if name in _SHARDING_NAMES:
-        raise AttributeError(
-            f"{__name__}.{name} is not ported yet: the sharding rules wait "
-            f"for the distributed slice (ROADMAP.md queue 1, item 13)")
-    if name in _FAULT_NAMES:
+        from . import sharding as mod
+    elif name in _FAULT_NAMES:
         from . import fault_tolerance as mod
     elif name in _REORG_NAMES:
         from . import reorg as mod

@@ -6,8 +6,9 @@ multiple of ``flash_block``, else query-chunked (blockwise-softmax)
 attention that never materializes more than a (q_chunk, L) score tensor
 per head.  Decode is a single-token step against a full KV cache or a
 ring-buffered sliding-window cache.  Cross-attention to memory tokens
-(the VLM's) is plain, unmasked attention, as in the reference.  The
-mesh-sharded flash call comes with the distributed slice.
+(the VLM's) is plain, unmasked attention, as in the reference.  Under a
+mesh the flash kernel runs on each rank's shard of the batch and heads
+(``_flash_sharded``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 
 import torch
 
+from ..distributed.sharding import current_ctx, is_dtensor, shard
 from ..kernels.flash_attention import flash_attention
 from .layers import rope, softcap
 from .params import ParamDef
@@ -48,16 +50,26 @@ def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return d
 
 
+def _proj(x, w):
+    """``einsum("blm,mhd->blhd")``.  On DTensors as one matrix product
+    over the (heads, head_dim) columns: torch 2.11's einsum lowering
+    merges a sharded heads dim behind head_dim, which DTensor refuses."""
+    if not is_dtensor(w):
+        return torch.einsum("blm,mhd->blhd", x, w)
+    M, H, D = w.shape
+    return (x @ w.reshape(M, H * D)).reshape(*x.shape[:-1], H, D)
+
+
 def _project_q(p, x):
-    q = torch.einsum("blm,mhd->blhd", x, p["wq"].to(x.dtype))
+    q = _proj(x, p["wq"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     return q
 
 
 def _project_kv(p, x):
-    k = torch.einsum("blm,mkd->blkd", x, p["wk"].to(x.dtype))
-    v = torch.einsum("blm,mkd->blkd", x, p["wv"].to(x.dtype))
+    k = _proj(x, p["wk"].to(x.dtype))
+    v = _proj(x, p["wv"].to(x.dtype))
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
@@ -65,7 +77,12 @@ def _project_kv(p, x):
 
 
 def _out(p, o, gated: bool = False):
-    y = torch.einsum("blhd,hdm->blm", o, p["wo"].to(o.dtype))
+    wo = p["wo"].to(o.dtype)
+    if is_dtensor(wo):          # as ``_proj``: one product over (H, D)
+        H, D, M = wo.shape
+        y = o.reshape(*o.shape[:-2], H * D) @ wo.reshape(H * D, M)
+    else:
+        y = torch.einsum("blhd,hdm->blm", o, wo)
     if gated and "gate" in p:
         y = torch.tanh(p["gate"].to(y.dtype)) * y
     return y
@@ -102,13 +119,16 @@ def attn_forward(p, x, *, n_heads: int, n_kv: int, head_dim: int,
     if use_rope:
         q = _rope_heads(q, positions, rope_theta, rotary_dim)
         k = _rope_heads(k, positions, rope_theta, rotary_dim)
+    q = shard(q, "batch", None, "act_heads", None)
+    k = shard(k, "batch", None, "act_heads", None)
+    v = shard(v, "batch", None, "act_heads", None)
     g = n_heads // n_kv
     scale = 1.0 / math.sqrt(head_dim)
 
     if flash and L % flash_block == 0:
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), scale, causal, window,
-                            attn_cap, flash_block, flash_block)
+        o = _flash_sharded(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), scale, causal, window,
+                           attn_cap, flash_block)
         return _out(p, o.transpose(1, 2))
 
     qg = q.reshape(B, L, n_kv, g, head_dim)
@@ -117,6 +137,10 @@ def attn_forward(p, x, *, n_heads: int, n_kv: int, head_dim: int,
     outs = []
     for c in range(n_chunks):
         qi = qg[:, c * qc:(c + 1) * qc]
+        if is_dtensor(qi):
+            # DTensor's einsum views its local operands as the global
+            # strides would allow: hand it dense ones
+            qi, k, v = qi.contiguous(), k.contiguous(), v.contiguous()
         s = torch.einsum("bqkgd,blkd->bkgql", qi, k).float()
         s = softcap(s * scale, attn_cap)
         mask = _scores_mask(positions[c * qc:(c + 1) * qc], positions,
@@ -126,6 +150,56 @@ def attn_forward(p, x, *, n_heads: int, n_kv: int, head_dim: int,
         outs.append(torch.einsum("bkgql,blkd->bqkgd", pr, v))
     o = torch.cat(outs, dim=1).reshape(B, L, n_heads, head_dim)
     return _out(p, o)
+
+
+def _flash_sharded(q, k, v, scale, causal, window, softcap, block):
+    """The flash kernel per shard: DTensor has no sharding rule for it, so
+    each rank calls it on its own slice of ``q``, ``k``, ``v`` (B, H, L, D)
+    over the batch and head axes the rules shard them on — the counterpart
+    of the reference's fully manual ``shard_map``.  Where the q-heads are
+    split and the kv-heads replicated (``kv_heads`` dropped for
+    divisibility), each rank slices its own kv group, as the reference
+    does; that slice's gradient is then one rank's term (``Partial``).
+    Without a mesh, on a mesh of one device, or with no sharded axis left,
+    the kernel is called directly."""
+    ctx = current_ctx()
+
+    def call(a, b, c):
+        return flash_attention(a, b, c, scale, causal, window, softcap,
+                               block, block)
+
+    if ctx is None or not is_dtensor(q) or q.device_mesh.size() == 1:
+        if is_dtensor(q):
+            from torch.distributed.tensor import DTensor
+            o = call(q.to_local(), k.to_local(), v.to_local())
+            return DTensor.from_local(o, q.device_mesh, q.placements)
+        return call(q, k, v)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    axes = ("batch", "act_heads", None, None)
+    qpl = ctx.placements(axes, q.shape, mesh=mesh)
+    kpl = ctx.placements(axes, k.shape, mesh=mesh)
+    Hq, Hkv = q.shape[1], k.shape[1]
+    g = Hq // Hkv
+    head_dims = [i for i, pl in enumerate(qpl) if pl == Shard(1)]
+    sliced = bool(head_dims) and not any(pl == Shard(1) for pl in kpl)
+    kgrad = tuple(Partial() if i in head_dims else pl
+                  for i, pl in enumerate(kpl)) if sliced else kpl
+    a = q.redistribute(mesh, qpl).to_local()
+    b = k.redistribute(mesh, kpl).to_local(grad_placements=kgrad)
+    c = v.redistribute(mesh, kpl).to_local(grad_placements=kgrad)
+    H_loc = a.shape[1]
+    if sliced and H_loc < Hq:
+        # q-heads sharded, kv replicated: slice this shard's group
+        idx = 0
+        for i in head_dims:                 # major first
+            idx = idx * mesh.size(i) + mesh.get_local_rank(names[i])
+        kvn = max(1, H_loc // g)
+        start = (idx * H_loc) // g
+        b = b[:, start:start + kvn]
+        c = c[:, start:start + kvn]
+    return DTensor.from_local(call(a, b, c), mesh, qpl)
 
 
 # -- cross attention ----------------------------------------------------------

@@ -10,6 +10,7 @@ under the config's remat policy when gradients are taken.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -17,6 +18,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..distributed.sharding import (current_ctx, is_dtensor,
+                                    replicate_plain, shard)
 from . import transformer as tfm
 from .layers import (cross_entropy_chunked, embed_def, embed_lookup,
                      layer_norm, rms_norm, unembed_chunked)
@@ -101,11 +104,17 @@ class LM:
 
     def init(self, generator: torch.Generator) -> dict:
         """Random weights from ``generator``, which must live on
-        ``self.device``."""
+        ``self.device``.  Under an active sharding context over a
+        ``DeviceMesh`` each leaf is a DTensor placed by the rules
+        (``materialize(place=True)``): the same numbers as without a
+        mesh, each rank holding its blocks."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
-        return materialize(self.skeleton(), generator)
+        ctx = current_ctx()
+        return materialize(self.skeleton(), generator,
+                           place=ctx is not None and hasattr(ctx.mesh,
+                                                             "get_group"))
 
     def num_params(self) -> int:
         return count_params(self.skeleton())
@@ -116,9 +125,11 @@ class LM:
         to bf16 whatever the compute dtype (as the reference casts them;
         every layer then computes in the frames' dtype)."""
         if self.cfg.frontend == "tokens":
-            return embed_lookup(params["embed"], batch["tokens"],
-                                scale=self.cfg.embed_scale)
-        return batch["frames"].to(torch.bfloat16)
+            x = embed_lookup(params["embed"], batch["tokens"],
+                             scale=self.cfg.embed_scale)
+        else:
+            x = batch["frames"].to(torch.bfloat16)
+        return shard(x, "batch", None, "act_embed")
 
     def _head_table(self, params):
         return params["lm_head"] if "lm_head" in params else params["embed"]
@@ -131,6 +142,10 @@ class LM:
     def hidden(self, params, batch, collect_kv: bool = False):
         """Runs the stack. Returns (hidden, aux, kv_per_segment); a stacked
         segment's kv is the list of its layers' kvs."""
+        with plain_as_replicated(params):
+            return self._hidden(params, batch, collect_kv)
+
+    def _hidden(self, params, batch, collect_kv: bool):
         cfg = self.cfg
         x = self._embed_in(params, batch)
         B, L, _ = x.shape
@@ -164,11 +179,12 @@ class LM:
         """Mean next-token cross-entropy plus ``aux_weight`` times the
         blocks' auxiliary loss: ``(loss, {"ce", "aux"})``."""
         cfg = self.cfg
-        h, aux, _ = self.hidden(params, batch)
-        ce = cross_entropy_chunked(h, self._head_table(params),
-                                   batch["labels"], chunk=cfg.loss_chunk,
-                                   final_cap=cfg.final_cap)
-        return ce + cfg.aux_weight * aux, {"ce": ce, "aux": aux}
+        with plain_as_replicated(params):
+            h, aux, _ = self._hidden(params, batch, False)
+            ce = cross_entropy_chunked(h, self._head_table(params),
+                                       batch["labels"], chunk=cfg.loss_chunk,
+                                       final_cap=cfg.final_cap)
+            return ce + cfg.aux_weight * aux, {"ce": ce, "aux": aux}
 
     def trainable(self, params, grads) -> dict:
         """``params`` as autograd leaves whose gradients accumulate in
@@ -241,6 +257,17 @@ class LM:
         logits = unembed_chunked(x, self._head_table(params),
                                  final_cap=cfg.final_cap)
         return logits, new_caches
+
+
+def plain_as_replicated(params):
+    """Where ``params`` are DTensors (a sharded model), plain tensors the
+    model makes (positions, masks, zeros) meet them as replicated ones
+    (``sharding.replicate_plain``); otherwise nothing."""
+    leaf = params
+    while isinstance(leaf, (dict, list)) and leaf:
+        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) \
+            else leaf[0]
+    return replicate_plain() if is_dtensor(leaf) else contextlib.nullcontext()
 
 
 def _stack_layers(layers: list):

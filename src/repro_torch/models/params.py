@@ -3,9 +3,11 @@
 Models build a tree (nested dicts and lists) of :class:`ParamDef` (shape +
 dtype + logical axes + init law).  From the skeleton we derive, without
 materializing weights, the parameter count and the cache bytes, and
-``materialize(skel, generator)`` makes the weights.  The mesh-facing
-``abstract``/``shardings`` of the reference come with the distributed
-slice.
+``materialize(skel, generator)`` makes the weights.  Under an active
+sharding context ``abstract(skel)`` gives each leaf's shape, dtype and
+sharding, ``shardings(skel)`` the shardings alone (``MeshSharding``s, the
+counterpart of the reference's ``NamedSharding``s), and
+``materialize(..., place=True)`` places each leaf as a DTensor.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import math
 
 import torch
 
-__all__ = ["ParamDef", "stack", "count_params", "materialize",
-           "tree_leaves", "tree_map", "grad_leaf", "torch_dtype"]
+__all__ = ["ParamDef", "Abstract", "abstract", "shardings", "stack",
+           "count_params", "materialize", "tree_leaves", "tree_map",
+           "grad_leaf", "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +79,31 @@ def grad_leaf(p: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     return t
 
 
+@dataclasses.dataclass(frozen=True)
+class Abstract:
+    """A leaf without its values (the reference's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+    sharding: object = None
+
+
+def abstract(skel, sharded: bool = True):
+    """``Abstract`` leaves of ``skel``; with ``sharded``, each carries the
+    ``MeshSharding`` the active context gives it (None without one)."""
+    from ..distributed import sharding as shd
+
+    def one(d: ParamDef) -> Abstract:
+        sh = shd.named_sharding(d.axes, d.shape) if sharded else None
+        return Abstract(tuple(d.shape), torch_dtype(d.dtype), sh)
+    return tree_map(one, skel)
+
+
+def shardings(skel):
+    """Each leaf's ``MeshSharding`` under the active context."""
+    from ..distributed import sharding as shd
+    return tree_map(lambda d: shd.named_sharding(d.axes, d.shape), skel)
+
+
 def stack(d: ParamDef, n: int) -> ParamDef:
     """Layer-stacked version for a segment of ``n`` layers."""
     return ParamDef(shape=(n,) + tuple(d.shape), axes=("layers",) + d.axes,
@@ -86,11 +114,24 @@ def count_params(skel) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(skel))
 
 
-def materialize(skel, generator: torch.Generator):
+def materialize(skel, generator: torch.Generator, place: bool = False):
     """Initialize every ``ParamDef`` on ``generator``'s device.  The draws
     are the reference's laws (N(0, scale), N(0, 1/fan_in), zeros, ones),
-    not its numbers: ``jax.random`` is not reproduced."""
+    not its numbers: ``jax.random`` is not reproduced.
+
+    With ``place`` (under an active sharding context) each leaf, drawn
+    whole as without a mesh, becomes a DTensor over the context's mesh
+    with the placements its logical axes give it; every rank draws the
+    same numbers from the same seed and keeps its own block, with no
+    communication, so a sharded init equals the unsharded one leaf for
+    leaf."""
     dev = generator.device
+    ctx = None
+    if place:
+        from ..distributed.sharding import current_ctx
+        ctx = current_ctx()
+        if ctx is None:
+            raise ValueError("place=True needs an active sharding context")
 
     def mk(d: ParamDef) -> torch.Tensor:
         dtype = torch_dtype(d.dtype)
@@ -109,4 +150,12 @@ def materialize(skel, generator: torch.Generator):
         # in place: a stacked expert weight is a quarter of a card
         return x.mul_(s).to(dtype)
 
-    return tree_map(mk, skel)
+    if ctx is None:
+        return tree_map(mk, skel)
+    from torch.distributed.tensor import distribute_tensor
+
+    def placed(d: ParamDef):
+        return distribute_tensor(mk(d), ctx.mesh,
+                                 ctx.placements(d.axes, d.shape),
+                                 src_data_rank=None)
+    return tree_map(placed, skel)

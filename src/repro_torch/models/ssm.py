@@ -12,10 +12,13 @@ is its port.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (current_ctx, is_dtensor,
+                                    mesh_axis_sizes, shard)
 from .layers import rms_norm
 from .params import ParamDef
 
@@ -100,6 +103,54 @@ def ssd_forward_with_state(p, x, dims: SSMDims, chunk: int = 256):
 
 
 def _ssd_full(p, x, dims: SSMDims, chunk: int = 256):
+    """(out, cache).  Under a mesh (DTensor operands) the chunk scan runs
+    on each rank's data shard (``_scan_per_shard``), and the output
+    projection after it under the rules again."""
+    scan = {k: v for k, v in p.items() if k != "out_proj"}
+    if is_dtensor(x):
+        y, cache = _scan_per_shard(scan, x, dims, chunk)
+    else:
+        y, cache = _ssd_scan(scan, x, dims, chunk)
+    y = shard(y, "batch", None, "act_mlp")
+    out = torch.einsum("bli,im->blm", y, p["out_proj"].to(y.dtype))
+    return out, cache
+
+
+def _scan_per_shard(p, x, dims: SSMDims, chunk: int):
+    """The chunk scan on DTensors, which no DTensor sharding rule covers:
+    each rank runs it on the rows of its data shard (the batch split over
+    the non-manual data axes, where it divides) with the parameters whole,
+    and its outputs keep that split.  The heads stay whole on every model
+    rank: ``in_proj``'s columns interleave z, x, B, C and dt.  Each rank's
+    parameter gradients are its rows' terms (``Partial`` over the data
+    axes)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ctx = current_ctx()
+    mesh = x.device_mesh
+    sizes = mesh_axis_sizes(mesh)
+    manual = ctx.manual if ctx is not None else frozenset()
+    dp = tuple(a for a in ("pod", "data") if a in sizes and a not in manual)
+    if x.shape[0] % math.prod(sizes[a] for a in dp):
+        dp = ()
+    rows = tuple(Shard(0) if a in dp else Replicate()
+                 for a in mesh.mesh_dim_names)
+    terms = tuple(Partial() if a in dp else Replicate()
+                  for a in mesh.mesh_dim_names)
+    whole = (Replicate(),) * mesh.ndim
+
+    def local(t, placements, grads):
+        if not is_dtensor(t):
+            return t
+        return t.redistribute(t.device_mesh, placements).to_local(
+            grad_placements=grads)
+    y, cache = _ssd_scan({k: local(v, whole, terms) for k, v in p.items()},
+                         local(x, rows, rows), dims, chunk)
+    return (DTensor.from_local(y, mesh, rows),
+            {k: DTensor.from_local(v, mesh, rows) for k, v in cache.items()})
+
+
+def _ssd_scan(p, x, dims: SSMDims, chunk: int):
+    """The SSD block up to its output projection: (y, cache)."""
     B, L, M = x.shape
     z, xBC, dt = _split_proj(p, x, dims)
     xBC_raw_tail = xBC[:, L - (dims.conv_width - 1):, :]
@@ -154,12 +205,11 @@ def _ssd_full(p, x, dims: SSMDims, chunk: int = 256):
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B, L, dims.d_inner)
     y = rms_norm(y * F.silu(z), p["norm"])
-    out = torch.einsum("bli,im->blm", y, p["out_proj"].to(x.dtype))
     # the raw (pre-conv) tail, in a buffer of its own: decode writes it
     cache = {"S": S,
              "conv": xBC_raw_tail.to(torch.bfloat16, copy=True,
                                      memory_format=torch.contiguous_format)}
-    return out, cache
+    return y, cache
 
 
 # -- decode -------------------------------------------------------------------

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..models.params import ParamDef, tree_leaves, tree_map
 
 __all__ = ["OptimizerConfig", "warmup_cosine", "adamw_init", "adamw_update",
@@ -70,6 +71,12 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params):
     ``params`` (f32, as every ``ParamDef`` of the ported models) and the
     moments in place and uses ``grads`` as scratch (its values are gone
     afterwards); ``state["count"]`` is replaced."""
+    # a sharded model's gradient of a replicated param may come back as a
+    # partial sum (``Partial``): reduced to the param's placements first,
+    # or the update would add each rank's term as the whole
+    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                     if is_dtensor(g) and g.placements != p.placements
+                     else g, grads, params)
     count = state["count"] + 1
     lr = warmup_cosine(cfg, count)
     gn = global_norm(grads)

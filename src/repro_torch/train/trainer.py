@@ -11,17 +11,20 @@ The data-parallel variant that reduces gradients once per step
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..models.model import LM
-from ..models.params import tree_map
+from ..distributed import sharding as shd
+from ..models.model import LM, plain_as_replicated
+from ..models.params import tree_leaves, tree_map
 from .optimizer import OptimizerConfig, adamw_init, adamw_update
 
-__all__ = ["make_train_step", "make_eval_step", "value_and_grad", "Trainer",
+__all__ = ["make_train_step", "make_train_step_reduce_once",
+           "make_eval_step", "value_and_grad", "place_batch", "Trainer",
            "TrainState"]
 
 
@@ -31,7 +34,7 @@ def value_and_grad(model: LM, params, batch, grads=None) -> tuple:
     ``params``), else into a fresh zeroed one."""
     if grads is None:
         grads = tree_map(torch.zeros_like, params)
-    with torch.enable_grad():
+    with torch.enable_grad(), plain_as_replicated(params):
         loss, metrics = model.loss(model.trainable(params, grads), batch)
         loss.backward()
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -72,6 +75,129 @@ def make_train_step(model: LM, opt_cfg: OptimizerConfig,
                                                       opt_state, params)
         return params, opt_state, dict(metrics, **opt_metrics)
     return train_step
+
+
+def _submesh_view(t, sub):
+    """A leaf as the reduce-once body sees it: the full-mesh DTensor
+    ``t`` (replicated over the data axes) as a DTensor over the model
+    sub-mesh ``sub`` sharing its storage, or its plain local tensor where
+    ``sub`` is None (no model axis of more than one device)."""
+    if not shd.is_dtensor(t):
+        return t
+    local = t.to_local()
+    if sub is None:
+        return local
+    from torch.distributed.tensor import DTensor
+    names = t.device_mesh.mesh_dim_names
+    pl = tuple(t.placements[names.index(a)] for a in sub.mesh_dim_names)
+    return DTensor.from_local(local, sub, pl, run_check=False)
+
+
+def make_train_step_reduce_once(model: LM, opt_cfg: OptimizerConfig,
+                                grad_accum: int, mesh,
+                                rules=None) -> Callable:
+    """The data-parallel axes run *manually*: each data rank takes its own
+    rows of the batch, accumulates its microbatches' gradients locally in
+    f32, and the cross-rank reduction happens ONCE per step — one
+    all-reduce a gradient leaf and one for the loss and metrics, each
+    divided by the data ranks — instead of once per microbatch; then
+    AdamW.  The model axis stays under DTensor: params and optimizer state
+    are DTensors over ``mesh`` (replicated over the data axes), seen in
+    the step as DTensors over the model sub-mesh sharing their storage
+    (plain tensors where that sub-mesh is one device).
+
+    The step takes the global batch (the same on every rank, plain or a
+    DTensor) and updates params and state in place.  ``step.grads(params,
+    batch)`` gives the reduced ``(loss, metrics, grads)`` without the
+    update."""
+    import torch.distributed as dist
+    sizes = shd.mesh_axis_sizes(mesh)
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    rules = rules or shd.DEFAULT_RULES
+    ndp = math.prod(sizes[a] for a in dp_axes)
+    rest = tuple(a for a in sizes if a not in dp_axes)
+    sub = mesh[rest] if rest and math.prod(
+        sizes[a] for a in rest) > 1 else None
+    row = 0
+    for a in dp_axes:                               # major first
+        row = row * sizes[a] + mesh.get_local_rank(a)
+
+    def rows(t):
+        if shd.is_dtensor(t):
+            t = t.full_tensor()
+        if t.shape[0] % ndp:
+            raise ValueError(f"batch of {t.shape[0]} does not split over "
+                             f"{ndp} data ranks")
+        n = t.shape[0] // ndp
+        return t[row * n:(row + 1) * n]
+
+    def reduce_once(x):
+        for a in dp_axes:
+            dist.all_reduce(x, group=mesh.get_group(a))
+        return x.div_(ndp)
+
+    def grads_of(params, batch):
+        local = tree_map(lambda t: _submesh_view(t, sub), params)
+        mine = {k: rows(v) for k, v in batch.items()}
+        with shd.use_sharding(mesh, rules, manual=frozenset(dp_axes)):
+            n = next(iter(mine.values())).shape[0]
+            if n % grad_accum:
+                raise ValueError(f"{n} rows a data rank are not "
+                                 f"{grad_accum} microbatches")
+            grads = tree_map(torch.zeros_like, local)
+            losses, per_micro = [], []
+            for mb in _split(mine, grad_accum):
+                loss, metrics, _ = value_and_grad(model, local, mb, grads)
+                losses.append(loss)
+                per_micro.append(metrics)
+        with torch.no_grad():
+            for g in tree_leaves(grads):             # THE one reduction
+                reduce_once(g.to_local() if shd.is_dtensor(g) else g
+                            ).div_(grad_accum)
+
+            def value(t):
+                return t.to_local() if shd.is_dtensor(t) else t
+            keys = sorted(per_micro[0])
+            vals = torch.stack(
+                [torch.stack([value(l) for l in losses]).sum() / grad_accum]
+                + [torch.stack([value(m[k]) for m in per_micro]).mean()
+                   for k in keys]).float()
+            vals = reduce_once(vals)
+        return vals[0], dict(zip(keys, vals[1:])), local, grads
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, local, grads = grads_of(params, batch)
+        state = {"m": tree_map(lambda t: _submesh_view(t, sub),
+                               opt_state["m"]),
+                 "v": tree_map(lambda t: _submesh_view(t, sub),
+                               opt_state["v"]),
+                 "count": opt_state["count"]}
+        _, state, opt_metrics = adamw_update(opt_cfg, grads, state, local)
+        opt_metrics = {k: v.to_local() if shd.is_dtensor(v) else v
+                       for k, v in opt_metrics.items()}
+        return params, dict(opt_state, count=state["count"]), \
+            dict(metrics, loss=loss, **opt_metrics)
+
+    def reduced_grads(params, batch):
+        loss, metrics, _, grads = grads_of(params, batch)
+        return loss, metrics, grads
+
+    train_step.grads = reduced_grads
+    return train_step
+
+
+def place_batch(batch: dict) -> dict:
+    """Under an active sharding context, each batch tensor (the same global
+    batch on every rank) as a DTensor split over the "batch" rule's axes
+    on its leading dim; without one, the batch itself."""
+    ctx = shd.current_ctx()
+    if ctx is None or not hasattr(ctx.mesh, "get_group"):
+        return batch
+    from torch.distributed.tensor import distribute_tensor
+    return {k: distribute_tensor(
+        v, ctx.mesh, ctx.placements(("batch",) + (None,) * (v.dim() - 1),
+                                    v.shape), src_data_rank=None)
+        for k, v in batch.items()}
 
 
 def make_eval_step(model: LM) -> Callable:
@@ -131,12 +257,14 @@ class Trainer:
         history = []
         dev = self.model.device
         for _ in range(num_steps):
-            batch = {k: torch.as_tensor(np.asarray(v), device=dev)
-                     for k, v in next(self.data).items()}
+            batch = place_batch({k: torch.as_tensor(np.asarray(v),
+                                                     device=dev)
+                                 for k, v in next(self.data).items()})
             t0 = time.perf_counter()
             params, opt_state, metrics = self._step_fn(params, opt_state,
                                                        batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(v.full_tensor() if shd.is_dtensor(v)
+                                else v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             self.state.step += 1
             self.state.step_times.append(dt)

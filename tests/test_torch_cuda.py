@@ -1333,3 +1333,22 @@ def test_xattn_block_on_the_card(cuda):
         assert a.dtype == b.dtype == torch.bfloat16
         torch.testing.assert_close(a.cpu().float(), b.float(),
                                    rtol=2 ** -7, atol=1e-4)
+
+
+def test_distributed_world_on_the_card(cuda):
+    """The distributed slice in a 2-rank gloo world on the one card
+    (``chip_smoke.distributed`` at the smoke config's width, both ranks on
+    cuda:0): the sharded step against the unsharded one, the reduce-once
+    step against its oracle, the compressed sum bit-equal to the CPU's and
+    the sharded checkpoint restored equal, each rank's per-shard flash
+    launches counted (``chip_smoke.py`` phase 26 at full width)."""
+    import pathlib
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    out = chip_smoke.distributed(torch, cuda, K, smoke=True)
+    r0 = out["ranks"][0]
+    assert r0["a"]["grad_gap_max"] < chip_smoke.DIST_GRAD_GAP
+    assert r0["b"]["grad_gap_max"] < chip_smoke.DIST_GRAD_GAP
+    assert r0["c"]["restored_equal"] and r0["c"]["pack_rows_save"] > 0

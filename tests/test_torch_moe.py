@@ -170,8 +170,8 @@ def test_dispatch_and_combine_match(name, cap, monkeypatch):
 
 @pytest.mark.parametrize("name", list(DIMS))
 def test_local_dispatch_takes_the_gather_path(name):
-    """Without a mesh (the port has none yet) ``dispatch="local"`` is the
-    gather path, as the reference's is without a sharding context."""
+    """Without a mesh ``dispatch="local"`` is the gather path, as the
+    reference's is without a sharding context."""
     jd, td = _dims(name)
     _, tp = _block_params(jd)
     x = torch.from_numpy(_x((2, 24, 32)))
@@ -181,11 +181,29 @@ def test_local_dispatch_takes_the_gather_path(name):
     assert torch.equal(y0, y1) and torch.equal(a0, a1)
 
 
-def test_mesh_dispatch_names_its_roadmap_item():
-    _, td = _dims("deepseek", dispatch="a2a")
-    _, tp = _block_params(jmoe.MoEDims(**DIMS["deepseek"]))
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        tmoe.moe_forward(tp, torch.zeros(1, 4, 32), td)
+def test_a2a_dispatch_takes_the_gather_path(monkeypatch):
+    """The reference has no body for ``dispatch="a2a"``: it takes the
+    gather path (``moe_forward`` branches on ``"local"`` alone).  The port
+    does the same: the dispatch buffer bit-equal to the reference's, the
+    experts' outputs, the output and aux loss at rtol 1e-5, as
+    ``test_dispatch_and_combine_match`` holds the gather path."""
+    jd, td = _dims("deepseek", dispatch="a2a",
+                   capacity_factor=CAPACITY["drops"])
+    jp, tp = _block_params(jd, seed=1)
+    x = _x((2, 24, 32), seed=1)
+    ref, port = {}, {}
+    _capture(monkeypatch, jmoe, ref)
+    _capture(monkeypatch, tmoe, port)
+    jy, ja = jmoe.moe_forward(jp, jnp.asarray(x), jd)
+    ty, ta = tmoe.moe_forward(tp, torch.from_numpy(x), td)
+    np.testing.assert_array_equal(port["disp"].numpy(),
+                                  np.asarray(ref["disp"]))
+    _close(port["out"], ref["out"])
+    _close(ty, jy)
+    np.testing.assert_allclose(float(ta), float(ja), rtol=RTOL)
+    y0, a0 = tmoe.moe_forward(tp, torch.from_numpy(x), dataclasses.replace(
+        td, dispatch="gather"))
+    assert torch.equal(ty, y0) and torch.equal(ta, a0)
 
 
 # -- the block -----------------------------------------------------------------

@@ -323,12 +323,18 @@ def test_fault_tolerance_matches_the_reference():
 
 
 def test_distributed_package_is_lazy_and_names_the_sharding_wait():
-    assert set(tdist.__all__) == set(jft.__all__) | {
+    """The package's names are the JAX package's (the sharding rules'
+    since the distributed slice, which they no longer wait for), each
+    loaded on first access."""
+    import repro.distributed as jdist
+    import repro_torch.distributed.sharding as tshd
+    assert set(tdist.__all__) == set(jdist.__all__)
+    assert set(tdist.__all__) >= set(jft.__all__) | {
         "ReorgWorkerStats", "distributed_reorganize", "worker_main",
         "with_retry"}
     assert tdist.plan_rescale is tft.plan_rescale
     assert tdist.worker_main is treorg.worker_main
-    with pytest.raises(AttributeError, match="item 13"):
-        tdist.shard
+    assert tdist.shard is tshd.shard
+    assert tdist.DEFAULT_RULES == jdist.DEFAULT_RULES
     with pytest.raises(AttributeError, match="no attribute"):
         tdist.no_such_name

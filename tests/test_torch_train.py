@@ -514,15 +514,18 @@ def test_train_launcher(monkeypatch, capsys, tmp_path):
     dense, SSD and hybrid families' finite losses), and otherwise needs a
     GPU; with ``--ckpt-dir`` it saves every
     ``--ckpt-every`` steps and at the end, and ``--resume`` carries on from
-    the latest step; ``--mesh`` names the item it waits for."""
+    the latest step; ``--mesh host`` trains in a world of this process
+    alone (``tests/test_torch_launch_mesh.py`` runs it under torchrun)."""
     train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "3",
                     "--global-batch", "2", "--seq-len", "16",
                     "--device", "cpu"])
     out = capsys.readouterr().out
     assert "arch=qwen2.5-3b-smoke device=cpu" in out and "loss" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--mesh", "host",
-                        "--device", "cpu"])
+    train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--mesh", "host",
+                    "--device", "cpu", "--steps", "2", "--global-batch", "2",
+                    "--seq-len", "16"])
+    out = capsys.readouterr().out
+    assert "mesh=host" in out and "loss" in out
     ckpt = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
             "--steps", "2", "--global-batch", "2", "--seq-len", "16",
             "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
