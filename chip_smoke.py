@@ -299,19 +299,25 @@ Phases, each printing one JSON line:
     routing decisions that differ reported, not gated; 8 sm90 forward, 4
     dq and 4 dkv launches a step, none else; peak under 80 GiB;
 26. the distributed slice in a world of 2 spawned ranks on the one card
-    (gloo over CUDA tensors, DTensor's collectives through the classic
-    c10d calls: ``classic_dtensor_collectives``): which
+    (gloo over CUDA tensors, the functional collectives' kernels replaced
+    by the classic c10d calls: ``classic_dtensor_collectives``): which
     collectives gloo takes on CUDA tensors; (a) deepseek-moe-16b at full
     width and 2 layers on mesh (data 1, model 2), ``dispatch="local"``,
-    f32, no remat: the seeded params placed by ``DEFAULT_RULES`` (8 of 16
-    heads, 32 of 64 experts and half the vocabulary a rank), one
-    ``make_train_step`` step, then rank 0 takes it without a mesh: the
-    loss within 1e-5 relative and every AdamW first moment (0.1 x the
-    clipped gradient), gathered, within 1e-4 of its max; each rank's
-    per-shard flash launches (the 3xTF32 kernels at 8 heads); then in
-    bf16 ``_flash_sharded`` at the model's attention shape, one sm90
-    forward, dq and dkv a rank at 8 heads, each rank's blocks within
-    BWD_TOL of the unsharded kernels'; (c) those params through
+    f32, under the config's ``remat="dots"``: the seeded params placed by
+    ``DEFAULT_RULES`` (8 of 16 heads, 32 of 64 experts and half the
+    vocabulary a rank), one ``make_train_step`` step against the same
+    step without a mesh on each rank: the loss within 1e-5 relative and
+    every AdamW first moment (0.1 x the clipped gradient) within 1e-4 of
+    its max; each rank's per-shard flash launches (the 3xTF32 kernels at
+    8 heads, the forward twice a layer: the recompute); then in bf16
+    ``_flash_sharded`` at the model's attention shape, one sm90 forward,
+    dq and dkv a rank at 8 heads, each rank's blocks within BWD_TOL of
+    the unsharded kernels'; then one bf16 ``make_train_step`` with remat
+    on the mesh held to rank 0's unsharded bf16 step
+    (``_sharded_step_bf16``: the loss within 1e-2, each layer's attention
+    input gradient and attention weights' first moments within
+    GRAD_GAP_BF16, the routing decisions that differ reported; its sm90
+    launches on the kernels line); (c) those params through
     ``CheckpointManager`` under ``merged_process`` (rank 0 writes,
     ``pack_rows`` merging), restored onto their placements, every rank's
     block ``torch.equal`` to its own, and the blocks those
@@ -320,9 +326,23 @@ Phases, each printing one JSON line:
     2048-token row on each rank against rank 0's unsharded gradients over
     the same 4 rows (every leaf but the router's within 1e-4; the
     router's gap reported), ``compressed_psum_tree`` on the attention and
-    router gradients bit-equal to the same call on CPU copies, and
-    ``reduce_scatter_then_gather`` equal to an all-reduce; the card's
-    memory in use, both ranks', under 75 GB.
+    router gradients bit-equal to the same call on CPU copies,
+    ``reduce_scatter_then_gather`` equal to an all-reduce, and the step's
+    update (``step.apply``) from those gradients with replicated moments
+    and, on a copy of the params, with ZeRO-1 moments split over "data"
+    (``adamw_init(zero1=True)``): the params bit-equal, each rank's m and
+    v half the bytes; the card's memory in use, both ranks', under 75 GB;
+27. the launch tooling: (a) phase 11's step (qwen2.5-3b at 6 layers, 2 x
+    2048 tokens, bf16, remat, flash) traced fake through
+    ``launch/specs.build_cell`` and ``launch/dryrun.trace`` and counted on
+    the card by ``launch/op_analysis.analyze_ops``: the fake trace's flops
+    equal to the real step's, its predicted peak beside
+    ``max_memory_allocated``, and the step's model TFLOP/s and MFU
+    (``model_flops_estimate`` over the median step seconds and over 989.4
+    TFLOP/s) printed on a line of its own; (b) ``python -m
+    repro_torch.launch.dryrun`` on qwen2.5-3b x decode_32k at full width
+    and depth in a fake (16, 16) world (a subprocess started before phase
+    23): status ok, its per-device peak under 80 GiB.
 
 The last lines are the script's total seconds, the kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Any
@@ -335,6 +355,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -4036,6 +4057,114 @@ def _sharded_flash_bf16(torch, dev, K, mesh, rank: int, shape) -> dict:
                              for n in got)}
 
 
+#: 26a's bf16 step against the unsharded bf16 step: the loss (relative)
+DIST_LOSS_GAP_BF16 = 1e-2
+
+
+@contextlib.contextmanager
+def attention_input_grads():
+    """While the block runs, the gradient of every self-attention call's
+    input (its block's ``ln1`` output), in forward call order: a hook on
+    each input ``models.attention.attn_forward`` takes in the forward
+    pass (a remat recompute inside the backward adds none)."""
+    import torch
+    from repro_torch.models import attention
+    inner = attention.attn_forward
+    grads = []
+
+    def spy(p, x, **kw):
+        if x.requires_grad and torch._C._current_graph_task_id() == -1:
+            i = len(grads)
+            grads.append(None)
+
+            def keep(g, i=i):
+                grads[i] = g.detach().clone()
+            x.register_hook(keep)
+        return inner(p, x, **kw)
+    attention.attn_forward = spy
+    try:
+        yield grads
+    finally:
+        attention.attn_forward = inner
+
+
+def _sharded_step_bf16(torch, dev, K, model, mesh, rank: int, batch,
+                       opt_cfg) -> dict:
+    """26a in bf16: one ``make_train_step`` on ``mesh`` under the config's
+    remat (launch counts reset just before it), held to the unsharded
+    bf16 step on the same seeded params, which rank 0 runs first, as phase
+    25 holds its routes: the loss within DIST_LOSS_GAP_BF16 (relative);
+    each layer's attention input gradient and each layer's attention
+    weights' first moments ((1 - b1) x the clipped gradient) within
+    GRAD_GAP_BF16 of their max; the routing decisions that differ
+    reported, not gated."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.blocks_map import flatten_pytree
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.trainer import place_batch
+    step = make_train_step(model, opt_cfg)
+    attn = [n for n in flatten_pytree(model.skeleton())
+            if "/attn/w" in n]
+
+    def run(sharded: bool):
+        with compute_dtype(torch.bfloat16), \
+                routing_log(model.cfg) as picks, \
+                attention_input_grads() as xg, \
+                (shd.use_sharding(mesh, shd.DEFAULT_RULES) if sharded
+                 else contextlib.nullcontext()):
+            params = training_params(model, torch.Generator(device=dev)
+                                     .manual_seed(SEED))
+            opt = adamw_init(params)
+            _sync(torch, dev)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, opt, metrics = step(params, opt, place_batch(batch)
+                                   if sharded else batch)
+            _sync(torch, dev)
+            seconds = time.perf_counter() - t0
+            launches = K.launch_counts()
+        m = flatten_pytree(opt["m"])
+
+        def whole(t):
+            return t.full_tensor() if shd.is_dtensor(t) else t
+        out = {"loss": float(whole(metrics["loss"])), "seconds": seconds,
+               "launches": launches, "picks": picks,
+               "m": {n: whole(m[n]) for n in attn},
+               "x": [whole(g) for g in xg]}
+        del params, opt, metrics, m
+        return out
+    want = run(False) if rank == 0 else None
+    _sync(torch, dev)
+    dist.barrier()
+    got = run(True)
+    res = {"remat": model.cfg.remat, "seconds": got["seconds"],
+           "launches": got["launches"], "layers": len(got["x"])}
+    if rank == 0:
+        counts = {n: model.cfg.program[int(n.split("/")[1])][1]
+                  for n in attn}
+        gaps = {}
+        for n in attn:
+            a, b = got["m"][n], want["m"][n]
+            for i in range(counts[n]) if counts[n] > 1 else [None]:
+                x, y = (a, b) if i is None else (a[i], b[i])
+                gaps[n if i is None else f"{n}[{i}]"] = float(
+                    (x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+        for i, (x, y) in enumerate(zip(got["x"], want["x"])):
+            gaps[f"attention_input[{i}]"] = float(
+                (x.float() - y.float()).abs().max()
+                / y.float().abs().max().clamp_min(1e-30))
+        res.update(
+            oracle_loss=want["loss"], loss=got["loss"],
+            loss_gap=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            oracle_layers=len(want["x"]), grad_gap_max=max(gaps.values()),
+            grad_gaps=gaps, bound=GRAD_GAP_BF16,
+            **routing_differences(got["picks"], want["picks"],
+                                  model.cfg.moe.n_experts))
+    del got, want
+    return res
+
+
 def _mem_used(torch, dev) -> int:
     """The card's memory in use by every process (``mem_get_info``; 0 on
     the CPU)."""
@@ -4060,88 +4189,104 @@ def _classic_ops(dist):
             "product": dist.ReduceOp.PRODUCT}
 
 
-def _classic_group(group, tag=""):
-    import torch.distributed as dist
-    from torch.distributed import _functional_collectives as funcol
+def _classic_group(group_name: str):
     from torch.distributed.distributed_c10d import _resolve_process_group
-    if isinstance(group, dist.ProcessGroup):
-        return group
-    return _resolve_process_group(funcol._resolve_group_name(group, tag))
+    return _resolve_process_group(group_name)
 
 
-def _classic_all_reduce(self, reduceOp, group, tag=""):
+#: the functional collectives the classic kernels ran, in the forward
+#: and the backward (counted while ``classic_dtensor_collectives`` is on)
+CLASSIC_COUNTS = {"forward": 0, "backward": 0}
+
+
+def _counted(fn):
+    def run(*args):
+        import torch
+        CLASSIC_COUNTS["backward" if torch._C._current_graph_task_id() != -1
+                       else "forward"] += 1
+        return fn(*args)
+    return run
+
+
+def _classic_all_reduce(input, reduce_op, group_name):
     import torch
     import torch.distributed as dist
-    out = self.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=_classic_ops(dist)[reduceOp.lower()],
-                    group=_classic_group(group, tag))
+    out = input.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=_classic_ops(dist)[reduce_op.lower()],
+                    group=_classic_group(group_name))
     return out
 
 
-def _classic_all_gather(self, gather_dim, group, tag=""):
-    import torch
+def _classic_all_gather(input, group_size, group_name):
     import torch.distributed as dist
-    pg = _classic_group(group, tag)
-    x = self.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(pg))]
-    dist.all_gather(parts, x, group=pg)
-    return torch.cat(parts, dim=gather_dim)
+    x = input.contiguous()
+    out = x.new_empty((x.shape[0] * group_size,) + tuple(x.shape[1:]))
+    dist.all_gather(list(out.chunk(group_size)), x,
+                    group=_classic_group(group_name))
+    return out
 
 
-def _classic_reduce_scatter(self, reduceOp, scatter_dim, group, tag=""):
+def _classic_reduce_scatter(input, reduce_op, group_size, group_name):
     import torch.distributed as dist
-    pg = _classic_group(group, tag)
-    x = self.movedim(scatter_dim, 0).contiguous()
-    out = x.new_empty((x.shape[0] // dist.get_world_size(pg),)
-                      + tuple(x.shape[1:]))
+    x = input.contiguous()
+    out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, op=_classic_ops(dist)[
-        reduceOp.lower()], group=pg)
-    return out.movedim(0, scatter_dim).contiguous()
+        reduce_op.lower()], group=_classic_group(group_name))
+    return out
 
 
-def _classic_all_to_all_single(self, output_split_sizes, input_split_sizes,
-                               group, tag=""):
+def _classic_all_to_all_single(input, output_split_sizes, input_split_sizes,
+                               group_name):
     import torch.distributed as dist
-    pg = _classic_group(group, tag)
-    x = self.contiguous()
+    x = input.contiguous()
     rows = sum(output_split_sizes) if output_split_sizes else x.shape[0]
     out = x.new_empty((rows,) + tuple(x.shape[1:]))
-    dist.all_to_all_single(out, x, output_split_sizes, input_split_sizes,
-                           group=pg)
+    dist.all_to_all_single(out, x, output_split_sizes or None,
+                           input_split_sizes or None,
+                           group=_classic_group(group_name))
     return out
+
+
+def _classic_wait(tensor):
+    return tensor           # the classic call had finished
 
 
 def _classic_shard_dim_alltoall(input, gather_dim, shard_dim, mesh,
                                 mesh_dim):
     # as DTensor does it on the CPU: the gather, then this rank's block
-    out = _classic_all_gather(input, gather_dim, (mesh, mesh_dim))
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_gather_tensor(input.contiguous(), gather_dim,
+                                   (mesh, mesh_dim))
     return out.chunk(mesh.size(mesh_dim), dim=shard_dim)[
         mesh.get_local_rank(mesh_dim)].contiguous()
 
 
 @contextlib.contextmanager
-def classic_dtensor_collectives():
-    """DTensor's redistributions through the classic, synchronous c10d
-    calls (``all_reduce``, ``all_gather`` of a list,
-    ``reduce_scatter_tensor``, ``all_to_all_single``) instead of its
-    functional collectives, for the duration of the block.  On torch 2.11
-    the functional collectives segfault on CUDA tensors over gloo (in
+def classic_dtensor_collectives(device_type: str = "cuda"):
+    """The functional collectives (the ``_c10d_functional`` ops that
+    DTensor's redistributions and the port's layer sums run) as the
+    classic, synchronous c10d calls (``all_reduce``, ``all_gather`` of a
+    list, ``reduce_scatter_tensor``, ``all_to_all_single``) on
+    ``device_type`` tensors for the duration of the block: their
+    ``device_type`` kernels are replaced, ``wait_tensor`` is the identity,
+    and DTensor's ``shard_dim_alltoall`` gathers then slices.  On torch
+    2.11 the functional collectives segfault on CUDA tensors over gloo (in
     their ``wait_tensor``), the backend of phase 26's two ranks on one
-    card; the classic calls work there.  No collective leaves the
-    tensors' device."""
-    from torch.distributed import _functional_collectives as funcol
+    card; the classic calls work there.  The ops stay what autograd and a
+    remat policy see, so a policy that keeps their outputs keeps them
+    here too.  Each run is counted in CLASSIC_COUNTS.  No collective
+    leaves the tensors' device."""
+    import torch
     from torch.distributed.tensor import _collective_utils as cu
-    swaps = {"all_reduce": _classic_all_reduce,
-             "all_gather_tensor": _classic_all_gather,
-             "all_gather_single": _classic_all_gather,
-             "reduce_scatter_tensor": _classic_reduce_scatter,
-             "reduce_scatter_single": _classic_reduce_scatter,
-             "all_to_all_single": _classic_all_to_all_single}
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    key = {"cuda": "CUDA", "cpu": "CPU"}[device_type]
+    for name, fn in (("all_reduce", _classic_all_reduce),
+                     ("all_gather_into_tensor", _classic_all_gather),
+                     ("reduce_scatter_tensor", _classic_reduce_scatter),
+                     ("all_to_all_single", _classic_all_to_all_single)):
+        lib.impl(name, _counted(fn), key)
+    lib.impl("wait_tensor", _classic_wait, key)
     saved = []
-    for name, fn in swaps.items():
-        if hasattr(funcol, name):
-            saved.append((funcol, name, getattr(funcol, name)))
-            setattr(funcol, name, fn)
     original = cu.shard_dim_alltoall
     for mod in list(sys.modules.values()):       # imported by name too
         if getattr(mod, "__name__", "").startswith("torch.distributed") \
@@ -4149,10 +4294,11 @@ def classic_dtensor_collectives():
             saved.append((mod, "shard_dim_alltoall", original))
             setattr(mod, "shard_dim_alltoall", _classic_shard_dim_alltoall)
     try:
-        yield
+        yield CLASSIC_COUNTS
     finally:
         for mod, name, fn in reversed(saved):
             setattr(mod, name, fn)
+        lib._destroy()
 
 
 def dist_worker(rank: int, queue, go, init: str, ckpt_root: str,
@@ -4277,13 +4423,10 @@ def _dist_world(rank, go, init, ckpt_root, device, smoke, mark, t_enter):
         mem.append(_mem_used(torch, dev))
 
     mark("a: init")
-    # (a) tensor and expert parallel: mesh (data 1, model 2).  No
-    # remat: torch 2.11 segfaulted in the recompute of a DTensor layer
-    # on the backward's device thread
-    cfg = cut_depth(dataclasses.replace(base, remat="none",
-                                        moe=dataclasses.replace(
-                                            base.moe, dispatch="local")),
-                    DIST_DEPTH_A)
+    # (a) tensor and expert parallel: mesh (data 1, model 2), under the
+    # config's own remat="dots"
+    cfg = cut_depth(dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch="local")), DIST_DEPTH_A)
     model = LM(cfg, device=dev)
     batch = host_batch(TRAIN_BATCH)
     # the oracle first, on each rank at once: the same gradients without
@@ -4351,7 +4494,7 @@ def _dist_world(rank, go, init, ckpt_root, device, smoke, mark, t_enter):
                                   model.skeleton())).values())
                           if len(d.shape))
     res["a"] = {"mesh": [1, DIST_WORLD], "layers": cfg.n_layers,
-                "head_dim": cfg.head_dim,
+                "head_dim": cfg.head_dim, "remat": cfg.remat,
                 "params": model.num_params(),
                 "local_params": local_params, "loss": loss,
                 "step_seconds": step_s,
@@ -4398,6 +4541,11 @@ def _dist_world(rank, go, init, ckpt_root, device, smoke, mark, t_enter):
                 "restored_equal": equal,
                 "seconds": time.perf_counter() - t0}
     del params, opt, metrics, step
+    dist.barrier()
+    free()
+    mark("a: bf16 step")
+    res["a"]["bf16_step"] = _sharded_step_bf16(
+        torch, dev, K, model, tp_mesh, rank, batch, opt_cfg)
     dist.barrier()
     free()
 
@@ -4448,7 +4596,6 @@ def _dist_world(rank, go, init, ckpt_root, device, smoke, mark, t_enter):
         rs_equal = torch.equal(gather(shard_), summed)
         del on_card, fb_card, on_host, fb_host, small, shard_, summed
     from repro_torch.models.params import tree_map
-    from repro_torch.train import adamw_update
 
     def mine(t):
         return t.to_local()
@@ -4486,14 +4633,39 @@ def _dist_world(rank, go, init, ckpt_root, device, smoke, mark, t_enter):
             oracle_seconds=time.perf_counter() - t0)
         del g, want
     dist.barrier()
-    # the step itself: AdamW on the reduced gradients, on each replica
+    del replica, flat_g, leaf
+    # the step itself: AdamW on the reduced gradients (``step.apply``),
+    # with replicated moments and, on a copy of the params, with ZeRO-1
+    # moments split over "data": the params must come out bit-equal
     t1 = time.perf_counter()
-    adamw_update(opt_cfg, grads, {
-        "m": tree_map(mine, opt["m"]), "v": tree_map(mine, opt["v"]),
-        "count": opt["count"]}, replica)
-    _sync(torch, dev)
-    res["b"]["update_seconds"] = time.perf_counter() - t1
-    del params, opt, grads, flat_g, leaf, metrics, replica
+    with shd.use_sharding(mesh, shd.DEFAULT_RULES):
+        params_z = tree_map(lambda t: t.clone(), params)
+        opt_z = adamw_init(params_z, zero1=True, skeleton=model.skeleton())
+        grads_z = tree_map(lambda t: t.clone(), grads)
+        step.apply(params, opt, grads)
+        _sync(torch, dev)
+        res["b"]["update_seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        step.apply(params_z, opt_z, grads_z)
+        _sync(torch, dev)
+
+    def moment_bytes(state):
+        return sum(t.to_local().numel() * t.to_local().element_size()
+                   for k in ("m", "v") for t in flatten_pytree(
+                       state[k]).values())
+    res["b"]["zero1"] = {
+        "update_seconds": time.perf_counter() - t1,
+        "params_bit_equal": all(
+            torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+                flatten_pytree(params).values(),
+                flatten_pytree(params_z).values())),
+        "moment_bytes": moment_bytes(opt_z),
+        "replicated_moment_bytes": moment_bytes(opt),
+        "split_leaves": sum(t.placements != p.placements for t, p in zip(
+            flatten_pytree(opt_z["m"]).values(),
+            flatten_pytree(params).values())),
+        "leaves": len(flatten_pytree(params))}
+    del params, opt, grads, metrics, params_z, opt_z, grads_z
     dist.barrier()
     free()
     dist.barrier()
@@ -4617,20 +4789,46 @@ def distributed(torch, dev, K, smoke: bool = False, world=None) -> dict:
                                    and c["pack_rows_restore"]):
         fails.append(f"(c) pack_rows launches {c}")
     # f32 compute: each shard's attention on the 3xTF32 kernels, one
-    # forward, one dq and one dkv a layer and microbatch (no remat)
+    # forward, one dq and one dkv a layer and microbatch, and (a) under
+    # remat one more forward a layer (the recompute); (b)'s single-layer
+    # segment runs without remat; the bf16 step the same on the sm90
+    # kernels
     D = a["head_dim"]
+    fwd_a = DIST_DEPTH_A * (2 if a["remat"] != "none" else 1)
     for r in ranks if dev.type == "cuda" else ():
-        for part, n, fwd in (("a", DIST_DEPTH_A, DIST_DEPTH_A),
-                             ("b", DIST_DEPTH_B * DIST_ACCUM,
-                              DIST_DEPTH_B * DIST_ACCUM)):
-            got = {k: r[part]["launches"][k] for k in FLASH_KERNELS}
+        for part, route, n, fwd, launched in (
+                ("a", "f32tc", DIST_DEPTH_A, fwd_a, r["a"]["launches"]),
+                ("a, bf16 step", "sm90", DIST_DEPTH_A, fwd_a,
+                 r["a"]["bf16_step"]["launches"]),
+                ("b", "f32tc", DIST_DEPTH_B * DIST_ACCUM,
+                 DIST_DEPTH_B * DIST_ACCUM, r["b"]["launches"])):
+            got = {k: launched[k] for k in FLASH_KERNELS}
             want = dict.fromkeys(FLASH_KERNELS, 0)
-            want[flash_kernel("fwd", "f32tc", D)] = fwd
-            want[flash_kernel("dq", "f32tc", D)] = n
-            want[flash_kernel("dkv", "f32tc", D)] = n
+            want[flash_kernel("fwd", route, D)] = fwd
+            want[flash_kernel("dq", route, D)] = n
+            want[flash_kernel("dkv", route, D)] = n
             if got != want:
                 fails.append(f"rank {r['rank']} ({part}) launched {got}, "
                              f"not {want}")
+    if a["remat"] != "dots":
+        fails.append(f"(a) ran under remat={a['remat']!r}, not the "
+                     f"config's 'dots'")
+    bf = a["bf16_step"]
+    if not bf["loss_gap"] < DIST_LOSS_GAP_BF16:
+        fails.append(f"(a, bf16 step) loss gap {bf['loss_gap']}")
+    if not bf["grad_gap_max"] < GRAD_GAP_BF16 or \
+            bf["layers"] != bf["oracle_layers"] or not bf["layers"]:
+        fails.append(f"(a, bf16 step) gradient gaps {bf['grad_gaps']} "
+                     f"over {bf['layers']} layers")
+    for r in ranks:
+        z = r["b"]["zero1"]
+        if not z["params_bit_equal"]:
+            fails.append(f"rank {r['rank']} (b) zero1 params differ from "
+                         f"the replicated-moment step's")
+        if 2 * z["moment_bytes"] != z["replicated_moment_bytes"]:
+            fails.append(f"rank {r['rank']} (b) zero1 moments take "
+                         f"{z['moment_bytes']} bytes, not half of "
+                         f"{z['replicated_moment_bytes']}")
     # bf16: the sm90 kernels per shard, once each, at half the heads
     for r in ranks:
         fl = r["a"]["bf16_flash"]
@@ -4647,6 +4845,131 @@ def distributed(torch, dev, K, smoke: bool = False, world=None) -> dict:
     if out["mem_used_max"] >= DIST_MEM_BYTES:
         fails.append(f"the card's memory in use reached "
                      f"{out['mem_used_max']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return out
+
+
+# -- phase 27 ------------------------------------------------------------------
+
+#: 27b: one production cell traced on a fake (16, 16) world at full width
+#: and depth, in a subprocess (``python -m repro_torch.launch.dryrun``)
+DRYRUN_CELL = ("qwen2.5-3b", "decode_32k")
+#: the H100 SXM's dense bf16 peak (data sheet), the MFU's denominator
+PEAK_BF16_FLOPS = 989.4e12
+#: 27a's timed steps after the counted one (the median is the step time)
+TOOLING_STEPS = 3
+
+
+def start_dryrun() -> dict:
+    """27b's dry run, started while earlier phases run: the subprocess
+    traces DRYRUN_CELL on a fake single-pod world on the card's device
+    type and writes its record under ``build/chip_smoke``."""
+    out = ROOT / "build" / "chip_smoke" / "dryrun_27b.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(out),
+         "--jobs", "1"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "out": out, "t0": time.time()}
+
+
+def launch_tooling(torch, dev, K, dry) -> dict:
+    """27: (a) phase 11's step (qwen2.5-3b at QWEN_TRAIN_DEPTH layers, 2 x
+    2048 tokens, bf16, ``remat="dots"``, flash on, no mesh) traced fake
+    through ``build_cell`` on the card's device type and counted for real
+    on the card by ``analyze_ops``: the fake trace's flops must equal the
+    real step's; its predicted peak beside ``max_memory_allocated``; the
+    step's model flops (``model_flops_estimate``) over the median of
+    TOOLING_STEPS more steps and over the bf16 peak: the achieved model
+    TFLOP/s and MFU.  (b) ``dry``'s record (``start_dryrun``): status
+    ``ok`` and its per-device peak under the card's CARD_BYTES."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.launch.dryrun import trace
+    from repro_torch.launch.op_analysis import analyze_ops
+    from repro_torch.launch.specs import build_cell, model_flops_estimate
+    from repro_torch.models import LM
+    from repro_torch.train import (OptimizerConfig, adamw_init,
+                                   make_train_step)
+    cfg = cut_depth(dataclasses.replace(get_config(SERVE_ARCH), flash=True,
+                                        grad_accum=1), QWEN_TRAIN_DEPTH)
+    shape = ShapeCell("train_phase11", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt_cfg = OptimizerConfig(**TRAIN_OPT)
+    t0 = time.perf_counter()
+    cell = build_cell(SERVE_ARCH, "train_4k", opt_cfg=opt_cfg,
+                      device=dev.type, cfg=cfg, shape=shape)
+    fake, memory = trace(cell)
+    trace_s = time.perf_counter() - t0
+    model = LM(cfg, device=dev)
+    params = training_params(model, torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    opt = adamw_init(params)
+    host = next(SyntheticTokens(PipelineConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+        seed=SEED, frontend=cfg.frontend, d_model=cfg.d_model)))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    step = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    real = analyze_ops(step, params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = K.launch_counts()
+    times = []
+    for _ in range(TOOLING_STEPS):
+        t1 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    del params, opt, batch, step
+    step_s = statistics.median(times)
+    model_flops = model_flops_estimate(model, shape)
+    out = {"a": {
+        "layers": cfg.n_layers, "tokens": TRAIN_BATCH * TRAIN_SEQ,
+        "trace_seconds": trace_s, "fake_flops": fake.cost.flops,
+        "real_flops": real.flops, "fake_bytes": fake.cost.bytes,
+        "real_bytes": real.bytes, "predicted_peak_bytes":
+            memory["peak_bytes_per_dev"], "memory": memory,
+        "max_memory_allocated": peak,
+        "peak_gap": (memory["peak_bytes_per_dev"] - peak) / peak,
+        "launches": launches, "step_seconds": times,
+        "model_flops": model_flops,
+        "model_tflops_per_s": model_flops / step_s / 1e12,
+        "mfu": model_flops / step_s / PEAK_BF16_FLOPS,
+        "peak_bf16_flops": PEAK_BF16_FLOPS}}
+    # (b) the production cell
+    try:
+        stdout, stderr = dry["proc"].communicate(timeout=300)
+    finally:
+        if dry["proc"].poll() is None:
+            dry["proc"].kill()
+            dry["proc"].communicate()
+    recs = json.loads(dry["out"].read_text()) if dry["out"].exists() \
+        else []
+    rec = recs[0] if recs else {"status": "missing",
+                                "error": stderr[-3000:]}
+    out["b"] = {"arch": DRYRUN_CELL[0], "shape": DRYRUN_CELL[1],
+                "exit_code": dry["proc"].returncode,
+                "wall_seconds": time.time() - dry["t0"],
+                **{k: v for k, v in rec.items() if k != "traceback"}}
+    fails = []
+    if out["a"]["fake_flops"] != out["a"]["real_flops"]:
+        fails.append(f"(a) the fake trace counted {fake.cost.flops} flops, "
+                     f"the real step {real.flops}")
+    if rec.get("status") != "ok":
+        fails.append(f"(b) {DRYRUN_CELL} is {rec.get('status')}: "
+                     f"{rec.get('error')} {rec.get('traceback', '')}")
+    elif not rec["memory"]["peak_bytes_per_dev"] < CARD_BYTES:
+        fails.append(f"(b) {DRYRUN_CELL} needs "
+                     f"{rec['memory']['peak_bytes_per_dev']} bytes a card")
     if fails:
         raise AssertionError("; ".join(fails))
     return out
@@ -4830,8 +5153,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # phase 26's ranks import and join their world while 23-25 run; they
-    # wait for the card until ``distributed`` lets them go
+    # wait for the card until ``distributed`` lets them go; 27b's dry run
+    # traces on the host meanwhile
     world = start_world(dev)
+    dry = start_dryrun()
     t0 = time.perf_counter()
     trained_e = encoder(torch, dev, K)
     emit(23, seconds=time.perf_counter() - t0, **trained_e)
@@ -4847,6 +5172,15 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     sharded = distributed(torch, dev, K, world=world)
     emit(26, seconds=time.perf_counter() - t0, **sharded)
+    t0 = time.perf_counter()
+    tooling = launch_tooling(torch, dev, K, dry)
+    torch.cuda.empty_cache()
+    a = tooling["a"]
+    print(f"27a: {a['model_tflops_per_s']:.2f} model TFLOP/s, MFU "
+          f"{a['mfu']:.4f} of {PEAK_BF16_FLOPS:.4g} ({SERVE_ARCH} at "
+          f"{a['layers']} layers, {a['tokens']} tokens a step, median of "
+          f"{TOOLING_STEPS} steps)", flush=True)
+    emit(27, seconds=time.perf_counter() - t0, **tooling)
     emit("total", seconds=time.perf_counter() - t_start)
 
     # the copy kernels' launches on their nine paths: the slice-1 step
@@ -4891,11 +5225,13 @@ def main(argv) -> int:
 
     def total(name):
         """``name``'s launches on the serving and training runs (the
-        encoder's prefill too) and phase 26a's bf16 per-shard calls."""
+        encoder's prefill too), phase 26a's bf16 per-shard call and step
+        and phase 27a's counted step."""
         return sum(r["launches"][name] for r in served_runs + trained_runs
                    ) + trained_e["prefill"]["launches"][name] + sum(
             r["a"]["bf16_flash"]["launches"][name]
-            for r in sharded["ranks"])
+            + r["a"]["bf16_step"]["launches"][name]
+            for r in sharded["ranks"]) + tooling["a"]["launches"][name]
 
     for name, launched, t in (
             ("flash_attention", total("flash_attention"),

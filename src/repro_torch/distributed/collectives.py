@@ -10,6 +10,15 @@ Where the JAX package names a ``shard_map`` axis, these take ``group``: a
 ``torch.distributed`` process group, a mesh dim name of the active sharding
 context's ``DeviceMesh``, or a one-dim ``DeviceMesh``.  Every rank of the
 group calls them with tensors of the same shapes.
+
+The collectives a model layer runs (``psum_replicated``,
+``reduce_scatter_dim``, ``all_gather_dim``, ``all_reduce``, ``all_gather``)
+are functional ops (``_c10d_functional``): their outputs are new tensors.
+The remat policy keeps the reductions' outputs (``models/model.py``
+``_collectives_saveable``), so a layer's recompute in the backward runs
+no reduction again; it gathers again what it gathered.  An in-place c10d
+call could not be kept so: the recompute would skip it and read its
+input unreduced.
 """
 
 from __future__ import annotations
@@ -21,7 +30,10 @@ from ..models.params import tree_leaves, tree_map
 
 __all__ = ["quantize_int8", "dequantize_int8", "compressed_psum_tree",
            "reduce_scatter_then_gather", "psum_replicated", "process_group",
-           "reduce_scatter_dim", "all_gather_dim"]
+           "reduce_scatter_dim", "all_gather_dim", "all_reduce",
+           "all_gather"]
+
+_funcol = torch.ops._c10d_functional
 
 
 def process_group(group):
@@ -106,9 +118,7 @@ class _PsumReplicated(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, pg):
-        y = x.clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=pg)
-        return y
+        return all_reduce(x, pg)
 
     @staticmethod
     def backward(ctx, g):
@@ -122,20 +132,35 @@ def psum_replicated(x: torch.Tensor, group) -> torch.Tensor:
     return _PsumReplicated.apply(x, process_group(group))
 
 
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced (``"sum"``, ``"max"``, ...) over ``group`` into a new
+    tensor, as one functional collective and its wait."""
+    pg = process_group(group)
+    return _funcol.wait_tensor(_funcol.all_reduce(x.contiguous(), op,
+                                                  pg.group_name))
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading dim in rank order, as
+    one functional collective and its wait."""
+    pg = process_group(group)
+    n = dist.get_world_size(pg)
+    out = _funcol.wait_tensor(_funcol.all_gather_into_tensor(
+        x.contiguous(), n, pg.group_name))
+    return out.view((n,) + tuple(x.shape))
+
+
 def _scatter(x, dim, pg):
     n = dist.get_world_size(pg)
     full = x.movedim(dim, 0).contiguous()
-    out = full.new_empty((full.shape[0] // n,) + tuple(full.shape[1:]))
-    dist.reduce_scatter_tensor(out, full, group=pg)
+    out = _funcol.wait_tensor(_funcol.reduce_scatter_tensor(
+        full, "sum", n, pg.group_name))
     return out.movedim(0, dim)
 
 
 def _gather(x, dim, pg):
-    n = dist.get_world_size(pg)
-    part = x.movedim(dim, 0).contiguous()
-    out = part.new_empty((part.shape[0] * n,) + tuple(part.shape[1:]))
-    dist.all_gather_into_tensor(out, part, group=pg)
-    return out.movedim(0, dim)
+    part = x.movedim(dim, 0)
+    return all_gather(part, pg).flatten(0, 1).movedim(0, dim)
 
 
 class _ReduceScatter(torch.autograd.Function):

@@ -28,7 +28,7 @@ from typing import Sequence
 import numpy as np
 
 __all__ = ["PartitionSpec", "ShardingRules", "ShardingCtx", "use_sharding",
-           "current_ctx", "logical_spec", "shard", "named_sharding",
+           "active", "current_ctx", "logical_spec", "shard", "named_sharding",
            "mesh_axis_sizes", "is_dtensor", "replicate_plain",
            "DEFAULT_RULES", "FSDP_RULES"]
 
@@ -220,6 +220,21 @@ def use_sharding(mesh, rules: dict | ShardingRules = None,
     _tls.ctx = ShardingCtx(mesh=mesh, rules=rules, manual=frozenset(manual))
     try:
         yield _tls.ctx
+    finally:
+        _tls.ctx = prev
+
+
+@contextlib.contextmanager
+def active(ctx: ShardingCtx | None):
+    """``ctx`` (a context ``use_sharding`` made, or None) as the active
+    one for the block.  The context is thread-local, and a remat
+    recompute runs on the backward's thread (on a card, the autograd
+    device thread): the recompute re-enters the forward's context so
+    that it takes the forward's placements and collectives."""
+    prev = current_ctx()
+    _tls.ctx = ctx
+    try:
+        yield ctx
     finally:
         _tls.ctx = prev
 

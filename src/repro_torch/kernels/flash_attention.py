@@ -17,6 +17,11 @@ passes on the ``"f32tc"`` route (``csrc/flash_fwd_f32tc.cu`` and
 kernels of the ``"simt"`` route (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``) run only when a caller names their route.
 Every kernel counts its own launches (``_COUNTERS``).
+The three passes enter through torch custom ops (``repro_torch::flash_fwd``,
+``flash_dq``, ``flash_dkv``): their fake implementations give the outputs'
+shapes and dtypes to a trace under ``FakeTensorMode`` or on meta tensors,
+and their flop formulas count the useful work (4·D flops a live (q, k)
+pair forward, 6·D dq, 8·D dkv: ``live_pairs``).
 ``flash_attention`` is differentiable through a
 ``torch.autograd.Function`` over the three.  Causal and
 one-sided sliding-window masks, a logit softcap and GQA, as the
@@ -29,15 +34,18 @@ from __future__ import annotations
 
 import math
 from types import SimpleNamespace
+from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import (flash_attention_dkv_ref, flash_attention_dq_ref,
                   flash_attention_ref)
 
 __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_dq",
-           "flash_attention_dkv"]
+           "flash_attention_dkv", "flash_flops", "live_pairs"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
@@ -133,11 +141,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, softcap):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_ref(q, k, v, scale, causal, window,
-                                         softcap)
-        else:
-            o, lse = _launch(q, k, v, scale, causal, window, softcap)
+        o, lse = torch.ops.repro_torch.flash_fwd(q, k, v, scale, causal,
+                                                 window, softcap)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (scale, causal, window, softcap)
         ctx.mark_non_differentiable(lse)
@@ -193,13 +198,8 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float,
     the plain version on a CPU one."""
     _check_bwd(q, k, v, do, lse, delta)
     _device(q, "flash_attention_dq")
-    if q.device.type == "cpu":
-        return flash_attention_dq_ref(q, k, v, do, lse, delta, scale,
-                                      causal, window, softcap)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, scale, causal, window,
-                softcap)
-    return dq
+    return torch.ops.repro_torch.flash_dq(q, k, v, do, lse, delta, scale,
+                                          causal, window, softcap)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale: float,
@@ -211,15 +211,110 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale: float,
     CPU one."""
     _check_bwd(q, k, v, do, lse, delta)
     _device(q, "flash_attention_dkv")
+    return torch.ops.repro_torch.flash_dkv(q, k, v, do, lse, delta, scale,
+                                           causal, window, softcap)
+
+
+# -- the three passes as custom ops -------------------------------------------
+# A CPU tensor takes the plain version, a CUDA tensor the kernel (or the
+# launch raises); the fake implementations run only under FakeTensorMode or
+# on meta tensors, where they give the outputs' shapes and dtypes.
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool, window: Optional[int],
+                  softcap: Optional[float]) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale, causal, window, softcap)
+    return _launch(q, k, v, scale, causal, window, softcap)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, causal, window, softcap):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                             dtype=torch.float32)
+
+
+def _dkv_shape(q, k) -> tuple:
+    return (q.shape[0], q.shape[1], k.shape[2], q.shape[3])
+
+
+@torch.library.custom_op("repro_torch::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 scale: float, causal: bool, window: Optional[int],
+                 softcap: Optional[float]) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return flash_attention_dq_ref(q, k, v, do, lse, delta, scale,
+                                      causal, window, softcap)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dq", (dq,), q, k, v, do, lse, delta, scale, causal, window,
+                softcap)
+    return dq
+
+
+@_flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, scale, causal, window, softcap):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  scale: float, causal: bool, window: Optional[int],
+                  softcap: Optional[float]) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, scale,
                                        causal, window, softcap)
-    shape = (q.shape[0], q.shape[1], k.shape[2], q.shape[3])
-    dk, dv = (torch.empty(shape, dtype=torch.float32, device=q.device)
-              for _ in range(2))
+    dk, dv = (torch.empty(_dkv_shape(q, k), dtype=torch.float32,
+                          device=q.device) for _ in range(2))
     _launch_bwd("dkv", (dk, dv), q, k, v, do, lse, delta, scale, causal,
                 window, softcap)
     return dk, dv
+
+
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, scale, causal, window, softcap):
+    return (q.new_empty(_dkv_shape(q, k), dtype=torch.float32),
+            q.new_empty(_dkv_shape(q, k), dtype=torch.float32))
+
+
+def live_pairs(Lq: int, Lk: int, causal: bool, window) -> int:
+    """(q, k) pairs the masks keep (causal; the one-sided window ``q - k <
+    window``): the work the data needs."""
+    qp = np.arange(Lq)
+    lo = np.zeros(Lq, np.int64) if window is None else \
+        np.maximum(qp - window + 1, 0)
+    hi = np.minimum(qp + 1, Lk) if causal else np.full(Lq, Lk)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_flops(kind: str, q_shape, k_shape, causal, window) -> int:
+    """Useful flops of one pass (``"fwd"``, ``"dq"`` or ``"dkv"``) over q
+    (B, Hq, Lq, D) and k (B, Hkv, Lk, D): 4·D, 6·D or 8·D a live pair of
+    every (batch, q-head)."""
+    B, Hq, Lq, D = q_shape
+    per = {"fwd": 4, "dq": 6, "dkv": 8}[kind]
+    return per * D * B * Hq * live_pairs(Lq, k_shape[2], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _fwd_flops(q, k, v, scale, causal, window, softcap, *a, **kw) -> int:
+    return flash_flops("fwd", q, k, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_dq)
+def _dq_flops(q, k, v, do, lse, delta, scale, causal, window, softcap,
+              *a, **kw) -> int:
+    return flash_flops("dq", q, k, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_dkv)
+def _dkv_flops(q, k, v, do, lse, delta, scale, causal, window, softcap,
+               *a, **kw) -> int:
+    return flash_flops("dkv", q, k, causal, window)
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:

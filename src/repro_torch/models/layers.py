@@ -123,14 +123,18 @@ def _embed_sharded(table, tokens):
     mesh = table.device_mesh
     want = tuple(pl if pl.is_shard(0) else Replicate()
                  for pl in table.placements)
-    local = table.redistribute(mesh, want).to_local()
-    v0, nv = _shard_index(mesh, want, 0)
     if is_dtensor(tokens):
         batch = tuple(Shard(0) if pl.is_shard(0) else Replicate()
                       for pl in tokens.placements)
         tok = tokens.redistribute(tokens.device_mesh, batch).to_local()
     else:
         batch, tok = (Replicate(),) * mesh.ndim, tokens
+    # a rank looks up only its own rows of a batch split over a mesh dim:
+    # the table's gradient there is a partial sum over that dim's ranks
+    grad = tuple(Partial() if b.is_shard(0) and not w.is_shard(0) else w
+                 for w, b in zip(want, batch))
+    local = table.redistribute(mesh, want).to_local(grad_placements=grad)
+    v0, nv = _shard_index(mesh, want, 0)
     V_loc = local.shape[0]
     rel = tok.long() - v0 * V_loc
     mine = (rel >= 0) & (rel < V_loc)
@@ -192,9 +196,8 @@ def _cross_entropy_sharded(x, table, labels, chunk, final_cap):
     dims.  Those sums have an identity backward (every rank uses the
     summed value), so each rank's logits get the whole function's
     gradient of their slice."""
-    import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate
-    from ..distributed.collectives import psum_replicated
+    from ..distributed.collectives import all_reduce, psum_replicated
     ctx = current_ctx()
     mesh = (table if is_dtensor(table) else x).device_mesh
     B, L, M = x.shape
@@ -223,8 +226,7 @@ def _cross_entropy_sharded(x, table, labels, chunk, final_cap):
         lab = rows[:, i * c:(i + 1) * c] - v0 * V_loc
         m = z.detach().amax(dim=-1)
         for d in vocab_dims:
-            dist.all_reduce(m, op=dist.ReduceOp.MAX,
-                            group=mesh.get_group(d))
+            m = all_reduce(m, mesh.get_group(d), "max")
         se = torch.sum(torch.exp(z - m[..., None]), dim=-1)
         mine = (lab >= 0) & (lab < V_loc)
         gold = torch.where(mine, torch.gather(

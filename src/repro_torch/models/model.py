@@ -18,7 +18,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..distributed.sharding import (current_ctx, is_dtensor,
+from ..distributed.sharding import (active, current_ctx, is_dtensor,
                                     replicate_plain, shard)
 from . import transformer as tfm
 from .layers import (cross_entropy_chunked, embed_def, embed_lookup,
@@ -32,28 +32,60 @@ __all__ = ["LM"]
 _aten = torch.ops.aten
 
 
+#: the reductions a sharded layer runs, whose outputs a remat policy keeps
+_REDUCTIONS = ("all_reduce", "reduce_scatter_tensor")
+
+
+def _collectives_saveable(ctx, func, *args, **kwargs):
+    """Keep the output of every reduction a sharded layer runs (the
+    functional ``all_reduce`` and ``reduce_scatter_tensor`` ops: the
+    explicit sums of ``distributed/collectives.py`` and DTensor's
+    reductions of partial sums) and recompute the rest, all-gathers
+    included: a gathered FSDP weight or activation is as large as the
+    layer's whole operand, so it is gathered again in the backward (as
+    FSDP does) rather than kept; a reduction's output is no larger than
+    its input, and keeping it spares the backward a second reduction."""
+    if func.namespace == "_c10d_functional" and \
+            func._opname in _REDUCTIONS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _dots_saveable(ctx, func, *args, **kwargs):
     """The reference's ``dots_with_no_batch_dims_saveable``: keep the
     outputs of matrix products without batch dimensions (the projections,
     which einsum and ``@`` lower to ``mm`` or to ``bmm`` over a batch of
-    one) and recompute everything else, attention scores included."""
+    one) and recompute everything else, attention scores included; and,
+    under a mesh, the reductions' outputs (``_collectives_saveable``)."""
     if func in (_aten.mm.default, _aten.addmm.default) or (
             func is _aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+    return _collectives_saveable(ctx, func, *args, **kwargs)
 
 
 def _remat(cfg: ModelConfig, fn):
     """``fn`` (one layer) under the config's remat policy: ``none``,
     ``dots`` (save the projections' outputs), anything else recomputes
-    the whole layer in the backward pass."""
+    the whole layer in the backward pass; both keep the reductions'
+    outputs (an all-gather is issued again in the recompute), and the
+    recompute runs under the forward's sharding context
+    (``sharding.active``, ``replicate_plain``)."""
     if cfg.remat == "none":
         return fn
-    kw = {}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _dots_saveable)
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+    policy = _dots_saveable if cfg.remat == "dots" else \
+        _collectives_saveable
+    ctx_fn = functools.partial(create_selective_checkpoint_contexts, policy)
+    sharding = current_ctx()
+
+    def run(*args):
+        # the recompute runs on the backward's thread, where the forward's
+        # thread-local state is not: its sharding context, and plain
+        # tensors meeting DTensors as replicated ones
+        with active(sharding), (replicate_plain() if sharding is not None
+                                else contextlib.nullcontext()):
+            return fn(*args)
+    return lambda *args: checkpoint(run, *args, use_reentrant=False,
+                                    context_fn=ctx_fn)
 
 
 def _stack_tree(defs, n: int):
@@ -238,6 +270,10 @@ class LM:
         """One token for the whole batch. ``tokens``: (B, 1). ``pos``: the
         current position. Updates ``cache`` in place (the reference donates
         it) and returns (logits, cache)."""
+        with plain_as_replicated(params):
+            return self._decode_step(params, cache, tokens, pos)
+
+    def _decode_step(self, params, cache, tokens, pos: int):
         cfg = self.cfg
         x = self._embed_in(params, {"tokens": tokens}
                            if cfg.frontend == "tokens" else

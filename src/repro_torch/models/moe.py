@@ -24,7 +24,6 @@ import dataclasses
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..distributed.sharding import (current_ctx, is_dtensor,
@@ -84,8 +83,17 @@ def _route(p, xf, dims: MoEDims):
     top_w, top_e, probs = _gates(p, xf, dims)
     T = xf.shape[0]
     me = torch.mean(probs, dim=0)                                 # (E,)
-    ce = torch.bincount(top_e[:, 0], minlength=dims.n_experts).float() / T
+    ce = _counts(top_e[:, 0], dims.n_experts).float() / T
     return top_w, top_e, _balance(me, ce, dims)
+
+
+def _counts(idx, n: int):
+    """``torch.bincount(idx, minlength=n)`` for indices below ``n``, as a
+    scatter-add: the same int64 counts with a shape that does not depend
+    on the values (a fake trace cannot give bincount one)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx.long(), torch.ones(idx.shape, dtype=torch.int64,
+                                  device=idx.device))
 
 
 def _capacity(T: int, dims: MoEDims) -> int:
@@ -168,11 +176,10 @@ def _shards_before(counts, mesh, dp_axes, sizes):
     """``counts`` summed over the data shards whose tokens come before
     this rank's in the batch (DTensor splits the batch over the data axes
     major first, in mesh order)."""
-    every = counts.contiguous()
+    from ..distributed.collectives import all_gather
+    every = counts
     for a in reversed(dp_axes):
-        parts = [torch.empty_like(every) for _ in range(sizes[a])]
-        dist.all_gather(parts, every, group=mesh.get_group(a))
-        every = torch.stack(parts)
+        every = all_gather(every, mesh.get_group(a))
     idx = 0
     for a in dp_axes:
         idx = idx * sizes[a] + mesh.get_local_rank(a)
@@ -206,7 +213,7 @@ def _moe_forward_sharded(p, x, dims: MoEDims, ctx):
     divided by the ranks it is summed over, so the router's, input's and
     experts' per-rank terms come back as ``Partial`` sums."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from ..distributed.collectives import (all_gather_dim,
+    from ..distributed.collectives import (all_gather_dim, all_reduce,
                                            psum_replicated,
                                            reduce_scatter_dim)
     mesh = x.device_mesh
@@ -259,14 +266,14 @@ def _moe_forward_sharded(p, x, dims: MoEDims, ctx):
         top_w, top_e, probs = _gates(router, xf, dims)
         e_flat = top_e.reshape(T * k)
         me = torch.sum(probs, dim=0)
-        top1 = torch.bincount(top_e[:, 0], minlength=E)
+        top1 = _counts(top_e[:, 0], E)
         for a in dp_axes:
             me = psum_replicated(me, groups[a])
-            dist.all_reduce(top1, group=groups[a])
+            top1 = all_reduce(top1, groups[a])
         aux = _balance(me / (T * n_dp), top1.float() / (T * n_dp), dims)
         pos = _positions(e_flat, E)
         if dp_axes:
-            before = _shards_before(torch.bincount(e_flat, minlength=E),
+            before = _shards_before(_counts(e_flat, E),
                                     mesh, dp_axes, sizes)
             pos = pos + before.to(pos.dtype)[e_flat]
         C = _capacity(T * n_dp, dims)

@@ -228,7 +228,41 @@ def ssd_cache_defs(batch: int, dims: SSMDims, dtype: str = "float32") -> dict:
 def ssd_decode(p, x, cache, dims: SSMDims):
     """One token. ``x``: (B, 1, M).  Writes the new state and conv window
     into ``cache`` in place (the model's decode keeps the stacked cache it
-    was given) and returns ``(y, cache)``."""
+    was given) and returns ``(y, cache)``.  On DTensors each rank decodes
+    the rows of its data shard with the parameters and heads whole, as
+    the scan runs (``_scan_per_shard``), and writes its blocks of the new
+    state back into the cache's placements."""
+    if is_dtensor(x):
+        return _decode_per_shard(p, x, cache, dims)
+    return _decode(p, x, cache, dims)
+
+
+def _decode_per_shard(p, x, cache, dims: SSMDims):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    sizes = mesh_axis_sizes(mesh)
+    ctx = current_ctx()
+    manual = ctx.manual if ctx is not None else frozenset()
+    dp = tuple(a for a in ("pod", "data") if a in sizes and a not in manual)
+    if x.shape[0] % math.prod(sizes[a] for a in dp):
+        dp = ()
+    rows = tuple(Shard(0) if a in dp else Replicate()
+                 for a in mesh.mesh_dim_names)
+    whole = (Replicate(),) * mesh.ndim
+
+    def local(t, placements):
+        return t.redistribute(t.device_mesh, placements).to_local() \
+            if is_dtensor(t) else t
+    mine = {k: local(v, rows) for k, v in cache.items()}
+    out, mine = _decode({k: local(v, whole) for k, v in p.items()},
+                        local(x, rows), mine, dims)
+    for k, t in cache.items():          # each rank's blocks, in place
+        t.to_local().copy_(DTensor.from_local(mine[k], mesh, rows)
+                           .redistribute(mesh, t.placements).to_local())
+    return DTensor.from_local(out, mesh, rows), cache
+
+
+def _decode(p, x, cache, dims: SSMDims):
     B = x.shape[0]
     z, xBC, dt = _split_proj(p, x, dims)        # (B,1,*)
     window = torch.cat([cache["conv"].to(xBC.dtype), xBC], dim=1)  # (B,W,C)

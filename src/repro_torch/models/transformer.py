@@ -29,6 +29,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (layer_norm, layer_norm_defs, mlp_defs, mlp_forward,
                      rms_norm, rms_norm_def)
+from ..distributed.sharding import is_dtensor, shard
 from .params import ParamDef
 
 __all__ = ["ModelConfig", "block_defs", "block_forward", "block_decode",
@@ -199,7 +200,7 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
         else:
             y, kv = ssm_mod.ssd_forward(p["ssm"], h, cfg.ssm,
                                         chunk=cfg.ssd_chunk), None
-        return x + y, zero, kv
+        return _residual(x, y), zero, kv
 
     h = _norm(cfg, p["ln1"], x)
     if kind == "xattn":
@@ -218,15 +219,53 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
         else:
             ys = ssm_mod.ssd_forward(p["ssm"], h, cfg.ssm,
                                      chunk=cfg.ssd_chunk)
-        y = 0.5 * (rms_norm(y, p["mix_na"]) + rms_norm(ys, p["mix_ns"]))
+        y = 0.5 * (rms_norm(shard(y, *_ACT), p["mix_na"])
+                   + rms_norm(shard(ys, *_ACT), p["mix_ns"]))
     if cfg.post_norm:
-        y = _norm(cfg, p["post1"], y)
-    x = x + y
+        y = _norm(cfg, p["post1"], shard(y, *_ACT))
+    x = _residual(x, y)
     h2 = _norm(cfg, p["ln2"], x)
     y2, aux = _ffn(cfg, kind, p, h2, zero)
     if cfg.post_norm:
-        y2 = _norm(cfg, p["post2"], y2)
-    return x + y2, aux, kv
+        y2 = _norm(cfg, p["post2"], shard(y2, *_ACT))
+    return _residual(x, y2), aux, kv
+
+
+#: the residual stream's logical axes
+_ACT = ("batch", None, "act_embed")
+
+
+def _residual(x, y):
+    """The residual stream ``x + y`` at its activation sharding.  On a
+    mesh a sublayer's output comes back as a partial sum over the model
+    axis (the contraction over its heads or its mlp columns was split):
+    it is reduced here, explicitly, before the sum, which a remat policy
+    keeps, and not inside the sum or a later op that reads it (the norms,
+    the next products), where DTensor would reduce it out of the policy's
+    sight and a recompute would run the reduction again.  A norm that
+    reads a sublayer's output (a post-norm, the hybrid mix) gets it so
+    reduced too: the norm's backward would otherwise hand the product's
+    gradient back split over the sequence on "model" as well, which
+    DTensor's product rule refuses at one row a data shard.  The sum's
+    gradient is reduced here too (``_reduced_grad``).  No-op off a
+    mesh."""
+    return _reduced_grad(shard(x, *_ACT) + shard(y, *_ACT))
+
+
+def _reduced_grad(t):
+    """``t`` whose gradient the backward reduces to ``t``'s placements
+    (the counterpart of the forward's reduction in ``_residual``): a
+    column-split product's input gradient is a partial sum over "model",
+    and DTensor would carry it so down the residual stream into the next
+    sublayer's backward, where a row-split product with a partial-sum
+    gradient gathers its whole weight and every rank computes the whole
+    product.  Reduced once here, every product's backward stays split."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local(grad_placements=t.placements),
+                              t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def _attn_with_kv(cfg, p, h, positions, kwargs, collect_kv):
@@ -337,17 +376,42 @@ def block_prefill(cfg: ModelConfig, kind: str, kv, cache_defs_tree,
 
 
 def _kv_to_cache(kv, cdefs, L):
+    """The prefill's k, v (B, L, K, D) in a zeroed cache of ``cdefs``; on
+    DTensors the cache is placed by its defs' axes and each rank fills its
+    own block (of a cache split over its sequence, its slots)."""
+    from ..distributed.sharding import current_ctx, is_dtensor
     S = cdefs["k"].shape[1]
     out = {}
     for nm in ("k", "v"):
         src = kv[nm].to(torch.bfloat16)            # (B, L, K, D)
         buf = torch.zeros(cdefs[nm].shape, dtype=torch.bfloat16,
                           device=src.device)
+        whole, local = buf, src
+        if is_dtensor(src):
+            from torch.distributed.tensor import distribute_tensor
+            mesh = src.device_mesh
+            pl = current_ctx().placements(cdefs[nm].axes, buf.shape,
+                                          mesh=mesh)
+            whole = distribute_tensor(buf, mesh, pl, src_data_rank=None)
+            if attn.seq_split(whole):
+                # this rank's slots of the positions the cache keeps
+                buf = whole.to_local()
+                start, n = attn.slot_range(whole)
+                local = src.redistribute(mesh, attn._whole_sequence(
+                    pl)).to_local()
+                ps = torch.arange(max(L - S, 0), L, device=buf.device)
+                sl = ps % S
+                keep = (sl >= start) & (sl < start + n)
+                buf[:, sl[keep] - start] = local[:, ps[keep]]
+                out[nm] = whole
+                continue
+            buf, local = whole.to_local(), src.redistribute(
+                mesh, pl).to_local()
         if S >= L:
-            buf[:, :L] = src
+            buf[:, :L] = local
         else:       # ring: keep last S, placed at slot p % S
-            slots = torch.arange(L - S, L, device=src.device) % S
-            buf[:, slots] = src[:, L - S:]
-        out[nm] = buf
+            slots = torch.arange(L - S, L, device=buf.device) % S
+            buf[:, slots] = local[:, L - S:]
+        out[nm] = whole
     return out
 

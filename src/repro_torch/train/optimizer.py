@@ -1,12 +1,16 @@
-"""AdamW with tree state, cosine schedule and global-norm clipping, and the
-ZeRO-1 moment definitions.
+"""AdamW with tree state, cosine schedule and global-norm clipping, and
+ZeRO-1 moments.
 
 The update runs in place under ``torch.no_grad``: the reference donates
 params and optimizer state to its jitted step, and an out-of-place update
 of a 3B-parameter model would hold a second copy of params, m and v.
 ``zero_moment_defs`` returns the moments' ``ParamDef``s with the extra
-"zero_data" axis the reference shards them on; applying it to a mesh waits
-for the distributed slice.
+"zero_data" axis the reference shards them on (``launch/specs.py`` places
+its moments so); ``adamw_init(..., zero1=True)`` places m and v so under
+the active sharding context, and ``adamw_update`` takes moments whose
+placements differ from their params': each rank updates its slice of the
+param, then gathers the param back, which the reference's jitted step
+does for free.
 """
 
 from __future__ import annotations
@@ -50,11 +54,34 @@ def warmup_cosine(cfg: OptimizerConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def adamw_init(params) -> dict:
+def adamw_init(params, zero1: bool = False, skeleton=None) -> dict:
     """Zero moments like ``params`` and a step count of 0 (int32, on the
-    params' device)."""
+    params' device).  With ``zero1`` (DTensor params under an active
+    sharding context; ``skeleton``, the params' ``ParamDef`` tree, gives
+    their logical axes) m and v are placed by ``zero_moment_defs``: split
+    over ``"data"`` on the largest dim the rules leave whole, where it
+    divides, so each data rank holds its slice of them."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
+    if zero1:
+        if skeleton is None:
+            raise ValueError("zero1 moments need the params' skeleton")
+        from torch.distributed.tensor import zeros as dzeros
+        from ..distributed.sharding import current_ctx
+        ctx = current_ctx()
+        if ctx is None or not hasattr(ctx.mesh, "get_group"):
+            raise ValueError("zero1 moments need an active sharding "
+                             "context over a DeviceMesh")
+
+        def zero(d: ParamDef, p):
+            return dzeros(d.shape, dtype=torch.float32,
+                          device_mesh=p.device_mesh,
+                          placements=ctx.placements(d.axes, d.shape,
+                                                    mesh=p.device_mesh))
+        mdefs = zero_moment_defs(skeleton)
+        return {"m": tree_map(zero, mdefs, params),
+                "v": tree_map(zero, mdefs, params),
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
     return {"m": tree_map(torch.zeros_like, params),
             "v": tree_map(torch.zeros_like, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -89,16 +116,41 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params):
         if not p.dtype == g.dtype == torch.float32:
             raise TypeError(f"AdamW updates f32 params from f32 grads; got "
                             f"{p.dtype}, {g.dtype}")
-        g.mul_(scale)
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
-        # g becomes the step: mh / (sqrt(vh) + eps) + wd * p
-        torch.div(v, bc2, out=g).sqrt_().add_(cfg.eps)
-        torch.div(torch.div(m, bc1), g, out=g)
-        g.add_(p, alpha=cfg.weight_decay)
-        p.sub_(g.mul_(lr))
+        if is_dtensor(m) and m.placements != p.placements:
+            _zero1_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
+        else:
+            _adamw_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
     return params, {"m": state["m"], "v": state["v"], "count": count}, \
         {"grad_norm": gn, "lr": lr}
+
+
+def _adamw_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2) -> None:
+    """One leaf's update, in place: m, v and p; g becomes the step."""
+    g.mul_(scale)
+    m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+    v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
+    # g becomes the step: mh / (sqrt(vh) + eps) + wd * p
+    torch.div(v, bc2, out=g).sqrt_().add_(cfg.eps)
+    torch.div(torch.div(m, bc1), g, out=g)
+    g.add_(p, alpha=cfg.weight_decay)
+    p.sub_(g.mul_(lr))
+
+
+def _zero1_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2) -> None:
+    """A leaf whose moments are split where its param is not (ZeRO-1):
+    this rank's slices of g and p (the param and its gradient are whole
+    over the axes the moments split, so taking a slice moves nothing)
+    take the same elementwise update as ``_adamw_leaf`` on the local
+    blocks, then the param is gathered back to its placements."""
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+    mesh, want = m.device_mesh, m.placements
+    gz = g.redistribute(mesh, want)
+    pz = p.redistribute(mesh, want)
+    _adamw_leaf(cfg, gz.to_local(), m.to_local(), v.to_local(),
+                pz.to_local(), local(scale), local(lr), local(bc1),
+                local(bc2))
+    p.to_local().copy_(pz.redistribute(mesh, p.placements).to_local())
 
 
 def zero_moment_defs(skel):

@@ -4,8 +4,8 @@
 opt_state, metrics) function that updates params and optimizer state in
 place (the reference donates them to its jitted step).  The
 :class:`Trainer` drives it with a checkpoint hook and straggler tracking.
-The data-parallel variant that reduces gradients once per step
-(``make_train_step_reduce_once``) waits for the distributed slice.
+The data-parallel variant that reduces gradients once per step is
+``make_train_step_reduce_once``.
 """
 
 from __future__ import annotations
@@ -46,6 +46,36 @@ def _split(batch: dict, n: int) -> list:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _rows_split(t) -> bool:
+    """Whether ``t`` is a DTensor whose leading dim is split over more
+    than one rank."""
+    if not shd.is_dtensor(t):
+        return False
+    from torch.distributed.tensor import Shard
+    return any(isinstance(pl, Shard) and pl.dim == 0 and n > 1
+               for pl, n in zip(t.placements, t.device_mesh.shape))
+
+
+def _split_sharded(batch: dict, n: int) -> list:
+    """``_split`` of a batch whose rows are split over ranks: microbatch
+    ``i`` is the ``i``-th block of every rank's own rows, split over the
+    same ranks (a logical chunk would first gather the whole batch to
+    every rank).  Where a rank holds fewer rows than ``n`` (``n`` a
+    multiple of them), each of its rows is a microbatch of one row a
+    rank: fewer microbatches, each in the least working set the mesh
+    allows."""
+    from torch.distributed.tensor import DTensor
+    local = {k: v.to_local() for k, v in batch.items()}
+    rows = next(iter(local.values())).shape[0]
+    if rows < n and n % rows == 0:
+        n = rows
+    if rows % n:
+        raise ValueError(f"{rows} rows a rank are not {n} microbatches")
+    return [{k: DTensor.from_local(local[k].chunk(n)[i].clone(), v.device_mesh,
+                                   v.placements, run_check=False)
+             for k, v in batch.items()} for i in range(n)]
+
+
 def make_train_step(model: LM, opt_cfg: OptimizerConfig,
                     grad_accum: int = 1) -> Callable:
     """Returns (params, opt_state, batch) -> (params, opt_state, metrics).
@@ -53,24 +83,35 @@ def make_train_step(model: LM, opt_cfg: OptimizerConfig,
     ``grad_accum`` > 1 runs the microbatches one after another and sums
     their gradients in f32 (one buffer like ``params``) before a single
     optimizer step: the activation working set shrinks by the
-    accumulation factor.
+    accumulation factor.  A batch of DTensors split over their rows is
+    split on each rank (``_split_sharded``): a microbatch then holds
+    other rows than the reference's contiguous one.  The step still
+    averages over the same rows; only a term computed over a whole
+    microbatch (the MoE's load-balance loss, its expert capacity) sees
+    other groups of rows.
     """
     def train_step(params, opt_state, batch):
         rows = next(iter(batch.values())).shape[0]
         if rows % grad_accum:
             raise ValueError(f"batch of {rows} is not {grad_accum} "
                              f"microbatches")
+        if grad_accum == 1:
+            micro = [batch]
+        elif all(_rows_split(v) for v in batch.values()):
+            micro = _split_sharded(batch, grad_accum)
+        else:
+            micro = _split(batch, grad_accum)
         grads = tree_map(torch.zeros_like, params)
         losses, per_micro = [], []
-        for mb in _split(batch, grad_accum):
+        for mb in micro:
             loss, metrics, _ = value_and_grad(model, params, mb, grads)
             losses.append(loss)
             per_micro.append(metrics)
         with torch.no_grad():
-            tree_map(lambda g: g.div_(grad_accum), grads)
+            tree_map(lambda g: g.div_(len(micro)), grads)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}
-        metrics["loss"] = torch.stack(losses).sum() / grad_accum
+        metrics["loss"] = torch.stack(losses).sum() / len(micro)
         params, opt_state, opt_metrics = adamw_update(opt_cfg, grads,
                                                       opt_state, params)
         return params, opt_state, dict(metrics, **opt_metrics)
@@ -101,15 +142,19 @@ def make_train_step_reduce_once(model: LM, opt_cfg: OptimizerConfig,
     f32, and the cross-rank reduction happens ONCE per step — one
     all-reduce a gradient leaf and one for the loss and metrics, each
     divided by the data ranks — instead of once per microbatch; then
-    AdamW.  The model axis stays under DTensor: params and optimizer state
-    are DTensors over ``mesh`` (replicated over the data axes), seen in
-    the step as DTensors over the model sub-mesh sharing their storage
-    (plain tensors where that sub-mesh is one device).
+    AdamW on the full mesh (moments split over ``"data"`` by
+    ``adamw_init(..., zero1=True)`` take its ZeRO-1 path).  The model
+    axis stays under DTensor: params and optimizer state are DTensors
+    over ``mesh`` (replicated over the data axes, moments split over them
+    under ZeRO-1); the forward and backward see the params as DTensors
+    over the model sub-mesh sharing their storage (plain tensors where
+    that sub-mesh is one device).
 
     The step takes the global batch (the same on every rank, plain or a
     DTensor) and updates params and state in place.  ``step.grads(params,
     batch)`` gives the reduced ``(loss, metrics, grads)`` without the
-    update."""
+    update, ``step.apply(params, opt_state, grads)`` the update from them
+    (``(opt_state, metrics)``; ``grads`` are scratch afterwards)."""
     import torch.distributed as dist
     sizes = shd.mesh_axis_sizes(mesh)
     dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
@@ -165,24 +210,32 @@ def make_train_step_reduce_once(model: LM, opt_cfg: OptimizerConfig,
             vals = reduce_once(vals)
         return vals[0], dict(zip(keys, vals[1:])), local, grads
 
+    def apply(params, opt_state, grads):
+        # the reduced gradients are whole over the data axes, as the
+        # params are: seen as full-mesh DTensors with the params'
+        # placements, so that ZeRO-1 moments (split over "data") take
+        # ``adamw_update``'s sliced path
+        from torch.distributed.tensor import DTensor
+        full = tree_map(lambda g, p: DTensor.from_local(
+            g.to_local() if shd.is_dtensor(g) else g, p.device_mesh,
+            p.placements, run_check=False) if shd.is_dtensor(p) else g,
+            grads, params)
+        _, opt_state, opt_metrics = adamw_update(opt_cfg, full, opt_state,
+                                                 params)
+        return opt_state, {k: v.to_local() if shd.is_dtensor(v) else v
+                           for k, v in opt_metrics.items()}
+
     def train_step(params, opt_state, batch):
-        loss, metrics, local, grads = grads_of(params, batch)
-        state = {"m": tree_map(lambda t: _submesh_view(t, sub),
-                               opt_state["m"]),
-                 "v": tree_map(lambda t: _submesh_view(t, sub),
-                               opt_state["v"]),
-                 "count": opt_state["count"]}
-        _, state, opt_metrics = adamw_update(opt_cfg, grads, state, local)
-        opt_metrics = {k: v.to_local() if shd.is_dtensor(v) else v
-                       for k, v in opt_metrics.items()}
-        return params, dict(opt_state, count=state["count"]), \
-            dict(metrics, loss=loss, **opt_metrics)
+        loss, metrics, _, grads = grads_of(params, batch)
+        opt_state, opt_metrics = apply(params, opt_state, grads)
+        return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     def reduced_grads(params, batch):
         loss, metrics, _, grads = grads_of(params, batch)
         return loss, metrics, grads
 
     train_step.grads = reduced_grads
+    train_step.apply = apply
     return train_step
 
 

@@ -161,8 +161,8 @@ def _redistributions(dist) -> dict:
     w = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32))
     out = {}
     for how in ("funcol", "classic"):
-        ctx = classic_dtensor_collectives() if how == "classic" else \
-            contextlib.nullcontext()
+        ctx = classic_dtensor_collectives("cpu") if how == "classic" \
+            else contextlib.nullcontext()
         with ctx:
             for name, (src, dst) in REDISTRIBUTIONS.items():
                 if src == "P":
@@ -201,7 +201,9 @@ def test_classic_collectives_redistribute_as_dtensor_does(results):
 def results(tmp_path_factory):
     d = tmp_path_factory.mktemp("collectives")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD} "
+               "--xla_cpu_multi_thread_eigen=false "
+               "intra_op_parallelism_threads=1",    # beside the worlds
                PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", _JAX, str(d / "jax.npz"),
                         str(pathlib.Path(__file__).parent)], env=env,

@@ -1352,3 +1352,27 @@ def test_distributed_world_on_the_card(cuda):
     assert r0["a"]["grad_gap_max"] < chip_smoke.DIST_GRAD_GAP
     assert r0["b"]["grad_gap_max"] < chip_smoke.DIST_GRAD_GAP
     assert r0["c"]["restored_equal"] and r0["c"]["pack_rows_save"] > 0
+
+
+def test_zero1_and_remat_sharded_steps_on_the_card(cuda):
+    """Phase 26's world at the smoke config's width on the card: 26a's
+    sharded step under ``remat="dots"`` (gradients against the unsharded
+    step's, the recompute's forward launches) and its bf16 step against
+    the unsharded bf16 step, and 26b's ZeRO-1 update (``adamw_init(
+    zero1=True)``) bit-equal to the replicated-moment one with half the
+    moment bytes on each rank."""
+    import pathlib
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+    out = chip_smoke.distributed(torch, cuda, K, smoke=True)
+    a = out["ranks"][0]["a"]
+    assert a["remat"] == "dots"
+    assert a["grad_gap_max"] < chip_smoke.DIST_GRAD_GAP
+    assert a["bf16_step"]["loss_gap"] < chip_smoke.DIST_LOSS_GAP_BF16
+    assert a["bf16_step"]["grad_gap_max"] < chip_smoke.GRAD_GAP_BF16
+    for r in out["ranks"]:
+        z = r["b"]["zero1"]
+        assert z["params_bit_equal"]
+        assert 2 * z["moment_bytes"] == z["replicated_moment_bytes"]

@@ -243,6 +243,25 @@ def _world(rank, world, init, out_path):
             for k, t in sp.items():
                 out[f"ssd/{tag}/grad/{k}"] = t.grad.full_tensor().numpy()
             out[f"ssd/{tag}/rows"] = np.array(rows)
+            # one decoded token from the prefill's cache, per data shard,
+            # against the same decode on whole tensors
+            with torch.no_grad(), shd.replicate_plain():
+                _, cache = tssm.ssd_forward_with_state(
+                    sp, sx, tssm.SSMDims(**SSD), SSD_CHUNK)
+                x1 = sx[:, -1:] * 0.5
+                y1, cache = tssm.ssd_decode(sp, x1, cache,
+                                            tssm.SSMDims(**SSD))
+            plain = {k: t.full_tensor().detach() for k, t in sp.items()}
+            with torch.no_grad():
+                _, pc = tssm.ssd_forward_with_state(
+                    plain, sx.full_tensor().detach(), tssm.SSMDims(**SSD),
+                    SSD_CHUNK)
+                py1, pc = tssm.ssd_decode(plain, x1.full_tensor(), pc,
+                                          tssm.SSMDims(**SSD))
+            out[f"ssd_decode/{tag}/y"] = y1.full_tensor().numpy()
+            out[f"ssd_decode/{tag}/S"] = cache["S"].full_tensor().numpy()
+            out[f"ssd_decode/{tag}/plain_y"] = py1.numpy()
+            out[f"ssd_decode/{tag}/plain_S"] = pc["S"].numpy()
             for case in FLASH:
                 q, k, v, cot = _flash_inputs(case)
                 axes = ("batch", "act_heads", None, None)
@@ -357,6 +376,18 @@ def test_local_dispatch_follows_the_data_shards(results):
     assert float(np.abs(r21 - r12).max()) / float(np.abs(r12).max()) > \
         GRAD_GAP
     _grad_close(tx["moe/2x1/grad/router"], r21, "router")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_ssd_decode_runs_per_data_shard(results, mesh):
+    """One decoded token on DTensors (``ssm._decode_per_shard``: each rank
+    its rows, heads whole, the new state written back to the cache's
+    placements) equals the decode on whole tensors."""
+    _, tx = results
+    for what in ("y", "S"):
+        np.testing.assert_allclose(tx[f"ssd_decode/{mesh}/{what}"],
+                                   tx[f"ssd_decode/{mesh}/plain_{what}"],
+                                   rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

@@ -185,7 +185,9 @@ print(json.dumps(out))
 @pytest.fixture(scope="module")
 def jax_indices():
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               "--xla_cpu_multi_thread_eigen=false "
+               "intra_op_parallelism_threads=1",    # beside the worlds
                PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", _JAX_INDICES,
                         json.dumps(INDEX_CASES)], env=env,
