@@ -11,6 +11,13 @@ mirror ``repro``'s (``repro_torch.core.blocks`` <-> ``repro.core.blocks``).
 Submodules load on first attribute access, so ``import repro_torch`` is
 cheap; the CUDA kernels build from ``kernels/csrc`` at their first launch.
 Entry points run on the card unless the caller passes ``device="cpu"``.
+
+Tracing: ``spans.py`` marks the hot path's layers (the MoE block and its
+parts, the SSD chunk scan, AdamW, remat's recompute, the serving
+engine's prefill and decode steps) as ``repro_torch.*`` spans.  Run any
+call inside ``torch.profiler.profile(activities=[CPU, CUDA])`` and they
+appear beside the kernels they launch, backward passes included; with no
+profiler recording they cost one boolean check.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import importlib
 
 __all__ = ["checkpoint", "configs", "core", "data", "device", "distributed",
            "examples", "interop", "io", "kernels", "launch", "models", "serve",
-           "train"]
+           "spans", "train"]
 
 
 def __getattr__(name):

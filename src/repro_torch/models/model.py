@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import spans
 from ..device import resolve_device
 from ..distributed.sharding import (active, current_ctx, is_dtensor,
                                     replicate_plain, shard)
@@ -77,15 +78,18 @@ def _remat(cfg: ModelConfig, fn):
     ctx_fn = functools.partial(create_selective_checkpoint_contexts, policy)
     sharding = current_ctx()
 
-    def run(*args):
+    def run(traced, *args):
         # the recompute runs on the backward's thread, where the forward's
         # thread-local state is not: its sharding context, and plain
-        # tensors meeting DTensors as replicated ones
+        # tensors meeting DTensors as replicated ones.  Traced, it runs
+        # inside ``repro_torch.remat.recompute``, before any span of the
+        # layer's backward opens
         with active(sharding), (replicate_plain() if sharding is not None
                                 else contextlib.nullcontext()):
-            return fn(*args)
-    return lambda *args: checkpoint(run, *args, use_reentrant=False,
-                                    context_fn=ctx_fn)
+            return spans.recompute_marked(fn, *args) if traced else \
+                fn(*args)
+    return lambda *args: checkpoint(run, spans.recording(), *args,
+                                    use_reentrant=False, context_fn=ctx_fn)
 
 
 def _stack_tree(defs, n: int):

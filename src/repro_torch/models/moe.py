@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import (current_ctx, is_dtensor,
                                     mesh_axis_sizes, shard)
+from ..spans import region, span
 from .layers import mlp_defs, mlp_forward
 from .params import ParamDef
 
@@ -117,41 +118,56 @@ def _expert_ffn(p, h, x_dtype):
     return torch.bmm(a, p["w_down"].to(x_dtype))
 
 
+def _dispatch(xf, e, pos_c, keep, n_experts: int, slots: int, k: int):
+    """The (n_experts, slots, M) buffer: a kept (token, choice) owns its
+    slot; a dropped one adds zeros into (e, C-1), so the sum is exact in
+    any order."""
+    t_idx = torch.arange(e.shape[0], device=xf.device) // k
+    contrib = torch.where(keep[:, None], xf[t_idx], 0).to(xf.dtype)
+    disp = torch.zeros((n_experts, slots, xf.shape[1]), dtype=xf.dtype,
+                       device=xf.device)
+    return disp.index_put((e, pos_c), contrib, accumulate=True)
+
+
+def _combine(out_e, e, pos_c, top_w, keep, k: int):
+    """Each token's kept choices gathered back from the experts' output,
+    weighted and summed: (T, M)."""
+    gathered = out_e[e, pos_c]                            # (T*k, M)
+    w_flat = (top_w.reshape(-1) * keep).to(out_e.dtype)
+    return torch.sum((gathered * w_flat[:, None]).reshape(
+        -1, k, out_e.shape[-1]), dim=1)
+
+
 def moe_forward(p, x, dims: MoEDims):
     """``x``: (B, L, M) -> (B, L, M), plus aux loss scalar."""
     if is_dtensor(x):
-        return _moe_forward_sharded(p, x, dims, current_ctx())
-    return _moe_forward_gather(p, x, dims)
+        with span("repro_torch.moe"):
+            return _moe_forward_sharded(p, x, dims, current_ctx())
+    return region("repro_torch.moe", _moe_forward_gather, p, x, dims)
 
 
 def _moe_forward_gather(p, x, dims: MoEDims):
     B, L, M = x.shape
     T = B * L
     xf = x.reshape(T, M)
-    top_w, top_e, aux = _route(p, xf, dims)
+    top_w, top_e, aux = region("repro_torch.moe.route", _route, p, xf, dims)
     C = _capacity(T, dims)
     E, k = dims.n_experts, dims.top_k
 
     # position of each (token, choice) within its expert's capacity
-    e_flat = top_e.reshape(T * k)                         # (T*k,)
-    pos = _positions(e_flat, E)
-    keep = pos < C
-    pos_c = torch.clamp(pos, max=C - 1).long()
-    t_idx = torch.arange(T * k, device=x.device) // k
+    with span("repro_torch.moe.positions"):
+        e_flat = top_e.reshape(T * k)                     # (T*k,)
+        pos = _positions(e_flat, E)
+        keep = pos < C
+        pos_c = torch.clamp(pos, max=C - 1).long()
 
-    # dispatch: (E, C, M).  A kept (token, choice) owns its slot; a dropped
-    # one adds zeros into (e, C-1), so the sum is exact in any order
-    contrib = torch.where(keep[:, None], xf[t_idx], 0).to(x.dtype)
-    disp = torch.zeros((E, C, M), dtype=x.dtype, device=x.device)
-    disp = disp.index_put((e_flat, pos_c), contrib, accumulate=True)
+    disp = region("repro_torch.moe.dispatch", _dispatch, xf, e_flat, pos_c,
+                  keep, E, C, k)
     disp = shard(disp, "act_experts", None, None)
-
-    out_e = _expert_ffn(p, disp, x.dtype)                 # (E, C, M)
-
-    # combine: gather back and weight
-    gathered = out_e[e_flat, pos_c]                       # (T*k, M)
-    w_flat = (top_w.reshape(T * k) * keep).to(x.dtype)
-    y = torch.sum((gathered * w_flat[:, None]).reshape(T, k, M), dim=1)
+    out_e = region("repro_torch.moe.experts", _expert_ffn, p, disp,
+                   x.dtype)                               # (E, C, M)
+    y = region("repro_torch.moe.combine", _combine, out_e, e_flat, pos_c,
+               top_w, keep, k)
 
     if dims.n_shared:
         y = y + mlp_forward(p["shared"], xf)
@@ -255,48 +271,48 @@ def _moe_forward_sharded(p, x, dims: MoEDims, ctx):
     Bb, Ll, _ = xx.shape
     T = Bb * Ll
     xf = xx.reshape(T, M)
-    if per_shard:
-        top_w, top_e, aux = _route(router, xf, dims)
-        for a in dp_axes:
-            aux = psum_replicated(aux / sizes[a], groups[a])
+    with span("repro_torch.moe.route"):
+        if per_shard:
+            top_w, top_e, aux = _route(router, xf, dims)
+            for a in dp_axes:
+                aux = psum_replicated(aux / sizes[a], groups[a])
+        else:
+            top_w, top_e, probs = _gates(router, xf, dims)
+            me = torch.sum(probs, dim=0)
+            top1 = _counts(top_e[:, 0], E)
+            for a in dp_axes:
+                me = psum_replicated(me, groups[a])
+                top1 = all_reduce(top1, groups[a])
+            aux = _balance(me / (T * n_dp), top1.float() / (T * n_dp), dims)
+    with span("repro_torch.moe.positions"):
         e_flat = top_e.reshape(T * k)
         pos = _positions(e_flat, E)
-        C = slots = _capacity(T, dims)
-    else:
-        top_w, top_e, probs = _gates(router, xf, dims)
-        e_flat = top_e.reshape(T * k)
-        me = torch.sum(probs, dim=0)
-        top1 = _counts(top_e[:, 0], E)
-        for a in dp_axes:
-            me = psum_replicated(me, groups[a])
-            top1 = all_reduce(top1, groups[a])
-        aux = _balance(me / (T * n_dp), top1.float() / (T * n_dp), dims)
-        pos = _positions(e_flat, E)
-        if dp_axes:
-            before = _shards_before(_counts(e_flat, E),
-                                    mesh, dp_axes, sizes)
-            pos = pos + before.to(pos.dtype)[e_flat]
-        C = _capacity(T * n_dp, dims)
-        slots = -(-C // n_dp) * n_dp          # an equal share a data rank
-    keep = pos < C
-    mine = keep & (e_flat >= e_lo) & (e_flat < e_lo + E_loc)
-    e_loc = torch.clamp(e_flat - e_lo, 0, E_loc - 1)
-    pos_c = torch.clamp(pos, max=C - 1).long()
-    t_idx = torch.arange(T * k, device=xx.device) // k
+        if per_shard:
+            C = slots = _capacity(T, dims)
+        else:
+            if dp_axes:
+                before = _shards_before(_counts(e_flat, E),
+                                        mesh, dp_axes, sizes)
+                pos = pos + before.to(pos.dtype)[e_flat]
+            C = _capacity(T * n_dp, dims)
+            slots = -(-C // n_dp) * n_dp      # an equal share a data rank
+        keep = pos < C
+        mine = keep & (e_flat >= e_lo) & (e_flat < e_lo + E_loc)
+        e_loc = torch.clamp(e_flat - e_lo, 0, E_loc - 1)
+        pos_c = torch.clamp(pos, max=C - 1).long()
 
-    contrib = torch.where(mine[:, None], xf[t_idx], 0).to(xx.dtype)
-    disp = torch.zeros((E_loc, slots, M), dtype=xx.dtype, device=xx.device)
-    disp = disp.index_put((e_loc, pos_c), contrib, accumulate=True)
-    if not per_shard:
-        for a in dp_axes:
-            disp = reduce_scatter_dim(disp, 1, groups[a])
-    out_e = _expert_ffn(w, disp, xx.dtype)
-    if not per_shard:
-        for a in reversed(dp_axes):
-            out_e = all_gather_dim(out_e, 1, groups[a])
-    gathered = out_e[e_loc, pos_c]
-    w_flat = (top_w.reshape(T * k) * mine).to(xx.dtype)
-    y = torch.sum((gathered * w_flat[:, None]).reshape(T, k, M), dim=1)
+    with span("repro_torch.moe.dispatch"):
+        disp = _dispatch(xf, e_loc, pos_c, mine, E_loc, slots, k)
+        if not per_shard:
+            for a in dp_axes:
+                disp = reduce_scatter_dim(disp, 1, groups[a])
+    with span("repro_torch.moe.experts"):
+        out_e = _expert_ffn(w, disp, xx.dtype)
+    with span("repro_torch.moe.combine"):
+        if not per_shard:
+            for a in reversed(dp_axes):
+                out_e = all_gather_dim(out_e, 1, groups[a])
+        y = _combine(out_e, e_loc, pos_c, top_w, mine, k)
     for a in ep_axes:
         y = psum_replicated(y, groups[a])        # THE one EP collective
         aux = psum_replicated(aux / n_ep, groups[a])

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import (current_ctx, is_dtensor,
                                     mesh_axis_sizes, shard)
+from ..spans import region
 from .layers import rms_norm
 from .params import ParamDef
 
@@ -158,16 +159,31 @@ def _ssd_scan(p, x, dims: SSMDims, chunk: int):
     xh, Bm, Cm = _split_xbc(xBC, dims)
     dt = F.softplus(dt.float() + p["dt_bias"].float())       # (B, L, H)
     A = -torch.exp(p["A_log"].float())                       # (H,)
+    y, S = region("repro_torch.ssd.scan", _chunk_scan, xh, Bm, Cm, dt, A,
+                  chunk)
+    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(B, L, dims.d_inner)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    # the raw (pre-conv) tail, in a buffer of its own: decode writes it
+    cache = {"S": S,
+             "conv": xBC_raw_tail.to(torch.bfloat16, copy=True,
+                                     memory_format=torch.contiguous_format)}
+    return y, cache
 
+
+def _chunk_scan(xh, Bm, Cm, dt, A, chunk: int):
+    """The chunk loop: (y (B, L, H, P) in ``xh``'s dtype, the final state
+    S (B, H, N, P) in f32)."""
+    B, L, H, P = xh.shape
     Q = chunk if L % chunk == 0 else L
     nc = L // Q
 
     def chunked(t):                             # (nc, B, Q, ...)
         return t.reshape(B, nc, Q, *t.shape[2:]).transpose(0, 1)
 
-    S = torch.zeros((B, dims.n_heads, dims.d_state, dims.headdim),
-                    dtype=torch.float32, device=x.device)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    S = torch.zeros((B, H, Bm.shape[-1], P), dtype=torch.float32,
+                    device=xh.device)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     ys = []
     for xc, Bc, Cc, dtc in zip(chunked(xh), chunked(Bm), chunked(Cm),
                                chunked(dt)):
@@ -198,18 +214,8 @@ def _ssd_scan(p, x, dims: SSMDims, chunk: int):
         Bw = Bc * (dtc * rdecay)[..., None]
         dBx = torch.einsum("bkhn,bkhp->bhnp", Bw, xc)
         S = torch.exp(a_tot)[..., None, None] * S + dBx
-        ys.append((y_intra + y_inter).to(x.dtype))
-
-    y = torch.stack(ys).transpose(0, 1).reshape(B, L, dims.n_heads,
-                                                 dims.headdim)
-    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(B, L, dims.d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    # the raw (pre-conv) tail, in a buffer of its own: decode writes it
-    cache = {"S": S,
-             "conv": xBC_raw_tail.to(torch.bfloat16, copy=True,
-                                     memory_format=torch.contiguous_format)}
-    return y, cache
+        ys.append((y_intra + y_inter).to(xh.dtype))
+    return torch.stack(ys).transpose(0, 1).reshape(B, L, H, P), S
 
 
 # -- decode -------------------------------------------------------------------

@@ -2,8 +2,11 @@
 
 ``make_prefill_step`` / ``make_decode_step`` produce the step functions;
 :class:`ServeEngine` drives them for batched generation, updating the
-cache in place (where the reference donates its buffers).  Timings are
-host-clock spans that end in ``torch.cuda.synchronize`` on the card.
+cache in place (where the reference donates its buffers).  On the card
+the timings are CUDA events read once the generated tokens reach the
+host, so timing stalls nothing; on the CPU the host's clock.  Under a
+profiler the prefill and each decode step are spans
+(``repro_torch.serve.prefill``, ``repro_torch.serve.decode``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from ..device import resolve_device
 from ..models.model import LM
 from ..models.params import tree_leaves
+from ..spans import span
 
 __all__ = ["make_prefill_step", "make_decode_step", "GenStats",
            "ServeEngine"]
@@ -63,9 +67,23 @@ class ServeEngine:
         self._prefill = make_prefill_step(model, cache_len=max_len)
         self._decode = make_decode_step(model)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _mark(self):
+        """A point on the engine's timeline: a CUDA event recorded on the
+        engine's card's current stream, or the host's clock on the CPU."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @staticmethod
+    def _seconds(a, b) -> float:
+        """Seconds from mark ``a`` to mark ``b``; waits for ``b`` on the
+        card."""
+        if isinstance(a, float):
+            return b - a
+        b.synchronize()
+        return a.elapsed_time(b) / 1e3
 
     @torch.inference_mode()
     def generate(self, tokens, num_new: int, temperature: float = 0.0,
@@ -83,30 +101,30 @@ class ServeEngine:
             raise ValueError("exceeds engine max_len")
         if temperature > 0.0 and generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        stats = GenStats()
-        self._sync()
-        t0 = time.perf_counter()
         batch = {"tokens": tokens}
         if extra:
             batch.update(extra)
-        logits, cache = self._prefill(self.params, batch)
-        self._sync()
-        stats.prefill_seconds = time.perf_counter() - t0
+        t0 = self._mark()
+        with span("repro_torch.serve.prefill"):
+            logits, cache = self._prefill(self.params, batch)
+            cur = self._sample(logits[:, -1], temperature, generator)
+        t1 = self._mark()
 
         out = []
-        t0 = time.perf_counter()
         pos = L
-        cur = self._sample(logits[:, -1], temperature, generator)
         for _ in range(num_new):
             out.append(cur)
-            logits, cache = self._decode(self.params, cache, cur, pos)
-            cur = self._sample(logits[:, -1], temperature, generator)
+            with span("repro_torch.serve.decode"):
+                logits, cache = self._decode(self.params, cache, cur, pos)
+                cur = self._sample(logits[:, -1], temperature, generator)
             pos += 1
-        self._sync()
-        stats.decode_seconds = time.perf_counter() - t0
-        stats.tokens_generated = num_new * B
+        t2 = self._mark()
         gen = torch.cat(out, dim=1) if out else tokens[:, :0]
-        return gen.to(torch.int32).cpu().numpy(), stats
+        gen = gen.to(torch.int32).cpu().numpy()
+        stats = GenStats(prefill_seconds=self._seconds(t0, t1),
+                         decode_seconds=self._seconds(t1, t2),
+                         tokens_generated=num_new * B)
+        return gen, stats
 
     @staticmethod
     def _sample(logits, temperature, generator):

@@ -22,6 +22,7 @@ import torch
 
 from ..distributed.sharding import is_dtensor
 from ..models.params import ParamDef, tree_leaves, tree_map
+from ..spans import span
 
 __all__ = ["OptimizerConfig", "warmup_cosine", "adamw_init", "adamw_update",
            "global_norm", "zero_moment_defs"]
@@ -98,28 +99,30 @@ def adamw_update(cfg: OptimizerConfig, grads, state, params):
     ``params`` (f32, as every ``ParamDef`` of the ported models) and the
     moments in place and uses ``grads`` as scratch (its values are gone
     afterwards); ``state["count"]`` is replaced."""
-    # a sharded model's gradient of a replicated param may come back as a
-    # partial sum (``Partial``): reduced to the param's placements first,
-    # or the update would add each rank's term as the whole
-    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
-                     if is_dtensor(g) and g.placements != p.placements
-                     else g, grads, params)
-    count = state["count"] + 1
-    lr = warmup_cosine(cfg, count)
-    gn = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
-    c = count.float()
-    bc1 = 1 - torch.pow(torch.full_like(c, cfg.b1), c)
-    bc2 = 1 - torch.pow(torch.full_like(c, cfg.b2), c)
-    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
-                          tree_leaves(state["v"]), tree_leaves(params)):
-        if not p.dtype == g.dtype == torch.float32:
-            raise TypeError(f"AdamW updates f32 params from f32 grads; got "
-                            f"{p.dtype}, {g.dtype}")
-        if is_dtensor(m) and m.placements != p.placements:
-            _zero1_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
-        else:
-            _adamw_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
+    with span("repro_torch.adamw"):
+        # a sharded model's gradient of a replicated param may come back as
+        # a partial sum (``Partial``): reduced to the param's placements
+        # first, or the update would add each rank's term as the whole
+        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                     p.placements)
+                         if is_dtensor(g) and g.placements != p.placements
+                         else g, grads, params)
+        count = state["count"] + 1
+        lr = warmup_cosine(cfg, count)
+        gn = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
+        c = count.float()
+        bc1 = 1 - torch.pow(torch.full_like(c, cfg.b1), c)
+        bc2 = 1 - torch.pow(torch.full_like(c, cfg.b2), c)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            if not p.dtype == g.dtype == torch.float32:
+                raise TypeError(f"AdamW updates f32 params from f32 grads; "
+                                f"got {p.dtype}, {g.dtype}")
+            if is_dtensor(m) and m.placements != p.placements:
+                _zero1_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
+            else:
+                _adamw_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
     return params, {"m": state["m"], "v": state["v"], "count": count}, \
         {"grad_norm": gn, "lr": lr}
 

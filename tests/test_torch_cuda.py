@@ -1376,3 +1376,86 @@ def test_zero1_and_remat_sharded_steps_on_the_card(cuda):
         z = r["b"]["zero1"]
         assert z["params_bit_equal"]
         assert 2 * z["moment_bytes"] == z["replicated_moment_bytes"]
+
+
+def test_generate_times_on_events_without_synchronize(cuda, monkeypatch):
+    """``ServeEngine.generate`` times its prefill and decode steps with CUDA
+    events read once the tokens reach the host: no
+    ``torch.cuda.synchronize`` in the call, the same tokens as a call
+    before, and both timings positive."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeEngine
+    cfg = get_smoke_config("hymba-1.5b")
+    model = LM(cfg, device=cuda)
+    engine = ServeEngine(model, model.init(torch.Generator(cuda).manual_seed(0)),
+                         max_len=96, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 64))
+    want, _ = engine.generate(prompts, 8)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("generate synchronized the device")
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    got, stats = engine.generate(prompts, 8)
+    assert np.array_equal(got, want)
+    assert stats.prefill_seconds > 0 and stats.decode_seconds > 0
+    assert stats.tokens_generated == 4 * 8
+
+
+def test_spans_on_the_backward_thread(cuda, tmp_path):
+    """A MoE training step on the card under the profiler: the regions'
+    backward spans open on autograd's device thread, nest there, and hold
+    ``IndexPutBackward0``; each layer's recompute runs in its own span
+    there, outside every region's backward span."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import LM
+    from repro_torch.models.moe import MoEDims
+    from repro_torch.models.transformer import ModelConfig
+    from repro_torch.train import (OptimizerConfig, adamw_init,
+                                   make_train_step)
+    cfg = ModelConfig(
+        name="moe-spans", family="moe", n_layers=3, d_model=64, n_heads=4,
+        n_kv=4, head_dim=16, d_ff=96, vocab=64,
+        program=(("attn", 1), ("moe", 2)),
+        moe=MoEDims(d_model=64, d_ff=32, n_experts=8, top_k=3, n_shared=2),
+        tie_embed=False, remat="dots", q_chunk=16, loss_chunk=16)
+    model = LM(cfg, device=cuda)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    step = make_train_step(model, OptimizerConfig())
+    opt = adamw_init(params)
+    g = torch.Generator(cuda).manual_seed(1)
+    batch = {k: torch.randint(0, 64, (2, 32), generator=g, device=cuda)
+             for k in ("tokens", "labels")}
+    params, opt, _ = step(params, opt, batch)          # warm up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev = [(e.get("tid"), e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+          for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    opens = [e for e in ev if e[3] ==
+             "autograd::engine::evaluate_function: _OutputsBackward"]
+    ours = [e for e in ev if e[3].startswith("repro_torch.")]
+    back = [e for e in ours if any(o[0] == e[0] and o[1] <= e[1] <= o[2]
+                                   for o in opens)]
+    fwd_tid = next(e[0] for e in ours if e[3] == "repro_torch.adamw")
+    assert back and {e[0] for e in back} != {fwd_tid}
+    for a in ours:
+        for b in ev:
+            if b[0] == a[0] and (a[1] < b[1] < a[2] < b[2]
+                                 or b[1] < a[1] < b[2] < a[2]):
+                assert "_OutputsBackward" in b[3] or \
+                    "_InputsBackward" in b[3], (a, b)
+    disp = [e for e in ours if e[3] == "repro_torch.moe.dispatch"]
+    ipb = [e for e in ev if e[3] ==
+           "autograd::engine::evaluate_function: IndexPutBackward0"]
+    assert len(ipb) == 2 and all(
+        any(d[0] == i[0] and d[1] <= i[1] and i[2] <= d[2] for d in disp)
+        for i in ipb)
+    rec = [e for e in ours if e[3] == "repro_torch.remat.recompute"]
+    assert len(rec) == 2 and not any(
+        r[0] == b[0] and r[1] < b[2] and b[1] < r[2] for r in rec
+        for b in back)

@@ -116,7 +116,8 @@ def test_package_is_lazy():
                                         "data", "device", "distributed",
                                         "examples",
                                         "interop", "io", "kernels", "launch",
-                                        "models", "serve", "train"}
+                                        "models", "serve", "spans",
+                                        "train"}
     with pytest.raises(AttributeError):
         repro_torch.no_such_module
 
